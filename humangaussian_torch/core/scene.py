@@ -20,7 +20,7 @@ from typing import NamedTuple
 import torch
 
 from humangaussian_torch import resolve_device
-from humangaussian_torch.core.sh import num_sh_coeffs
+from humangaussian_torch.core.sh import num_sh_coeffs, rgb_to_sh
 
 
 def inverse_sigmoid(x):
@@ -49,6 +49,15 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def covariance_from_scaling_rotation(
+    scales: torch.Tensor, quats: torch.Tensor, scale_modifier: float = 1.0
+) -> torch.Tensor:
+    """3D covariance Sigma = R S S^T R^T as a full [..,3,3] matrix."""
+    r = quat_to_rotmat(quats)
+    m = r * (scales * scale_modifier)[..., None, :]  # R @ diag(s)
+    return m @ m.transpose(-1, -2)
 
 
 class GaussianScene(NamedTuple):
@@ -98,6 +107,20 @@ class GaussianScene(NamedTuple):
     def num_alive(self) -> int:
         return int(self.alive.sum())
 
+    def params(self) -> dict:
+        """The optimizable leaves (excludes the alive mask)."""
+        return {
+            "means": self.means,
+            "log_scales": self.log_scales,
+            "quats": self.quats,
+            "sh_dc": self.sh_dc,
+            "sh_rest": self.sh_rest,
+            "opacity_logits": self.opacity_logits,
+        }
+
+    def replace_params(self, p: dict) -> "GaussianScene":
+        return self._replace(**p)
+
 
 def empty_scene(capacity: int, sh_degree: int = 0,
                 device="cuda") -> GaussianScene:
@@ -114,4 +137,46 @@ def empty_scene(capacity: int, sh_degree: int = 0,
         sh_rest=torch.zeros((capacity, k - 1, 3), **f32),
         opacity_logits=torch.full((capacity, 1), -10.0, **f32),
         alive=torch.zeros((capacity,), dtype=torch.bool, device=dev),
+    )
+
+
+def scene_from_points(
+    points: torch.Tensor,
+    colors: torch.Tensor,
+    capacity: int,
+    sh_degree: int = 0,
+    mean_sq_dist: torch.Tensor | None = None,
+    init_opacity: float = 0.1,
+) -> GaussianScene:
+    """Initialize from a point cloud (upstream create_from_pcd): dc colour
+    = RGB2SH(rgb); isotropic log-scale = log(sqrt(mean squared 3-NN
+    distance)) (clamped at 1e-7); identity quats; opacity = 0.1. The scene
+    lives on `points`' device.
+
+    `mean_sq_dist` is the [N] mean squared distance to the 3 nearest
+    neighbours (humangaussian_torch.ops.knn.mean_3nn_sq_dist_host); a
+    constant 1e-4 stands in when it is None.
+    """
+    n = points.shape[0]
+    if n > capacity:
+        raise ValueError(f"{n} points exceed capacity {capacity}")
+    dev = points.device
+    scene = empty_scene(capacity, sh_degree, dev)
+    if mean_sq_dist is None:
+        mean_sq_dist = torch.full((n,), 1e-4, dtype=torch.float32, device=dev)
+    mean_sq_dist = mean_sq_dist.to(dev, torch.float32)
+    log_scale = torch.log(torch.sqrt(torch.clamp_min(mean_sq_dist, 1e-7)))
+    logit = inverse_sigmoid(torch.tensor(init_opacity, dtype=torch.float32))
+
+    def padded(x, base):
+        out = base.clone()
+        out[:n] = x
+        return out
+
+    return scene._replace(
+        means=padded(points.to(torch.float32), scene.means),
+        log_scales=padded(log_scale[:, None].expand(n, 3), scene.log_scales),
+        sh_dc=padded(rgb_to_sh(colors.to(torch.float32)), scene.sh_dc),
+        opacity_logits=padded(logit.to(dev), scene.opacity_logits),
+        alive=torch.arange(capacity, device=dev) < n,
     )

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -110,11 +111,23 @@ RASTERIZE_FWD = Kernel(
     [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P],
 )
 
-KERNELS = (RASTERIZE_FWD,)
+RASTERIZE_BWD = Kernel(
+    "rasterize_bwd", "rasterize_bwd.cu", "hg_rasterize_bwd",
+    # feats, gids, starts, counts, num_blocks, tiles_x, tiles_y, alpha_min,
+    # alpha_max, t_eps, image, depth, final_t, n_contrib, g_image, g_depth,
+    # g_alpha, dfeats, stream
+    [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
+     _P],
+)
+
+KERNELS = (RASTERIZE_FWD, RASTERIZE_BWD)
 
 
 def build_all() -> None:
-    """Build and load every kernel."""
+    """Build every kernel, one nvcc process per source, all started
+    together, then load them."""
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        list(pool.map(Kernel.build, KERNELS))
     for k in KERNELS:
         k.function()
 

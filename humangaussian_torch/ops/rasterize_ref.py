@@ -10,14 +10,16 @@ per-pixel semantics expressed as a log-transmittance recurrence:
   contrib = pass_i & no trigger at any j <= i        (latched stop)
   C      += T_i alpha_i c_i  [rgb, depth];  final T -> alpha, background
 
-It shares no code with binning or the compositing kernel, which makes it
-the CPU tests' ground truth for the whole tiled render.
+It shares no code with binning or the compositing kernels, which makes it
+the ground truth for the whole tiled render: its outputs for the forward,
+torch autograd through it for the six gradients.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from humangaussian_torch.core.camera import Camera
 from humangaussian_torch.ops.projection import (
@@ -37,7 +39,11 @@ def rasterize_prims(prims: ProjectedGaussians, order: torch.Tensor,
                     background: torch.Tensor, height: int, width: int,
                     cfg: RasterizeConfig, chunk: int = 256):
     """Composite depth-ordered primitives over every pixel.
-    Returns (image [H,W,3], depth [H,W], alpha [H,W])."""
+    Returns (image [H,W,3], depth [H,W], alpha [H,W]). Differentiable by
+    torch autograd (the gradient oracle): when a gradient is wanted, each
+    chunk is checkpointed, so its [pixels, chunk] intermediates are
+    recomputed in the backward instead of kept and the memory of a
+    gradient stays that of one chunk."""
     dev = prims.depths.device
     p = height * width
     mxy = prims.means2d[order]
@@ -56,13 +62,8 @@ def rasterize_prims(prims: ProjectedGaussians, order: torch.Tensor,
     pix_ty = (ys // cfg.tile).reshape(p)
     log_eps = math.log(cfg.transmittance_eps)
 
-    log_t = torch.zeros((p,), dtype=torch.float32, device=dev)
-    done = torch.zeros((p,), dtype=torch.bool, device=dev)
-    acc = torch.zeros((p, 5), dtype=torch.float32, device=dev)
-    n = order.shape[0]
-    for c0 in range(0, n, chunk):
-        sl = slice(c0, min(c0 + chunk, n))
-        c_mxy, c_con, c_rct = mxy[sl], con[sl], rct[sl]
+    def step(log_t, done, acc, c_mxy, c_con, c_col, c_opa, c_dep, c_rct,
+             c_vis):
         dx = c_mxy[:, 0][None, :] - pix_x[:, None]  # [P, G]
         dy = c_mxy[:, 1][None, :] - pix_y[:, None]
         power = (
@@ -70,7 +71,7 @@ def rasterize_prims(prims: ProjectedGaussians, order: torch.Tensor,
             - c_con[:, 1][None] * dx * dy
         )
         alpha = torch.clamp_max(
-            opa[sl][None, :] * torch.exp(torch.clamp_max(power, 0.0)),
+            c_opa[None, :] * torch.exp(torch.clamp_max(power, 0.0)),
             cfg.alpha_max,
         )
         in_rect = (
@@ -79,7 +80,7 @@ def rasterize_prims(prims: ProjectedGaussians, order: torch.Tensor,
             & (pix_ty[:, None] >= c_rct[None, :, 1])
             & (pix_ty[:, None] < c_rct[None, :, 3])
         )
-        pass_ = (vis[sl][None, :] & in_rect & (power <= 0.0)
+        pass_ = (c_vis[None, :] & in_rect & (power <= 0.0)
                  & (alpha >= cfg.alpha_min))
         log1ma = torch.where(
             pass_, torch.log1p(-torch.where(pass_, alpha, 0.0)), 0.0
@@ -93,12 +94,27 @@ def rasterize_prims(prims: ProjectedGaussians, order: torch.Tensor,
         w = torch.where(contrib, torch.exp(log_t_before) * alpha, 0.0)
         g = c_mxy.shape[0]
         feats = torch.cat(
-            [col[sl], dep[sl][:, None],
+            [c_col, c_dep[:, None],
              torch.ones((g, 1), dtype=torch.float32, device=dev)], dim=1
         )
-        acc = acc + w @ feats
-        log_t = log_t + torch.where(contrib, log1ma, 0.0).sum(dim=1)
-        done = done_upto[:, -1]
+        return (log_t + torch.where(contrib, log1ma, 0.0).sum(dim=1),
+                done_upto[:, -1], acc + w @ feats)
+
+    log_t = torch.zeros((p,), dtype=torch.float32, device=dev)
+    done = torch.zeros((p,), dtype=torch.bool, device=dev)
+    acc = torch.zeros((p, 5), dtype=torch.float32, device=dev)
+    n = order.shape[0]
+    checkpoint = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (mxy, con, col, opa, dep))
+    for c0 in range(0, n, chunk):
+        sl = slice(c0, min(c0 + chunk, n))
+        args = (log_t, done, acc, mxy[sl], con[sl], col[sl], opa[sl], dep[sl],
+                rct[sl], vis[sl])
+        if checkpoint:
+            log_t, done, acc = torch.utils.checkpoint.checkpoint(
+                step, *args, use_reentrant=False)
+        else:
+            log_t, done, acc = step(*args)
 
     t_final = torch.exp(log_t)
     image = acc[:, :3] + t_final[:, None] * background[None, :]

@@ -1,23 +1,32 @@
-"""Production tiled rasterizer (forward): project -> bin -> composite.
+"""Production tiled rasterizer: project -> bin -> composite, differentiable.
 
 Port of humangaussian_tpu/ops/rasterize_tiled.py (`rasterize_tiled`,
-`rasterize_tiled_batch`), forward only. Same contract: a dict with
+`rasterize_tiled_batch`), forward and backward. Same contract: a dict with
 image [H,W,3], depth [H,W], alpha [H,W], radii [N] int32, visible [N] and
 the `overflow` / `overflow_spill` diagnostics (leading camera axis in the
 batched form).
 
 Compositing is kernel K1, `humangaussian_torch/csrc/rasterize_fwd.cu`, the
-Hopper port of the JAX `_fwd_kernel`. `composite` launches it for CUDA
-tensors and takes `composite_plain`, the same function in plain torch, for
-CPU tensors; on a CUDA tensor it launches the kernel or raises.
+Hopper port of the JAX `_fwd_kernel`; its backward is kernel K2,
+`humangaussian_torch/csrc/rasterize_bwd.cu`, the port of `_bwd_kernel`.
+`composite` ties the two together in a `torch.autograd.Function` (the
+counterpart of the JAX `_render_core` custom_vjp): it returns the gradient
+of the per-Gaussian feature rows only, and projection, SH, the
+`means2d_offset` tap and the activations stay ordinary torch autograd. For
+CUDA tensors `composite` launches K1 and its backward launches K2; for CPU
+tensors they take `composite_plain` and `composite_backward_plain`, the
+same functions in plain torch. On a CUDA tensor a kernel launches or the
+call raises.
 
-TPU-only mechanics of the JAX kernel that are not ported: the
-feature-major [16, P] pair array and its row gather (the kernel gathers
-feature rows by pair index itself, as upstream renderCUDA does), the
+TPU-only mechanics of the JAX kernels that are not ported: the
+feature-major [16, P] pair array and its row gather (the kernels gather
+feature rows by pair index themselves, as upstream renderCUDA does), the
 128-lane DMA windows and `_lane_shift`, the MXU triangular cumsum, the
-Newton-corrected `log1p` for Mosaic, and the channel-major [T, 8, PIX]
-output with its transpose in `_assemble` (the kernel writes [B, H, W, .]
-directly).
+Newton-corrected `log1p` for Mosaic, the channel-major [T, 8, PIX]
+output with its transpose in `_assemble` (K1 writes [B, H, W, .]
+directly), and the backward's page buffers, candidate-key row, gather /
+sort routing and tile-centred monomial matmul (K2 adds each pair's sums
+into its Gaussian's row with atomics).
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ import math
 import torch
 
 from humangaussian_torch.core.camera import Camera
-from humangaussian_torch.kernels import RASTERIZE_FWD
+from humangaussian_torch.kernels import RASTERIZE_BWD, RASTERIZE_FWD
 from humangaussian_torch.ops.binning import build_pair_lists
 from humangaussian_torch.ops.projection import (
     ProjectedGaussians,
@@ -87,26 +96,13 @@ def _check_composite_args(feats, gids, starts, counts, background,
         )
 
 
-def composite(feats, gids, starts, counts, background, tiles_x: int,
-              tiles_y: int, cfg: RasterizeConfig = RasterizeConfig()) -> dict:
-    """K1 wrapper: front-to-back compositing of each tile's pair segment.
-
-    feats [M,10] f32 per-Gaussian rows (all cameras), gids [P] int32
-    depth-sorted pair -> row, starts/counts [B*tiles] int32 segment per
-    tile, background [3]. Returns image [B,H,W,3], depth/alpha/final_t
-    [B,H,W] f32 and n_contrib [B,H,W] int32 (one past the segment-local
-    index of each pixel's last contributing pair).
-    """
-    _check_composite_args(feats, gids, starts, counts, background,
-                          tiles_x, tiles_y)
+def _composite_forward(feats, gids, starts, counts, background, tiles_x,
+                       tiles_y, cfg) -> dict:
+    """K1 for CUDA tensors, `composite_plain` for CPU tensors."""
     if feats.device.type == "cpu":
         return composite_plain(feats, gids, starts, counts, background,
                                tiles_x, tiles_y, cfg)
-    if cfg.tile != KERNEL_TILE:
-        raise ValueError(f"the CUDA kernel is built for tile {KERNEL_TILE}, "
-                         f"got {cfg.tile}")
-    if feats.device.type != "cuda":
-        raise ValueError(f"no compositing kernel for device {feats.device}")
+    _check_kernel_device(feats, cfg)
     n_blocks = counts.shape[0]
     b = n_blocks // (tiles_x * tiles_y)
     h, w = tiles_y * cfg.tile, tiles_x * cfg.tile
@@ -127,6 +123,120 @@ def composite(feats, gids, starts, counts, background, tiles_x: int,
         )
     return {"image": image, "depth": depth, "alpha": alpha,
             "final_t": final_t, "n_contrib": n_contrib}
+
+
+def _check_kernel_device(feats, cfg):
+    if cfg.tile != KERNEL_TILE:
+        raise ValueError(f"the CUDA kernel is built for tile {KERNEL_TILE}, "
+                         f"got {cfg.tile}")
+    if feats.device.type != "cuda":
+        raise ValueError(f"no compositing kernel for device {feats.device}")
+
+
+def composite_backward(feats, gids, starts, counts, background, saved,
+                       grads, tiles_x: int, tiles_y: int,
+                       cfg: RasterizeConfig = RasterizeConfig()
+                       ) -> torch.Tensor:
+    """K2 wrapper: gradient of the feature rows, [M,10] f32.
+
+    `saved` holds `composite`'s image, depth, final_t and n_contrib for
+    the same inputs; `grads` the cotangents (g_image [B,H,W,3], g_depth,
+    g_alpha [B,H,W]). K2 for CUDA tensors, `composite_backward_plain` for
+    CPU tensors."""
+    _check_composite_args(feats, gids, starts, counts, background,
+                          tiles_x, tiles_y)
+    if feats.device.type == "cpu":
+        return composite_backward_plain(feats, gids, starts, counts,
+                                        background, saved, grads, tiles_x,
+                                        tiles_y, cfg)
+    _check_kernel_device(feats, cfg)
+    dev = feats.device
+    n_blocks = counts.shape[0]
+    b = n_blocks // (tiles_x * tiles_y)
+    h, w = tiles_y * cfg.tile, tiles_x * cfg.tile
+    ins = []
+    for name, x, dtype, shape in (
+        ("image", saved["image"], torch.float32, (b, h, w, 3)),
+        ("depth", saved["depth"], torch.float32, (b, h, w)),
+        ("final_t", saved["final_t"], torch.float32, (b, h, w)),
+        ("n_contrib", saved["n_contrib"], torch.int32, (b, h, w)),
+        ("g_image", grads[0], torch.float32, (b, h, w, 3)),
+        ("g_depth", grads[1], torch.float32, (b, h, w)),
+        ("g_alpha", grads[2], torch.float32, (b, h, w)),
+    ):
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name} must be {dtype} {shape} on {dev}, got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}")
+        ins.append(x.contiguous())
+    dfeats = torch.zeros_like(feats)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        RASTERIZE_BWD.launch(
+            feats.data_ptr(), gids.data_ptr(), starts.data_ptr(),
+            counts.data_ptr(), n_blocks, tiles_x, tiles_y, cfg.alpha_min,
+            cfg.alpha_max, cfg.transmittance_eps,
+            *(x.data_ptr() for x in ins), dfeats.data_ptr(), stream,
+        )
+    return dfeats
+
+
+class _Composite(torch.autograd.Function):
+    """K1 forward / K2 backward (their plain versions on the CPU).
+
+    Differentiable in `feats` only; image, depth and alpha carry
+    gradients, final_t and n_contrib (and the plain version's work
+    counters) are marked non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, feats, gids, starts, counts, background, tiles_x,
+                tiles_y, cfg):
+        out = _composite_forward(feats, gids, starts, counts, background,
+                                 tiles_x, tiles_y, cfg)
+        ctx.save_for_backward(feats, gids, starts, counts, background,
+                              out["image"], out["depth"], out["final_t"],
+                              out["n_contrib"])
+        ctx.geometry = (tiles_x, tiles_y, cfg)
+        extras = tuple(out.get(k) for k in ("visits", "contribs"))
+        ctx.mark_non_differentiable(
+            out["final_t"], out["n_contrib"],
+            *(x for x in extras if x is not None))
+        return (out["image"], out["depth"], out["alpha"], out["final_t"],
+                out["n_contrib"], *extras)
+
+    @staticmethod
+    def backward(ctx, g_image, g_depth, g_alpha, *_):
+        (feats, gids, starts, counts, background, image, depth, final_t,
+         n_contrib) = ctx.saved_tensors
+        saved = {"image": image, "depth": depth, "final_t": final_t,
+                 "n_contrib": n_contrib}
+        dfeats = composite_backward(
+            feats, gids, starts, counts, background, saved,
+            (g_image, g_depth, g_alpha), *ctx.geometry)
+        return dfeats, None, None, None, None, None, None, None
+
+
+def composite(feats, gids, starts, counts, background, tiles_x: int,
+              tiles_y: int, cfg: RasterizeConfig = RasterizeConfig()) -> dict:
+    """Front-to-back compositing of each tile's pair segment, with its
+    gradient (K1 / K2 behind a `torch.autograd.Function`).
+
+    feats [M,10] f32 per-Gaussian rows (all cameras), gids [P] int32
+    depth-sorted pair -> row, starts/counts [B*tiles] int32 segment per
+    tile, background [3]. Returns image [B,H,W,3], depth/alpha [B,H,W]
+    f32, differentiable with respect to `feats`, and the two tensors the
+    backward replays from: final_t [B,H,W] f32 and n_contrib [B,H,W] int32
+    (one past the segment-local index of each pixel's last contributing
+    pair). For CPU tensors the dict also carries `composite_plain`'s work
+    counters.
+    """
+    _check_composite_args(feats, gids, starts, counts, background,
+                          tiles_x, tiles_y)
+    keys = ("image", "depth", "alpha", "final_t", "n_contrib", "visits",
+            "contribs")
+    out = _Composite.apply(feats, gids, starts, counts, background, tiles_x,
+                           tiles_y, cfg)
+    return {k: v for k, v in zip(keys, out) if v is not None}
 
 
 def composite_plain(feats, gids, starts, counts, background, tiles_x: int,
@@ -216,6 +326,135 @@ def composite_plain(feats, gids, starts, counts, background, tiles_x: int,
         "visits": visits,
         "contribs": contribs,
     }
+
+
+def composite_backward_plain(feats, gids, starts, counts, background, saved,
+                             grads, tiles_x: int, tiles_y: int,
+                             cfg: RasterizeConfig = RasterizeConfig()
+                             ) -> torch.Tensor:
+    """K2's function in plain torch: the analytic replay VJP of
+    `composite_plain`, vectorized over (tile, pixel) and PLAIN_CHUNK pairs
+    at a time, with `index_add_` for the per-Gaussian sum. It is written
+    from the formula, not taken by autograd through `composite_plain`
+    (autograd is the tests' second oracle).
+
+    Derivation. Per pixel, with F_i = [r, g, b, depth] of pair i, the
+    cotangents g = [g_r, g_g, g_b, g_depth] of the accumulators,
+    phi_i = F_i . g, T_i the transmittance before pair i and
+    w_i = T_i alpha_i, the loss depends on alpha_i through its own weight
+    (T_i phi_i) and through every later T_j = T_i (1 - alpha_i) ..., the
+    final transmittance included:
+        dL/dalpha_i = T_i phi_i - (S - P_i) / max(1 - alpha_i, 1e-6)
+    where P_i is the inclusive prefix of w_j phi_j and
+    S = sum_j w_j phi_j + g_logT, g_logT = dL/dlog T_fin. The outputs are
+    image = acc + T_fin bg and alpha = 1 - T_fin, so
+        g_logT = T_fin (g_image . bg - g_alpha),
+        sum_j w_j phi_j = g_image . (image - T_fin bg) + g_depth depth,
+    both from saved outputs (the background terms cancel in S; K2 uses the
+    cancelled form, this function the long one). Then, as jax.grad of the
+    JAX reference gives: no gradient through the alpha_max clamp
+    (dalpha_raw = dalpha only where opa exp(power) < alpha_max);
+    dpower = dalpha_raw opa exp(power) only where power < 0, while
+    dopacity = sum_p dalpha_raw exp(power) has no such gate (a pair at
+    exactly power == 0 passes the forward gate);
+    dmean_x = -(ca gx + cb gy), dmean_y = -(cc gy + cb gx) with
+    gx = sum_p dpower dx, dx = mean_x - px; dconic a, b, c =
+    -1/2 sum dpower dx^2, -sum dpower dx dy, -1/2 sum dpower dy^2;
+    drgb = sum_p g_rgb w, ddepth = sum_p g_depth w. Pairs that fail a gate,
+    pairs at or after a pixel's done latch and pairs past the tile's capped
+    count get exactly 0."""
+    dev = feats.device
+    tile = cfg.tile
+    pix = tile * tile
+    tiles = tiles_x * tiles_y
+    n_blocks = counts.shape[0]
+    b = n_blocks // tiles
+    log_eps = math.log(cfg.transmittance_eps)
+    lin = torch.arange(pix, device=dev)
+    t_local = torch.arange(n_blocks, device=dev) % tiles
+    px = ((t_local % tiles_x)[:, None] * tile + lin % tile).to(torch.float32)
+    py = ((t_local // tiles_x)[:, None] * tile + lin // tile).to(torch.float32)
+
+    def from_image(x):  # [B, H, W, ...] -> [G, PIX, ...]
+        rest = x.shape[3:]
+        x = x.reshape(b, tiles_y, tile, tiles_x, tile, *rest)
+        x = x.permute(0, 1, 3, 2, 4, *range(5, 5 + len(rest)))
+        return x.reshape(n_blocks, pix, *rest)
+
+    g_image, g_depth, g_alpha = (from_image(g.to(torch.float32))
+                                 for g in grads)
+    g4 = torch.cat([g_image, g_depth[..., None]], dim=-1)  # [G, PIX, 4]
+    t_fin = from_image(saved["final_t"])
+    acc_rgb = from_image(saved["image"]) - t_fin[..., None] * background
+    s_tot = ((g_image * acc_rgb).sum(-1) + g_depth * from_image(saved["depth"])
+             + t_fin * ((g_image * background).sum(-1) - g_alpha))
+
+    dfeats = torch.zeros_like(feats)
+    log_t_u = torch.zeros((n_blocks, pix), dtype=torch.float32, device=dev)
+    prefix = torch.zeros_like(log_t_u)
+    starts64 = starts.to(torch.int64)
+    counts64 = counts.to(torch.int64)
+    max_count = int(counts64.max()) if n_blocks else 0
+    n_pairs = gids.shape[0]
+    for k0 in range(0, max_count, PLAIN_CHUNK):
+        if not bool((log_t_u >= log_eps).any()):
+            break  # every pixel saturated
+        k = k0 + torch.arange(PLAIN_CHUNK, device=dev)
+        valid = k[None, :] < counts64[:, None]  # [G, C]
+        idx = torch.where(valid, starts64[:, None] + k[None, :], 0)
+        gid = gids[idx.clamp_max(max(n_pairs - 1, 0))].to(torch.int64)
+        f = feats[gid]
+        ca = f[..., FCA][:, None, :]  # [G, 1, C]
+        cb = f[..., FCB][:, None, :]
+        cc = f[..., FCC][:, None, :]
+        opa = f[..., FOPA][:, None, :]
+        dxv = f[..., FX][:, None, :] - px[:, :, None]  # [G, PIX, C]
+        dyv = f[..., FY][:, None, :] - py[:, :, None]
+        # the forward's arithmetic, so the same pairs pass and latch
+        power = -0.5 * (ca * dxv * dxv + cc * dyv * dyv) - cb * dxv * dyv
+        e = torch.exp(torch.clamp_max(power, 0.0))
+        alpha_raw = opa * e
+        alpha = torch.clamp_max(alpha_raw, cfg.alpha_max)
+        pass_ = valid[:, None, :] & (power <= 0.0) & (alpha >= cfg.alpha_min)
+        log1ma = torch.where(pass_, torch.log1p(-torch.where(pass_, alpha,
+                                                             0.0)), 0.0)
+        cum = torch.cumsum(log1ma, dim=-1)
+        u_before = log_t_u[:, :, None] + cum - log1ma
+        contrib = pass_ & (u_before + log1ma >= log_eps)
+        t_i = torch.exp(u_before)
+        w = torch.where(contrib, t_i * alpha, 0.0)
+
+        f4 = f[..., [FR, FG, FB, FDEPTH]]  # [G, C, 4]
+        phi = torch.bmm(g4, f4.transpose(1, 2))  # [G, PIX, C]
+        p_incl = prefix[:, :, None] + torch.cumsum(w * phi, dim=-1)
+        dalpha = torch.where(
+            contrib,
+            t_i * phi - (s_tot[:, :, None] - p_incl)
+            / torch.clamp_min(1.0 - alpha, 1e-6),
+            0.0)
+        dalpha_raw = torch.where(alpha_raw < cfg.alpha_max, dalpha, 0.0)
+        dpow = torch.where(power < 0.0, dalpha_raw * alpha_raw, 0.0)
+        gx = (dpow * dxv).sum(1)  # [G, C]
+        gy = (dpow * dyv).sum(1)
+        dcol = torch.bmm(w.transpose(1, 2), g4)  # [G, C, 4]: drgb, ddepth
+        rows = torch.stack(
+            [
+                -(ca[:, 0] * gx + cb[:, 0] * gy),
+                -(cc[:, 0] * gy + cb[:, 0] * gx),
+                -0.5 * (dpow * dxv * dxv).sum(1),
+                -(dpow * dxv * dyv).sum(1),
+                -0.5 * (dpow * dyv * dyv).sum(1),
+                dcol[..., 0], dcol[..., 1], dcol[..., 2],
+                (dalpha_raw * e).sum(1),
+                dcol[..., 3],
+            ],
+            dim=-1,
+        )  # [G, C, 10]
+        rows = torch.where(valid[..., None], rows, 0.0)
+        dfeats.index_add_(0, gid.reshape(-1), rows.reshape(-1, NUM_FEATURES))
+        prefix = p_incl[..., -1]
+        log_t_u = log_t_u + cum[..., -1]
+    return dfeats
 
 
 def composite_inputs(means, scales, quats, features, opacities, alive, cams,

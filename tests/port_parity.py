@@ -68,6 +68,48 @@ def stack_jax_cameras(cams):
     return jax.tree.map(lambda *xs: jnp.stack(xs), *cams)
 
 
+def adam_leaves(adam) -> dict:
+    """A JAX AdamState as numpy leaves (convert.adam_state_from_numpy)."""
+    return {"mu": {k: np.asarray(v) for k, v in adam.mu.items()},
+            "nu": {k: np.asarray(v) for k, v in adam.nu.items()},
+            "count": int(adam.count)}
+
+
+def densify_leaves(ds) -> dict:
+    """A JAX DensifyState as numpy leaves."""
+    return {k: np.asarray(v) for k, v in ds._asdict().items()}
+
+
+def scene_leaves(scene) -> dict:
+    """A JAX GaussianScene as numpy leaves."""
+    return {k: np.asarray(v) for k, v in scene._asdict().items()}
+
+
+def photo_state_leaves(state) -> dict:
+    """A JAX PhotoTrainState as numpy leaves (the PRNG key is left out;
+    convert.photo_state_from_numpy seeds a torch.Generator instead)."""
+    return {"scene": scene_leaves(state.scene),
+            "adam": adam_leaves(state.adam),
+            "densify": densify_leaves(state.densify),
+            "step": int(state.step),
+            "active_sh_degree": int(state.active_sh_degree)}
+
+
+def assert_tree_close(got: dict, want: dict, rtol=0.0, atol=0.0,
+                      scale_rel=None, what=""):
+    """Every entry of `got` (torch) against `want` (JAX / numpy). With
+    `scale_rel`, the tolerance is that fraction of the entry's max-|want|
+    (plus `atol`)."""
+    assert set(got) == set(want), (set(got), set(want))
+    for k in want:
+        w = np.asarray(want[k])
+        tol = atol
+        if scale_rel is not None:
+            tol = atol + scale_rel * float(np.max(np.abs(w))) if w.size else atol
+        np.testing.assert_allclose(np_(got[k]), w, rtol=rtol, atol=tol,
+                                   err_msg=f"{what} {k}")
+
+
 def np_(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()

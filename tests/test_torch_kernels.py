@@ -1,10 +1,13 @@
-"""The port's kernel plumbing: import isolation, K1 wrapper checks, and K1
-against its plain version on a card.
+"""The port's kernel plumbing: import isolation, wrapper checks, and K1 and
+K2 against their plain versions on a card.
 
-The kernel-vs-plain test needs an NVIDIA GPU (marker `cuda`) and skips
-without one; on the card it holds K1 to `composite_plain` at 1e-4 absolute
+The kernel-vs-plain tests need an NVIDIA GPU (marker `cuda`) and skip
+without one; on the card they hold K1 to `composite_plain` at 1e-4 absolute
 on image and alpha and 1e-3 on depth, with at most 1e-4 of the pixels
-allowed past that (the 1e-4 saturation knife-edge and exp rounding).
+allowed past that (the 1e-4 saturation knife-edge and exp rounding), and
+K2 to `composite_backward_plain` at 1e-4 of each column's max-|grad|, with
+at most 1e-3 of the rows past that (a pair flipped at the knife-edge moves
+a row by its whole contribution; atomics sum in no fixed order).
 """
 import os
 import subprocess
@@ -16,7 +19,13 @@ import torch
 
 from humangaussian_torch import kernels
 from humangaussian_torch.ops.projection import RasterizeConfig
-from humangaussian_torch.ops.rasterize_tiled import composite, composite_plain
+from humangaussian_torch.ops.rasterize_tiled import (
+    composite,
+    composite_backward,
+    composite_backward_plain,
+    composite_plain,
+)
+from port_parity_torch import random_composite_args
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,7 +44,10 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'flax' or m.startswith('humangaussian_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 29, names\n"
+        "for n in ('train.photo', 'train.optim', 'densify', 'losses', "
+        "'config', 'ops.knn', 'data.photo', 'apps.launch'):\n"
+        "    assert 'humangaussian_torch.' + n in names, n\n"
         "print('ok', len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -44,46 +56,19 @@ def test_port_imports_no_jax():
     assert out.stdout.startswith("ok")
 
 
-def _inputs(device="cpu", seed=0, tiles_x=2, tiles_y=2, cams=1, n=64,
-            pairs_per_tile=40):
-    rng = np.random.RandomState(seed)
-    tile = 32
-    w, h = tiles_x * tile, tiles_y * tile
-    feats = np.zeros((cams * n, 10), np.float32)
-    feats[:, 0] = rng.rand(cams * n) * w
-    feats[:, 1] = rng.rand(cams * n) * h
-    feats[:, 2] = rng.rand(cams * n) * 0.05 + 0.01
-    feats[:, 3] = (rng.rand(cams * n) - 0.5) * 0.01
-    feats[:, 4] = rng.rand(cams * n) * 0.05 + 0.01
-    feats[:, 5:8] = rng.rand(cams * n, 3)
-    feats[:, 8] = rng.rand(cams * n) * 0.9 + 0.05
-    feats[:, 9] = rng.rand(cams * n) * 3 + 0.5
-    tiles = tiles_x * tiles_y * cams
-    gids, starts, counts = [], [], []
-    for t in range(tiles):
-        cam = t // (tiles_x * tiles_y)
-        ids = cam * n + rng.choice(n, pairs_per_tile, replace=False)
-        ids = ids[np.argsort(feats[ids, 9], kind="stable")]
-        starts.append(len(gids))
-        counts.append(len(ids))
-        gids.extend(ids.tolist())
-
-    def t(x, dtype):
-        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
-
-    return (t(feats, torch.float32), t(gids, torch.int32),
-            t(starts, torch.int32), t(counts, torch.int32),
-            t([0.2, 0.3, 0.4], torch.float32), tiles_x, tiles_y)
-
-
 def test_cpu_takes_plain_and_does_not_count():
-    args = _inputs()
+    args = random_composite_args()
     kernels.reset_launch_counts()
     out = composite(*args)
-    assert kernels.launch_counts() == {"rasterize_fwd": 0}
     assert out["image"].shape == (1, 64, 64, 3)
     ref = composite_plain(*args)
     np.testing.assert_array_equal(out["image"].numpy(), ref["image"].numpy())
+    grads = tuple(torch.ones_like(out[k]) for k in ("image", "depth", "alpha"))
+    dfeats = composite_backward(*args[:5], out, grads, *args[5:])
+    np.testing.assert_array_equal(
+        dfeats.numpy(),
+        composite_backward_plain(*args[:5], ref, grads, *args[5:]).numpy())
+    assert kernels.launch_counts() == {"rasterize_fwd": 0, "rasterize_bwd": 0}
 
 
 @pytest.mark.parametrize("bad", [
@@ -91,7 +76,7 @@ def test_cpu_takes_plain_and_does_not_count():
     "noncontig", "background", "tiles", "not_tensor",
 ])
 def test_wrapper_rejects_bad_arguments(bad):
-    feats, gids, starts, counts, bg, tx, ty = _inputs()
+    feats, gids, starts, counts, bg, tx, ty = random_composite_args()
     if bad == "feats_dtype":
         feats = feats.double()
     elif bad == "gids_dtype":
@@ -116,18 +101,46 @@ def test_wrapper_never_falls_back_off_the_cpu():
     """Only CPU tensors take the plain version: a tensor on any other
     device launches the kernel or raises (the meta device has no kernel),
     and a tile edge other than the compiled 32 raises first."""
-    args = _inputs(device="meta")
+    args = random_composite_args(device="meta")
     with pytest.raises(ValueError, match="no compositing kernel"):
         composite(*args)
     with pytest.raises(ValueError, match="built for tile 32"):
         composite(*args, cfg=RasterizeConfig(tile=16))
 
 
-def test_kernel_build_naming():
-    lib = kernels.RASTERIZE_FWD.library_path()
+def test_backward_never_falls_back_off_the_cpu():
+    args = random_composite_args(device="meta")
+    out = {"image": torch.empty((1, 64, 64, 3), device="meta"),
+           "depth": torch.empty((1, 64, 64), device="meta"),
+           "final_t": torch.empty((1, 64, 64), device="meta"),
+           "n_contrib": torch.empty((1, 64, 64), dtype=torch.int32,
+                                    device="meta")}
+    grads = (out["image"], out["depth"], out["depth"])
+    with pytest.raises(ValueError, match="no compositing kernel"):
+        composite_backward(*args[:5], out, grads, *args[5:])
+
+
+def test_backward_wrapper_rejects_bad_cotangents():
+    """The shape check guards the kernel; the plain version gets the same
+    arguments, so a wrong shape fails there too."""
+    args = random_composite_args()
+    out = composite(*args)
+    grads = (torch.ones((1, 64, 64, 3)), torch.ones((1, 64, 32)),
+             torch.ones((1, 64, 64)))
+    with pytest.raises((ValueError, RuntimeError)):
+        composite_backward(*args[:5], out, grads, *args[5:])
+
+
+@pytest.mark.parametrize("kernel,stem", [
+    (kernels.RASTERIZE_FWD, "rasterize_fwd"),
+    (kernels.RASTERIZE_BWD, "rasterize_bwd"),
+])
+def test_kernel_build_naming(kernel, stem):
+    lib = kernel.library_path()
     assert lib.parent == kernels.BUILD_DIR
-    assert lib.name.startswith("rasterize_fwd-") and lib.suffix == ".so"
-    assert kernels.RASTERIZE_FWD.source.exists()
+    assert lib.name.startswith(stem + "-") and lib.suffix == ".so"
+    assert kernel.source.exists()
+    assert kernel in kernels.KERNELS
     assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
 
 
@@ -143,7 +156,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("cams", [1, 3])
 def test_kernel_matches_plain(cuda_device, cams):
-    args = _inputs(device=cuda_device, cams=cams, tiles_x=3, tiles_y=2,
+    args = random_composite_args(device=cuda_device, cams=cams, tiles_x=3, tiles_y=2,
                    n=400, pairs_per_tile=300)
     kernels.reset_launch_counts()
     out = composite(*args)
@@ -156,3 +169,28 @@ def test_kernel_matches_plain(cuda_device, cams):
             err = err.amax(dim=-1)
         assert int((err > atol).sum()) <= max(1, err.numel() // 10000), key
     assert torch.isfinite(out["image"]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cams", [1, 3])
+def test_backward_kernel_matches_plain(cuda_device, cams):
+    args = random_composite_args(device=cuda_device, cams=cams, tiles_x=3,
+                                 tiles_y=2, n=400, pairs_per_tile=300)
+    feats = args[0].clone().requires_grad_(True)
+    kernels.reset_launch_counts()
+    out = composite(feats, *args[1:])
+    g = torch.Generator(device="cpu").manual_seed(cams)
+    cot = [torch.randn(out[k].shape, generator=g).to(cuda_device)
+           for k in ("image", "depth", "alpha")]
+    loss = sum((out[k] * c).sum()
+               for k, c in zip(("image", "depth", "alpha"), cot))
+    (got,) = torch.autograd.grad(loss, feats)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"rasterize_fwd": 1, "rasterize_bwd": 1}
+    plain = composite_plain(*args)
+    want = composite_backward_plain(*args[:5], plain, cot, *args[5:])
+    assert torch.isfinite(got).all()
+    for j in range(10):
+        scale = float(want[:, j].abs().max())
+        err = (got[:, j] - want[:, j]).abs() / scale
+        assert int((err > 1e-4).sum()) <= max(1, err.numel() // 1000), j
