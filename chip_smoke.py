@@ -5,7 +5,7 @@
 
 Needs one CUDA card (exits non-zero without one, or without the package
 next to it). Builds every kernel from csrc/ with nvcc (one process per
-source, started together), then:
+source, started together), writes the assets, then:
 
 1. prints the card (name, power limit), torch and CUDA versions and the
    kernels' build time;
@@ -50,14 +50,56 @@ source, started together), then:
    forward render, loss, backward, statistics + Adam) and per densify
    pass;
 8. profiles 4 animated frames, 2 orbit batches and 4 training steps with
-   torch.profiler, and prints the `kernels` JSON line and, last, the
-   device JSON line.
+   torch.profiler;
+9. holds K3 and K5 (csrc/groupnorm_stats.cu) against their plain versions
+   and against float64 sums at a small float32 shape and at the main
+   path's extremes ([24, 4096, 320], [24, 4096, 960], [24, 64, 2560],
+   bfloat16): every sum within 1e-5 of the f64 sum of magnitudes of its
+   (sample, channel); `group_norm_act` with the kernels' statistics within
+   one bfloat16 ulp of itself with the plain statistics on all but 1e-4 of
+   the outputs; times, bounds (bytes over 3.35 TB/s) and, as the library
+   yardstick, `F.group_norm` + `F.silu` and its autograd backward;
+10. holds K4 (csrc/attention_fwd.cu) against its plain version at the
+   UNet's self-attention shapes ((120, 4096, 64), (240, 1024, 64),
+   (480, 256, 64) as (batch x heads, tokens, head dim), bfloat16): largest
+   |kernel - plain| at most 2^-7 of the largest |output| (one bfloat16 ulp
+   at the peak; p is rounded to bfloat16 before the PV product on both
+   sides, only the summation order differs), and prints the distance to a
+   float32 softmax; times, bound (flops of the two products over 989
+   TFLOP/s, bytes over 3.35 TB/s), `F.scaled_dot_product_attention` as the
+   library yardstick;
+11. writes seeded `unet_ema` and VAE state dicts in diffusers layout
+   (bfloat16, `torch.save`), builds the prior from them with
+   `apps.launch.build_guidance` on configs/avatar.yaml (899,719,048 UNet
+   parameters) and the prompt embeddings with `dummy_encode_fn(77, 1024)`,
+   renders 8 orbit views of the avatar at 1024^2 with `render_batch` (K1),
+   min-maxes the depth per image, calls `DualBranchGuidance.__call__` with
+   timesteps on both sides of 200 and backpropagates `loss_sds` to the
+   Gaussian parameters (K2): loss and gradients finite, image gradients
+   non-zero, the loss equal to the norms of `grad`; one step launches K1
+   and K2 once, K3 77 times and K4 20 times (one UNet forward: 54 resnet
+   norms, 21 transformer norms, 2 heads; 10 self-attention sites at 4096
+   tokens, 5 at 1024, 5 at 256). Times 3 steps end to end and staged
+   (render, encodes, UNet, loss + backward), prints peak memory and one
+   profile, and times a VAE encode in both memory formats;
+12. runs `sample_joint` at batch 2 for 4 DDIM steps: 512^2 images and
+   depths finite and in [0, 1], K3 and K4 launched 4 x 77 and 4 x 20 times;
+13. differentiates the full-width UNet with respect to its input latents
+   (batch 2, 64^2, bfloat16): K5 launches once per K3 launch (77); then a
+   float32 full-width UNet at 16^2 latents: the input gradient through K3 /
+   K5 within 1e-3 of max-|grad| of the gradient through their plain
+   versions;
+and prints the `kernels` JSON line (all five kernels, each with the launches
+of its own path: K1 and K2 phases 4 to 6, K3 and K4 phase 11, K5 phase 13)
+and, last, the device JSON line. `--only GROUP[,GROUP]` runs some phase
+groups alone and prints no result lines.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Weights and data are random, made from fixed seeds.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -129,8 +171,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median ms of fn() over `reps` runs, each timed with CUDA events."""
+def cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
+    """Median ms of fn() over `reps` timings with CUDA events; each timing
+    spans `inner` back-to-back calls and is divided by it, so that a kernel
+    shorter than its wrapper's host time is not timed as a launch gap."""
     for _ in range(warmup):
         fn()
     times = []
@@ -138,11 +182,23 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def spin(fn, seconds: float = 0.25) -> None:
+    """Keep the card busy with fn() for `seconds`, so that a short kernel
+    timed next runs at the clocks of a loaded card (they fall while the
+    host prepares inputs)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
 
 
 def compare(name, got, want) -> float:
@@ -421,6 +477,665 @@ def write_assets(tmp: str, seed: int = 0):
     return smplx_path, ply, motion, (v, m.faces.shape[0])
 
 
+PHASE_GROUPS = ("render", "norm", "attention", "guidance", "sample",
+                "unet-backward")
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate, H100 SXM data sheet
+# the main path's extremes for K3 / K5: [samples, rows, channels] at batch 24
+# (3 x 8 latents): the first level's 64^2 rows at 320 and at the widest
+# concatenated input (960), and the 8^2 mid block's input at 2560
+GN_SHAPES = ((2, 37, 48), (24, 4096, 320), (24, 4096, 960), (24, 64, 2560))
+GN_MAIN = (24, 4096, 320)
+GN_GROUPS = {48: 8}  # 32 groups everywhere at full width
+GN_STATS_TOL = 1e-5  # of the f64 sum of magnitudes per (sample, channel)
+GN_BAD_FRACTION = 1e-4  # of the outputs may miss plain by more than a ulp
+# (batch, tokens, heads) of the UNet's self-attention sites at batch 24
+ATTN_SHAPES = ((24, 4096, 5), (24, 1024, 10), (24, 256, 20))
+ATTN_TOL = 2.0 ** -7  # K4 vs plain, of max |out|: one bf16 ulp of the peak
+# the dual-branch SD2 unet_ema with its two 8-channel conv_in (899,696,008
+# when both are built for 4 input channels)
+UNET_PARAMS = 899_696_008 + 2 * 4 * 320 * 9
+GUIDANCE_BATCH = 8  # configs/avatar.yaml's camera batch
+GUIDANCE_T = (50, 150, 300, 450, 600, 750, 900, 980)  # both sides of 200
+NORMS_PER_UNET_FORWARD = 77  # 54 resnet norms, 21 transformer norms, 2 heads
+ATTN_PER_UNET_FORWARD = 20  # 10 sites at 4096 tokens, 5 at 1024, 5 at 256
+UNET_GRAD_TOL = 1e-3  # f32 UNet input gradient, kernels vs plain versions
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside, the GroupNorm and attention wrappers take their plain
+    versions whatever the device: the reference side of a comparison. Only
+    the comparisons use it; the paths never do."""
+    from humangaussian_torch.ops import attention, groupnorm
+
+    saved = (groupnorm.group_norm_stats, groupnorm.group_norm_bwd_stats,
+             attention._attention_forward)
+    groupnorm.group_norm_stats = groupnorm.group_norm_stats_plain
+    groupnorm.group_norm_bwd_stats = groupnorm.group_norm_bwd_stats_plain
+    attention._attention_forward = attention.self_attention_plain
+    try:
+        yield
+    finally:
+        (groupnorm.group_norm_stats, groupnorm.group_norm_bwd_stats,
+         attention._attention_forward) = saved
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 (8 significant bits) at |x|, as f32."""
+    _, exponent = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exponent - 8)
+
+
+def sums_error(got, want64, scale64):
+    """max over (sample, which, channel) of |got - want| / scale."""
+    return float(((got.double() - want64).abs()
+                  / scale64.clamp_min(1e-30)).max())
+
+
+def norm_phase(dev) -> dict:
+    """Phase 9: K3 and K5 against their plain versions and f64 sums, the
+    whole op against plain, times, bounds and the library yardstick."""
+    import torch.nn.functional as F
+
+    from humangaussian_torch import kernels
+    from humangaussian_torch.ops.groupnorm import (
+        group_norm_act,
+        group_norm_bwd_stats,
+        group_norm_bwd_stats_plain,
+        group_norm_stats,
+        group_norm_stats_plain,
+        group_stats,
+        rows_per_block,
+    )
+
+    print("phase 9: K3 and K5 (GroupNorm statistics) vs plain")
+    g = torch.Generator(device="cpu").manual_seed(9)
+    fwd = {"err": 0.0, "by_shape": {}}
+    bwd = {"err": 0.0, "by_shape": {}}
+    for n, rows, c in GN_SHAPES:
+        groups = GN_GROUPS.get(c, 32)
+        dtype = torch.float32 if c == 48 else torch.bfloat16
+        x = (torch.randn((n, rows, c), generator=g) * 1.5 + 0.7).to(dev, dtype)
+        dz = torch.randn((n, rows, c), generator=g).to(dev, dtype)
+        gamma = (1 + 0.2 * torch.randn(c, generator=g)).to(dev)
+        beta = (0.2 * torch.randn(c, generator=g)).to(dev)
+        label = f"[{n}, {rows}, {c}] {str(dtype)[6:]}"
+
+        # K3 against plain and against f64 sums
+        got = group_norm_stats(x)
+        again = group_norm_stats(x)
+        torch.cuda.synchronize()
+        plain = group_norm_stats_plain(x)
+        x64 = x.double()
+        want = torch.stack([x64.sum(1), (x64 * x64).sum(1)], 1)
+        scale = torch.stack([x64.abs().sum(1), (x64 * x64).sum(1)], 1)
+        e_k, e_p = sums_error(got, want, scale), sums_error(plain, want, scale)
+        e_rr = sums_error(again, got.double(), scale)
+        print(f"  K3 {label}: kernel vs f64 {e_k:.3e}, plain vs f64 "
+              f"{e_p:.3e} (of the sum of magnitudes; limit "
+              f"{GN_STATS_TOL:g}); run to run {e_rr:.3e}; "
+              f"{rows_per_block(n, rows, c)} rows per block")
+        check(e_k <= GN_STATS_TOL, f"K3 {label}: {e_k} off the f64 sums")
+        check(e_p <= GN_STATS_TOL, f"K3 plain {label}: {e_p}")
+        fwd["err"] = max(fwd["err"], float((got - plain).abs().max()))
+
+        # K5 against plain and against f64 sums, with and without SiLU
+        mu_c, rstd_c = group_stats(plain, rows, groups, 1e-5)
+        for silu in (True, False):
+            got5 = group_norm_bwd_stats(x, dz, mu_c, rstd_c, gamma, beta, silu)
+            torch.cuda.synchronize()
+            plain5 = group_norm_bwd_stats_plain(x, dz, mu_c, rstd_c, gamma,
+                                                beta, silu)
+            xh = (x64 - mu_c.double()[:, None]) * rstd_c.double()[:, None]
+            dy = dz.double()
+            if silu:
+                y = xh * gamma.double() + beta.double()
+                sig = torch.sigmoid(y)
+                dy = dy * sig * (1 + y * (1 - sig))
+            want5 = torch.stack([dy.sum(1), (dy * xh).sum(1)], 1)
+            scale5 = torch.stack([dy.abs().sum(1), (dy * xh).abs().sum(1)], 1)
+            e_k = sums_error(got5, want5, scale5)
+            e_p = sums_error(plain5, want5, scale5)
+            print(f"  K5 {label} silu={silu}: kernel vs f64 {e_k:.3e}, plain "
+                  f"vs f64 {e_p:.3e}")
+            check(e_k <= GN_STATS_TOL, f"K5 {label}: {e_k} off the f64 sums")
+            check(e_p <= GN_STATS_TOL, f"K5 plain {label}: {e_p}")
+            bwd["err"] = max(bwd["err"], float((got5 - plain5).abs().max()))
+            del xh, dy, want5, scale5
+        del x64, want, scale
+
+        # the whole op: kernel statistics vs plain statistics
+        x4 = x.reshape(n, rows, 1, c)
+        for silu in (True, False):
+            y_k = group_norm_act(x4, gamma, beta, groups, 1e-5, silu)
+            with plain_versions():
+                y_p = group_norm_act(x4, gamma, beta, groups, 1e-5, silu)
+            if dtype == torch.bfloat16:
+                off = (y_k.float() - y_p.float()).abs() > bf16_ulp(y_p)
+            else:
+                off = (y_k - y_p).abs() > 1e-5 + 1e-5 * y_p.abs()
+            share = float(off.float().mean())
+            print(f"  group_norm_act {label} silu={silu}: {share:.2e} of the "
+                  f"outputs over one ulp of plain (allowed "
+                  f"{GN_BAD_FRACTION:g}), max difference "
+                  f"{float((y_k.float() - y_p.float()).abs().max()):.3e}")
+            check(share <= GN_BAD_FRACTION, f"group_norm_act {label}")
+            check(bool(torch.isfinite(y_k).all()), f"group_norm_act {label}")
+
+        # times (each over runs of back-to-back calls): the two kernels,
+        # their plain versions, the whole op, and the library's GroupNorm +
+        # SiLU (forward, and its autograd backward)
+        spin(lambda: group_norm_stats(x))
+        k3_ms = cuda_ms(lambda: group_norm_stats(x), reps=10, inner=10)
+        k3_plain_ms = cuda_ms(lambda: group_norm_stats_plain(x), reps=3,
+                              inner=5)
+        k5_ms = cuda_ms(lambda: group_norm_bwd_stats(
+            x, dz, mu_c, rstd_c, gamma, beta, True), reps=10, inner=10)
+        k5_plain_ms = cuda_ms(lambda: group_norm_bwd_stats_plain(
+            x, dz, mu_c, rstd_c, gamma, beta, True), reps=3, inner=5)
+        op_ms = cuda_ms(lambda: group_norm_act(x4, gamma, beta, groups, 1e-5,
+                                               True), reps=5, inner=10)
+        x_cf = x4.permute(0, 3, 1, 2)  # channels-first view, channels_last
+        gd, bd = gamma.to(dtype), beta.to(dtype)
+        lib_ms = cuda_ms(lambda: F.silu(F.group_norm(x_cf, groups, gd, bd,
+                                                     1e-5)), reps=5, inner=10)
+        xg = x4.detach().requires_grad_(True)
+        y_op = group_norm_act(xg, gamma, beta, groups, 1e-5, True)
+        op_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            y_op, xg, dz.reshape(y_op.shape), retain_graph=True), reps=5,
+            inner=10)
+        xl = x_cf.detach().requires_grad_(True)
+        y_lib = F.silu(F.group_norm(xl, groups, gd, bd, 1e-5))
+        dz_cf = dz.reshape(n, rows, 1, c).permute(0, 3, 1, 2)
+        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            y_lib, xl, dz_cf, retain_graph=True), reps=5, inner=10)
+        item = x.element_size()
+        k3_bound = (x.numel() * item + n * 2 * c * 4) / H100_BYTES_PER_S * 1e3
+        k5_bound = ((2 * x.numel() * item + (2 * n * c + 2 * c) * 4
+                     + n * 2 * c * 4) / H100_BYTES_PER_S * 1e3)
+        print(f"  {label}: K3 {k3_ms:.4f} ms (plain {k3_plain_ms:.4f}, bound "
+              f"{k3_bound:.5f} by bytes), K5 {k5_ms:.4f} ms (plain "
+              f"{k5_plain_ms:.4f}, bound {k5_bound:.5f} by bytes); "
+              f"group_norm_act forward {op_ms:.4f} ms vs F.group_norm + "
+              f"F.silu {lib_ms:.4f} ms, backward {op_bwd_ms:.4f} ms vs the "
+              f"library's autograd {lib_bwd_ms:.4f} ms")
+        fwd["by_shape"][label] = {
+            "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+            "op_forward_ms": op_ms, "library_ms": lib_ms}
+        bwd["by_shape"][label] = {
+            "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
+            "op_backward_ms": op_bwd_ms, "library_ms": lib_bwd_ms}
+        del y_op, y_lib, xg, xl
+
+    main = "[%d, %d, %d] bfloat16" % GN_MAIN
+    out = {}
+    for kernel, acc, line, lib_note in (
+        (kernels.GROUPNORM_FWD_STATS, fwd, 70,
+         "F.group_norm + F.silu forward (the whole op, not the sums alone)"),
+        (kernels.GROUPNORM_BWD_STATS, bwd, 102,
+         "autograd backward of F.group_norm + F.silu (the whole backward)"),
+    ):
+        at = acc["by_shape"][main]
+        out[kernel.name] = {
+            "name": kernel.name,
+            "route": "cuda",
+            "source": "humangaussian_torch/csrc/groupnorm_stats.cu",
+            "replaces": f"humangaussian_tpu/ops/groupnorm.py:{line}",
+            "launches": 0,
+            "max_abs_err": acc["err"],
+            "ms": at["ms"],
+            "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": at["library_ms"],
+            "library_call": lib_note,
+            "shape": main,
+            "by_shape": acc["by_shape"],
+        }
+    return out
+
+
+def attention_phase(dev) -> dict:
+    """Phase 10: K4 against its plain version and an f32 softmax oracle,
+    times, bound and scaled_dot_product_attention as the yardstick."""
+    import torch.nn.functional as F
+
+    from humangaussian_torch import kernels
+    from humangaussian_torch.ops.attention import (
+        self_attention,
+        self_attention_plain,
+        softmax_attention,
+    )
+
+    print("phase 10: K4 (self-attention forward) vs plain")
+    g = torch.Generator(device="cpu").manual_seed(10)
+    by_shape = {}
+    worst = 0.0
+    for b, s, h in ATTN_SHAPES:
+        q, k, v = (torch.randn((b, s, h, 64), generator=g).to(
+            dev, torch.bfloat16) for _ in range(3))
+        scale = 1.0 / 8.0
+        label = f"({b * h}, {s}, 64)"
+        got = self_attention(q, k, v)
+        torch.cuda.synchronize()
+        plain = self_attention_plain(q, k, v, scale)
+        peak = float(plain.float().abs().max())
+        err = float((got.float() - plain.float()).abs().max())
+        # an f32 softmax (normalized before any rounding) on two batch
+        # entries: what the bf16 rounding of p and of the output costs
+        oracle = softmax_attention(q[:2].float(), k[:2].float(),
+                                   v[:2].float(), scale)
+        err_o = float((got[:2].float() - oracle).abs().max())
+        print(f"  K4 {label}: max |kernel - plain| {err:.3e} = "
+              f"{err / peak:.3e} of max |out| {peak:.3f} (limit "
+              f"{ATTN_TOL:.3e}); vs the f32 softmax oracle {err_o:.3e}")
+        check(err <= ATTN_TOL * peak, f"K4 {label}: {err} vs plain")
+        check(bool(torch.isfinite(got).all()), f"K4 {label}: non-finite")
+        worst = max(worst, err)
+        del oracle, plain
+
+        spin(lambda: self_attention(q, k, v))
+        ms = cuda_ms(lambda: self_attention(q, k, v), reps=5, inner=4)
+        plain_ms = cuda_ms(lambda: self_attention_plain(q, k, v, scale),
+                           reps=1, warmup=0)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                         reps=5, inner=4)
+        flops = 4.0 * b * h * s * s * 64  # the two products
+        ops_ms = flops / H100_BF16_FLOPS * 1e3
+        bytes_ms = 4 * q.numel() * 2 / H100_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        print(f"  K4 {label}: {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s of "
+              f"the two products (plain {plain_ms:.3f} ms, bound "
+              f"{bound:.5f} ms by {by}: operations {ops_ms:.5f}, bytes "
+              f"{bytes_ms:.5f}; scaled_dot_product_attention {lib_ms:.4f} ms)")
+        by_shape[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                           "bound_by": by, "library_ms": lib_ms}
+    b, s, h = ATTN_SHAPES[0]
+    at = by_shape[f"({b * h}, {s}, 64)"]
+    return {kernels.ATTENTION_FWD.name: {
+        "name": kernels.ATTENTION_FWD.name,
+        "route": "cuda",
+        "source": "humangaussian_torch/csrc/attention_fwd.cu",
+        "replaces": "humangaussian_tpu/ops/attention.py:36",
+        "launches": 0,
+        "max_abs_err": worst,
+        "ms": at["ms"],
+        "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"],
+        "bound_by": at["bound_by"],
+        "library_ms": at["library_ms"],
+        "library_call": "F.scaled_dot_product_attention",
+        "shape": f"({b * h}, {s}, 64)",
+        "by_shape": by_shape,
+    }}
+
+
+def seeded_state_dict(module_fn, seed, dev):
+    """The bfloat16 state dict of a module built on the card from a seed
+    (torch's default initializers)."""
+    torch.manual_seed(seed)
+    with torch.device(dev):
+        module = module_fn()
+    return {k: v.to(torch.bfloat16).cpu()
+            for k, v in module.state_dict().items()}
+
+
+def build_prior(dev, tmp):
+    """Seeded unet_ema and VAE weight files in diffusers layout, the prior
+    built from them by the launcher, and the prompt embeddings."""
+    from humangaussian_torch.apps import launch
+    from humangaussian_torch.config import load_config
+    from humangaussian_torch.guidance.prompt import (
+        PromptProcessor,
+        PromptProcessorConfig,
+        dummy_encode_fn,
+    )
+    from humangaussian_torch.guidance.unet import (
+        SD2_BASE_CONFIG,
+        DualBranchUNet,
+    )
+    from humangaussian_torch.guidance.vae import AutoencoderKL, VAEConfig
+
+    print("building the prior: seeded weights -> files -> build_guidance")
+    t0 = time.perf_counter()
+    model_key = os.path.join(tmp, "joint_model")
+    vae_key = os.path.join(tmp, "vae")
+    os.makedirs(os.path.join(model_key, "unet_ema"))
+    os.makedirs(vae_key)
+    torch.save(seeded_state_dict(lambda: DualBranchUNet(SD2_BASE_CONFIG), 0,
+                                 dev),
+               os.path.join(model_key, "unet_ema",
+                            "diffusion_pytorch_model.bin"))
+    torch.save(seeded_state_dict(lambda: AutoencoderKL(VAEConfig()), 1, dev),
+               os.path.join(vae_key, "diffusion_pytorch_model.bin"))
+    t1 = time.perf_counter()
+    # the shipped avatar configuration, pointed at the seeded files
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(
+        os.path.join(repo, "configs", "avatar.yaml"),
+        [f"system.guidance.model_key={model_key}",
+         f"system.guidance.vae_key={vae_key}",
+         "system.prompt_processor.prompt=a person in a blue jacket"])
+    guidance = launch.build_guidance(cfg, dev)
+    torch.cuda.synchronize()
+    n_unet = sum(p.numel() for p in guidance.unet.parameters())
+    n_vae = sum(p.numel() for p in guidance.vae.parameters())
+    print(f"  unet_ema {n_unet} parameters ({guidance.unet.dtype}), VAE "
+          f"{n_vae}; files written in {t1 - t0:.1f} s, built in "
+          f"{time.perf_counter() - t1:.1f} s")
+    check(n_unet == UNET_PARAMS, f"UNet has {n_unet} parameters")
+    check(guidance.unet.conv_norm_out.weight.dtype == torch.float32,
+          "GroupNorm parameters are not float32")
+    pp = cfg["system"]["prompt_processor"]
+    embeddings = PromptProcessor(
+        PromptProcessorConfig(
+            prompt=pp["prompt"], negative_prompt=pp["negative_prompt"],
+            model_path=pp["pretrained_model_name_or_path"],
+            cache_dir=os.path.join(tmp, "text_embeddings")),
+        dummy_encode_fn(77, 1024), device=dev)()
+    check(embeddings.text_vd.shape == (4, 77, 1024), "embedding shape")
+    return guidance, embeddings
+
+
+def pose_stand_in(batch, size, dev, seed=11):
+    """A seeded stand-in for the skeleton pose render (coloured bars on
+    black): the pose image is conditioning only and takes no gradient."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((batch, size, size, 3), np.float32)
+    for i in range(batch):
+        for _ in range(18):
+            x0, y0 = rng.integers(0, size - size // 16, 2)
+            w = rng.integers(size // 128 + 1, size // 40 + 2)
+            h = rng.integers(size // 16, size // 4)
+            if rng.random() < 0.5:
+                w, h = h, w
+            img[i, y0:y0 + h, x0:x0 + w] = rng.random(3)
+    return torch.from_numpy(img).to(dev)
+
+
+def guidance_phase(dev, guidance, embeddings, assets) -> dict:
+    """Phase 11: the avatar trainer's guidance step at full width, joined
+    to the batched render: 8 orbit views at 1024^2 (K1), per-image min-max
+    depth, `DualBranchGuidance.__call__` (K3, K4 in the UNet), and
+    `loss_sds` backpropagated to the Gaussian parameters (K2). Returns the
+    launch counts of one step."""
+    from humangaussian_torch import kernels
+    from humangaussian_torch.core.camera import camera_from_c2w
+    from humangaussian_torch.data.cameras import (
+        RandomCameraConfig,
+        eval_camera_batch,
+    )
+    from humangaussian_torch.guidance.dual_branch import (
+        DEPTH_MEAN,
+        DEPTH_STD,
+        RGB_MEAN,
+        RGB_STD,
+        WHOLE_MEAN,
+        WHOLE_STD,
+        resize_bilinear,
+    )
+    from humangaussian_torch.io.ply import load_ply
+    from humangaussian_torch.ops.projection import RasterizeConfig
+    from humangaussian_torch.render import render_batch
+
+    print(f"phase 11: the guidance step (batch {GUIDANCE_BATCH}, {SIZE}^2 "
+          f"renders, 512^2 encodes, 3 x {GUIDANCE_BATCH} x 64^2 latents)")
+    avatar = load_ply(assets[1], device=dev)
+    orbit = eval_camera_batch(RandomCameraConfig(), "test", device=dev)
+    pick = torch.arange(GUIDANCE_BATCH, device=dev) * (
+        orbit.c2w.shape[0] // GUIDANCE_BATCH)
+    cams = camera_from_c2w(orbit.c2w[pick], orbit.fovy[pick], SIZE, SIZE)
+    rcfg = RasterizeConfig(max_tiles_per_gaussian=9)
+    white = torch.ones(3, device=dev)
+    pose = pose_stand_in(GUIDANCE_BATCH, SIZE, dev)
+    text = embeddings.get_text_embeddings(orbit.elevation[pick],
+                                          orbit.azimuth[pick])
+    check(text.shape == (3 * GUIDANCE_BATCH, 77, 1024), "text batch shape")
+    t = torch.tensor(GUIDANCE_T, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cfg = guidance.cfg
+
+    def render_views(leaves):
+        out = render_batch(avatar.replace_params(leaves), cams, white,
+                           cfg=rcfg)
+        depth = out["depth"][..., None]
+        dmin = depth.amin(dim=(1, 2, 3), keepdim=True)
+        dmax = depth.amax(dim=(1, 2, 3), keepdim=True)
+        depth3 = ((depth - dmin) / (dmax - dmin + 1e-10)).expand(-1, -1, -1, 3)
+        return out["image"], depth3
+
+    def fresh_leaves():
+        return {k: v.detach().requires_grad_(True)
+                for k, v in avatar.params().items()}
+
+    # -- one step, checked ------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    leaves = fresh_leaves()
+    rgb, depth3 = render_views(leaves)
+    rgb.retain_grad()
+    depth3.retain_grad()
+    out = guidance(pose, rgb, depth3, text, t, gen)
+    out["loss_sds"].backward()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    loss = float(out["loss_sds"].detach())
+    grad = out["grad"]
+    print(f"  loss_sds {loss:.6f}, grad_norm {float(out['grad_norm']):.6f}, "
+          f"launches {counts}, peak memory {peak_gb:.2f} GiB")
+    check(math.isfinite(loss) and bool(torch.isfinite(grad).all()),
+          "non-finite loss or grad")
+    check(grad.shape == (GUIDANCE_BATCH, 64, 64, 8), f"grad {grad.shape}")
+    # latents - target is grad by construction, so the loss is its norms
+    rebuilt = float((0.5 * (grad[..., :4] ** 2).sum()
+                     + cfg.lw_depth * (grad[..., 4:] ** 2).sum())
+                    / GUIDANCE_BATCH)
+    print(f"  loss rebuilt from grad {rebuilt:.6f}")
+    check(abs(rebuilt - loss) <= 1e-4 * abs(loss), "loss is not grad's norm")
+    for name, g in (("rgb", rgb.grad), ("depth", depth3.grad)):
+        check(g is not None and bool(torch.isfinite(g).all()),
+              f"d loss / d {name}: non-finite")
+        check(float(g.abs().max()) > 0, f"d loss / d {name} is zero")
+        print(f"  d loss / d {name}: max {float(g.abs().max()):.3e}")
+    # over the alive Gaussians (the PLY loader pads to a capacity with dead
+    # slots, whose zero quaternion has no gradient)
+    reached = False
+    for name, leaf in leaves.items():
+        check(leaf.grad is not None, f"d loss / d {name}: no gradient")
+        g = leaf.grad[avatar.alive]
+        check(bool(torch.isfinite(g).all()),
+              f"d loss / d {name}: {int((~torch.isfinite(g)).sum())} "
+              f"non-finite values")
+        peak = float(g.abs().max()) if g.numel() else 0.0
+        reached = reached or peak > 0
+        print(f"  d loss / d {name}: max {peak:.3e}")
+    check(reached, "no gradient reached the Gaussians")
+    want = {"rasterize_fwd": 1, "rasterize_bwd": 1,
+            "groupnorm_fwd_stats": NORMS_PER_UNET_FORWARD,
+            "groupnorm_bwd_stats": 0,
+            "attention_fwd": ATTN_PER_UNET_FORWARD}
+    check(counts == want, f"launches {counts}, want {want}")
+    del out, rgb, depth3, leaves, grad
+
+    # -- 3 steps end to end, then 3 staged by CUDA events -----------------
+    def step():
+        leaves = fresh_leaves()
+        rgb, depth3 = render_views(leaves)
+        guidance(pose, rgb, depth3, text, t, gen)["loss_sds"].backward()
+
+    step_ms = cuda_ms(step, reps=3, warmup=0)
+
+    def staged():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        leaves = fresh_leaves()
+        rgb, depth3 = render_views(leaves)
+        ev[1].record()
+        lat = guidance.encode_images(resize_bilinear(rgb, cfg.image_size), gen)
+        dlat = (guidance.encode_images(
+            resize_bilinear(depth3, cfg.image_size), gen)
+            - DEPTH_MEAN) / DEPTH_STD * RGB_STD + RGB_MEAN
+        with torch.no_grad():
+            whole = (guidance.encode_images(
+                resize_bilinear(pose, cfg.image_size), gen)
+                - WHOLE_MEAN) / WHOLE_STD * RGB_STD + RGB_MEAN
+        ev[2].record()
+        with torch.no_grad():
+            grad = guidance.compute_grad(lat.detach(), dlat.detach(), whole,
+                                         t, text, gen)
+        ev[3].record()
+        loss = (0.5 * ((lat - (lat - grad[..., :4]).detach()) ** 2).sum()
+                + cfg.lw_depth
+                * ((dlat - (dlat - grad[..., 4:]).detach()) ** 2).sum()
+                ) / GUIDANCE_BATCH
+        loss.backward()
+        ev[4].record()
+        ev[4].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    stages = [statistics.median(x) for x in zip(*[staged() for _ in range(3)])]
+    print(f"  guidance step end to end: {step_ms:.3f} ms (render + "
+          f"__call__ + backward, encodes recomputed in the backward); staged "
+          f"without recomputation: render {stages[0]:.3f} ms, three "
+          f"encodes {stages[1]:.3f} ms, compute_grad (UNet on "
+          f"{3 * GUIDANCE_BATCH} latents) {stages[2]:.3f} ms, loss + "
+          f"backward {stages[3]:.3f} ms")
+    profile_device_time("1 guidance step", step, top=14)
+
+    # the VAE's layout: one encode forward, then forward + backward, with
+    # contiguous weights (as built) against channels_last weights, which
+    # turn every activation after the first convolution channels_last
+    img = resize_bilinear(pose, cfg.image_size)
+    for fmt in (torch.contiguous_format, torch.channels_last,
+                torch.contiguous_format):
+        guidance.vae.to(memory_format=fmt)
+
+        def encode_backward():
+            x = img.clone().requires_grad_(True)
+            guidance.encode_images(x, gen).sum().backward()
+
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: guidance.encode_images(img, gen), reps=3)
+        print(f"  VAE encode of {GUIDANCE_BATCH} x 512^2, {fmt}: forward "
+              f"{fwd_ms:.3f} ms, forward + backward "
+              f"{cuda_ms(encode_backward, reps=3):.3f} ms")
+    return counts
+
+
+def sample_phase(dev, guidance, embeddings):
+    """Phase 12: `sample_joint`, batch 2, 4 DDIM steps, 512^2 outputs."""
+    from humangaussian_torch import kernels
+
+    print("phase 12: sample_joint (batch 2, 4 DDIM steps)")
+    pose = pose_stand_in(2, 512, dev, seed=13)
+    text2 = torch.cat([embeddings.text_vd[1:3], embeddings.uncond_vd[1:3]])
+    gen = torch.Generator(device=dev).manual_seed(14)
+    kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    images, depths = guidance.sample_joint(pose, text2, gen, num_steps=4)
+    end.record()
+    end.synchronize()
+    counts = kernels.launch_counts()
+    for name, x in (("images", images), ("depths", depths)):
+        check(x.shape == (2, 512, 512, 3), f"{name} {tuple(x.shape)}")
+        check(bool(torch.isfinite(x).all()), f"{name}: non-finite")
+        check(float(x.min()) >= 0.0 and float(x.max()) <= 1.0,
+              f"{name} outside [0, 1]")
+    print(f"  {start.elapsed_time(end):.3f} ms; images mean "
+          f"{float(images.mean()):.4f}, depths mean {float(depths.mean()):.4f}"
+          f"; launches K3 {counts['groupnorm_fwd_stats']}, K4 "
+          f"{counts['attention_fwd']}")
+    check(counts["groupnorm_fwd_stats"] == 4 * NORMS_PER_UNET_FORWARD
+          and counts["attention_fwd"] == 4 * ATTN_PER_UNET_FORWARD,
+          f"sample_joint launches {counts}")
+
+
+def unet_backward_phase(dev, unet) -> dict:
+    """Phase 13: K5 on a path. The full-width UNet differentiated with
+    respect to its input latents (batch 2, 64^2, bfloat16): K5 must launch
+    once per K3 launch. Then a float32 UNet at 16^2 latents, matrix-product
+    attention: the input gradient through K3 / K5 against the gradient
+    through their plain versions. Returns the launch counts of the first."""
+    import dataclasses
+
+    from humangaussian_torch import kernels
+    from humangaussian_torch.guidance.unet import (
+        SD2_BASE_CONFIG,
+        DualBranchUNet,
+    )
+
+    print("phase 13: the UNet differentiated (K5)")
+    g = torch.Generator(device="cpu").manual_seed(15)
+
+    def inputs(b, hw):
+        lat = [torch.randn((b, hw, hw, 8), generator=g).to(dev)
+               .requires_grad_(True) for _ in range(2)]
+        t = torch.tensor([100.0, 700.0], device=dev)[:b]
+        text = torch.randn((b, 77, 1024), generator=g).to(dev)
+        ids = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]],
+                           device=dev).repeat(b, 1)
+        cot = torch.randn((b, hw, hw, 8), generator=g).to(dev)
+        return lat, t, text, ids, cot
+
+    def input_grads(model, lat, t, text, ids, cot):
+        out = model(lat[0], lat[1], t, text, ids)
+        return torch.autograd.grad((out * cot).sum(), lat)
+
+    if unet is None:
+        torch.manual_seed(0)
+        with torch.device(dev):
+            unet = DualBranchUNet(SD2_BASE_CONFIG)
+        unet.to(memory_format=torch.channels_last).requires_grad_(False)
+    args = inputs(2, 64)
+    kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    grads = input_grads(unet, *args)
+    end.record()
+    end.synchronize()
+    counts = kernels.launch_counts()
+    print(f"  bfloat16, batch 2, 64^2: forward + backward "
+          f"{start.elapsed_time(end):.3f} ms, launches {counts}, max "
+          f"|d out / d latents| {float(grads[0].abs().max()):.3e} / "
+          f"{float(grads[1].abs().max()):.3e}")
+    check(all(bool(torch.isfinite(x).all()) for x in grads),
+          "non-finite input gradient")
+    check(all(float(x.abs().max()) > 0 for x in grads), "zero input gradient")
+    check(counts["groupnorm_fwd_stats"] == NORMS_PER_UNET_FORWARD
+          and counts["groupnorm_bwd_stats"] == NORMS_PER_UNET_FORWARD
+          and counts["attention_fwd"] == ATTN_PER_UNET_FORWARD,
+          f"launches {counts}")
+    del unet, grads, args
+
+    torch.manual_seed(1)
+    with torch.device(dev):
+        f32 = DualBranchUNet(dataclasses.replace(
+            SD2_BASE_CONFIG, dtype=torch.float32, flash_attention=False))
+    f32.to(memory_format=torch.channels_last).requires_grad_(False)
+    args = inputs(2, 16)
+    kernels.reset_launch_counts()
+    got = input_grads(f32, *args)
+    torch.cuda.synchronize()
+    k5 = kernels.launch_counts()["groupnorm_bwd_stats"]
+    with plain_versions():
+        want = input_grads(f32, *args)
+    worst = 0.0
+    for a, b_ in zip(got, want):
+        worst = max(worst, float((a - b_).abs().max() / b_.abs().max()))
+    print(f"  float32, batch 2, 16^2: input gradient through K3 / K5 vs "
+          f"through the plain versions {worst:.3e} of max |grad| (limit "
+          f"{UNET_GRAD_TOL:g}); K5 launches {k5}")
+    check(worst <= UNET_GRAD_TOL, f"UNet input gradient off by {worst}")
+    check(k5 == NORMS_PER_UNET_FORWARD, f"K5 launched {k5} times")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -432,11 +1147,102 @@ def main() -> int:
         print(f"chip_smoke: humangaussian_torch not found next to the "
               f"script: {exc}", file=sys.stderr)
         return 2
-    return run(torch.device("cuda"))
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--only", default="",
+        help=f"comma-separated phase groups of {PHASE_GROUPS} to run alone "
+        "(for iterating on one part; prints no result lines)")
+    args = parser.parse_args()
+    only = tuple(x for x in args.only.split(",") if x)
+    for name in only:
+        if name not in PHASE_GROUPS:
+            parser.error(f"unknown phase group {name!r}")
+    return run(torch.device("cuda"), only)
 
 
-def run(dev) -> int:
-    """The phases of the module docstring on `dev` (main passes the card)."""
+def run(dev, only=()) -> int:
+    """The phases of the module docstring on `dev` (main passes the card).
+    With `only`, just those phase groups run and no result line is
+    printed."""
+    from humangaussian_torch import kernels
+
+    def want(group):
+        return not only or group in only
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+
+    # -- phase 1: card and build ---------------------------------------
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    kernels.build_all()
+    print(f"built {len(kernels.KERNELS)} kernel(s) from "
+          f"{len({k.source for k in kernels.KERNELS})} sources in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for k in kernels.KERNELS:
+        for line in k.build_log.splitlines():
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Compiling entry" in line):
+                print(f"  {k.source.name}: {line.strip()[:150]}")
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build)
+    tmp = tmp_dir.name
+    t0 = time.perf_counter()
+    assets = write_assets(tmp)
+    print(f"assets: SMPL-X stand-in {assets[3][0]} vertices / {assets[3][1]} "
+          f"faces, {N_AVATAR} Gaussians, {N_FRAMES} frames "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    rows = {}
+    if want("render"):
+        rows.update(render_phases(dev, tmp, assets))
+    if want("norm"):
+        rows.update(norm_phase(dev))
+    if want("attention"):
+        rows.update(attention_phase(dev))
+    if want("guidance") or want("sample"):
+        guidance, embeddings = build_prior(dev, tmp)
+        if want("guidance"):
+            counts = guidance_phase(dev, guidance, embeddings, assets)
+            for name in ("groupnorm_fwd_stats", "attention_fwd"):
+                if name in rows:
+                    rows[name]["launches"] = counts[name]
+        if want("sample"):
+            sample_phase(dev, guidance, embeddings)
+        unet = guidance.unet
+        del guidance
+    else:
+        unet = None
+    if want("unet-backward"):
+        counts = unet_backward_phase(dev, unet)
+        if "groupnorm_bwd_stats" in rows:
+            rows["groupnorm_bwd_stats"]["launches"] = counts[
+                "groupnorm_bwd_stats"]
+    tmp_dir.cleanup()
+
+    if only:
+        print(f"partial run ({', '.join(only)}): no result lines")
+        return 0
+    for row in rows.values():
+        check(row["launches"] > 0,
+              f"{row['name']} was never launched on its path")
+    print(card)
+    print(json.dumps({"kernels": [rows[k.name] for k in kernels.KERNELS]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def render_phases(dev, tmp, assets) -> dict:
+    """Phases 2 to 8 (the render paths: serving and photo training);
+    returns the `kernels` rows of K1 and K2."""
     from humangaussian_torch import kernels
     from humangaussian_torch.apps import animate
     from humangaussian_torch.core.camera import camera_from_c2w
@@ -459,24 +1265,11 @@ def run(dev) -> int:
     from humangaussian_torch.apps import launch
     from humangaussian_torch.config import load_config
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-
-    # -- phase 1: card and build ---------------------------------------
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} "
-          f"count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    kernels.build_all()
-    print(f"built {len(kernels.KERNELS)} kernel(s) in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for k in kernels.KERNELS:
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  {k.name}: {line.strip()}")
     cfg = RasterizeConfig()
+
+    def raster_counts():
+        counts = kernels.launch_counts()
+        return {k: counts[k] for k in ("rasterize_fwd", "rasterize_bwd")}
 
     # -- phase 2a: K1 vs plain, small random scene ----------------------
     print("phase 2: K1 and K2 vs plain")
@@ -499,16 +1292,8 @@ def run(dev) -> int:
     k2_err, _, _ = k2_vs_plain("small 96x64", kargs, bg, (tx, ty), cfg, got,
                                plain, seed=3)
 
-    # -- assets (the avatar feeds phase 2b, 4 and 5) --------------------
-    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(build, exist_ok=True)
-    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build)
-    tmp = tmp_dir.name
-    t0 = time.perf_counter()
-    smplx_path, ply, motion, (nv, nf) = write_assets(tmp)
-    print(f"assets: SMPL-X stand-in {nv} vertices / {nf} faces, "
-          f"{N_AVATAR} Gaussians, {N_FRAMES} frames "
-          f"({time.perf_counter() - t0:.1f} s)")
+    # -- the avatar feeds phase 2b, 4 and 5 ------------------------------
+    smplx_path, ply, motion, _ = assets
     avatar = load_ply(ply, device=dev)  # the training frame (z up)
     avatar_args = (avatar.means, avatar.scales, avatar.quats,
                    avatar.features, avatar.opacities, avatar.alive)
@@ -570,7 +1355,7 @@ def run(dev) -> int:
     kernels.reset_launch_counts()
     got_grads = scene_grads(rasterize_tiled, tile_capacity=N_ORACLE)
     torch.cuda.synchronize()
-    check(kernels.launch_counts() == {"rasterize_fwd": 1, "rasterize_bwd": 1},
+    check(raster_counts() == {"rasterize_fwd": 1, "rasterize_bwd": 1},
           f"gradient launches {kernels.launch_counts()}")
     compare_grads(
         f"{N_ORACLE} Gaussians {ORACLE_SIZE}^2 vs the oracle", got_grads,
@@ -670,7 +1455,7 @@ def run(dev) -> int:
                              "--train", "--device", dev.type,
                              *train_overrides])
     torch.cuda.synchronize()
-    train_launches = kernels.launch_counts()
+    train_launches = raster_counts()
     train_s = time.perf_counter() - t0
     steps = re.findall(r"photo step (\d+): loss=([0-9.eE+-]+) alive=(\d+)",
                        log.getvalue())
@@ -886,9 +1671,7 @@ def run(dev) -> int:
     profile_device_time("4 training steps",
                         lambda: [train_step() for _ in range(4)], top=12)
 
-    tmp_dir.cleanup()
-    print(card)
-    print(json.dumps({"kernels": [
+    return {row["name"]: row for row in [
         {
             "name": "rasterize_fwd",
             "route": "cuda",
@@ -919,11 +1702,7 @@ def run(dev) -> int:
             "library_ms": None,
             "ms_avatar_view": k2_avatar_ms,
         },
-    ]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    ]}
 
 
 if __name__ == "__main__":

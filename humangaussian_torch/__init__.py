@@ -1,9 +1,10 @@
 """PyTorch / CUDA port of humangaussian_tpu for NVIDIA Hopper (sm_90a).
 
 The package mirrors the JAX package's module layout (`core/`, `ops/`,
-`smplx/`, `data/`, `io/`, `utils/`, `apps/`); each module's docstring names
-its JAX counterpart and the TPU-only mechanics it dropped. It imports
-torch, numpy and scipy only, never JAX or the JAX package.
+`guidance/`, `smplx/`, `data/`, `train/`, `io/`, `utils/`, `apps/`); each
+module's docstring names its JAX counterpart and the TPU-only mechanics it
+dropped. It imports torch, numpy and scipy only, never JAX or the JAX
+package.
 
 Entry points create their tensors on `device="cuda"` unless the caller asks
 for the CPU. On a CUDA tensor every ported kernel launches its hand-written

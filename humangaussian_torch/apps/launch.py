@@ -9,8 +9,11 @@ there is none):
 
 Ported so far: `system.type: photo-3dgs-system`, the photometric 3DGS
 trainer (train/photo.py) on a Blender-layout or COLMAP dataset; it writes
-`save/last.ply` under the trial directory. The text-to-avatar system and
-the dreamfusion system are not ported yet and raise NotImplementedError.
+`save/last.ply` under the trial directory. Of the text-to-avatar system the
+guidance half is ported: `build_guidance(cfg, device)` builds the dual-branch
+prior (UNet, VAE, schedule) from diffusers-layout weight files as the
+reference's `build_system` does. The avatar system itself and the
+dreamfusion system are not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -33,8 +36,10 @@ def build_system(cfg: dict, device="cuda"):
         return _build_photo_trainer(cfg, device)
     if stype == "gaussiandreamer-system":
         raise NotImplementedError(
-            "gaussiandreamer-system is not ported yet (ROADMAP.md queue 1: "
-            "guidance, items 7-10, and train/system, item 14)")
+            "gaussiandreamer-system is not ported yet: its guidance is "
+            "(build_guidance); the camera sampler, the skeleton / pose "
+            "images and train/system are not (ROADMAP.md queue 1 items 11, "
+            "12, 14; train/system is item 14)")
     if stype == "dreamfusion-system":
         raise NotImplementedError(
             "dreamfusion-system is not ported yet (ROADMAP.md queue 1 item "
@@ -43,6 +48,127 @@ def build_system(cfg: dict, device="cuda"):
         f"unknown system.type {stype!r}; expected gaussiandreamer-"
         "system, dreamfusion-system or photo-3dgs-system"
     )
+
+
+def _find_weights(root: str, subfolder: str) -> str:
+    """The diffusers weight file under root[/subfolder], or root itself
+    when it is a file."""
+    base = os.path.join(root, subfolder) if subfolder else root
+    for name in (
+        "diffusion_pytorch_model.safetensors",
+        "diffusion_pytorch_model.bin",
+        "model.safetensors",
+        "pytorch_model.bin",
+    ):
+        cand = os.path.join(base, name)
+        if os.path.exists(cand):
+            return cand
+    if os.path.isfile(base):
+        return base
+    raise FileNotFoundError(f"no weight file under {base!r}")
+
+
+def load_state_dict_file(path: str) -> dict:
+    """A diffusers weight file as a dict of CPU tensors: `.safetensors`
+    through the `safetensors` package (an ImportError names it when it is
+    missing), anything else through `torch.load(weights_only=True)`."""
+    import torch
+
+    if path.endswith(".safetensors"):
+        try:
+            from safetensors.torch import load_file
+        except ImportError as exc:
+            raise ImportError(
+                f"{path} needs the `safetensors` package, which is not "
+                "installed; convert the file to a .bin state dict") from exc
+        return load_file(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def build_guidance(cfg: dict, device="cuda"):
+    """The dual-branch prior of `system.guidance`, on `device`.
+
+    `arch` is `sd2-base` (SD2_BASE_CONFIG, VAEConfig()) or `tiny` (the test
+    widths, 16^2 images and 8^2 latents unless the config says otherwise);
+    `system.guidance.unet.*` overrides architecture fields; `model_key`
+    holds `unet_ema/` and `vae_key` the VAE, both in diffusers layout.
+    With `half_precision_weights` (the default) weights are bfloat16 and
+    the prior computes in bfloat16, else both are float32."""
+    import torch
+
+    from humangaussian_torch import resolve_device
+    from humangaussian_torch.guidance.dual_branch import (
+        DualBranchGuidance,
+        GuidanceConfig,
+    )
+    from humangaussian_torch.guidance.schedule import DiffusionSchedule
+    from humangaussian_torch.guidance.unet import (
+        SD2_BASE_CONFIG,
+        TINY_TEST_CONFIG,
+        DualBranchUNet,
+    )
+    from humangaussian_torch.guidance.vae import (
+        AutoencoderKL,
+        VAEConfig,
+        tiny_vae_config,
+        upgrade_vae_state_dict,
+    )
+
+    dev = resolve_device(device)
+    g_raw = dict(cfg.get("system", {}).get("guidance", {}))
+    gtype = g_raw.get("type", "dual-branch")
+    if gtype != "dual-branch":
+        raise ValueError(
+            f"unknown system.guidance.type {gtype!r}; the port has "
+            "'dual-branch'")
+    arch = g_raw.get("arch", "sd2-base")
+    if arch == "tiny":
+        unet_cfg, vae_cfg = TINY_TEST_CONFIG, tiny_vae_config()
+        g_raw.setdefault("latent_size", 8)
+        g_raw.setdefault("image_size", 16)
+    elif arch == "sd2-base":
+        unet_cfg, vae_cfg = SD2_BASE_CONFIG, VAEConfig()
+    else:
+        raise ValueError(
+            f"unknown system.guidance.arch {arch!r}; expected 'sd2-base' or "
+            "'tiny'")
+    overrides = {k: tuple(v) if isinstance(v, list) else v
+                 for k, v in (g_raw.get("unet") or {}).items()}
+    if overrides:
+        unet_cfg = dataclasses.replace(unet_cfg, **overrides)
+    if unet_cfg.branch_num != 1:
+        raise ValueError(
+            "system.guidance.unet.branch_num must be 1 on the training "
+            "path: the dual-branch guidance supplies one depth branch")
+
+    dtype = (torch.bfloat16 if g_raw.get("half_precision_weights", True)
+             else torch.float32)
+    # build on the meta device, then materialize straight on `dev`: the
+    # full-width UNet is 899.7M parameters
+    with torch.device("meta"):
+        unet = DualBranchUNet(dataclasses.replace(unet_cfg, dtype=dtype))
+        vae = AutoencoderKL(dataclasses.replace(vae_cfg, dtype=dtype))
+    for module, path in (
+        (unet, _find_weights(g_raw["model_key"], "unet_ema")),
+        (vae, _find_weights(g_raw["vae_key"], "")),
+    ):
+        module.to_empty(device=dev)
+        state = load_state_dict_file(path)
+        if module is vae:
+            state = upgrade_vae_state_dict(state)
+        missing, unexpected = module.load_state_dict(state, strict=False)
+        if missing:
+            raise KeyError(
+                f"{path} lacks {len(missing)} of the model's tensors, e.g. "
+                f"{missing[:3]}")
+        if unexpected:
+            print(f"warning: {len(unexpected)} unmatched keys in {path}, "
+                  f"e.g. {unexpected[:3]}")
+    # the UNet's activations are channels_last (see guidance/unet.py)
+    unet.to(memory_format=torch.channels_last)
+    return DualBranchGuidance(
+        unet, vae, DiffusionSchedule.create(device=dev),
+        _take(GuidanceConfig, g_raw))
 
 
 def _build_photo_trainer(cfg: dict, device="cuda"):

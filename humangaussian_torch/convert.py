@@ -12,6 +12,8 @@ here imports JAX: arrays are read through `numpy.asarray`.
 """
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -107,3 +109,130 @@ def photo_state_from_numpy(d, device="cuda", seed: int = 0) -> PhotoTrainState:
         generator=torch.Generator(device=dev).manual_seed(seed),
         active_sh_degree=int(f["active_sh_degree"]),
     )
+
+
+# ---- the guidance: Flax parameter trees -> diffusers-named tensors --------
+
+
+def _torch_leaf(path_leaf: str, value) -> torch.Tensor:
+    """A Flax leaf as its torch tensor: conv kernels [kh, kw, I, O] ->
+    [O, I, kh, kw], dense kernels [I, O] -> [O, I], the rest as it is."""
+    a = np.asarray(value, np.float32)
+    if path_leaf == "kernel":
+        a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else np.transpose(a)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+def _flatten(tree: dict, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _params(leaves: dict) -> dict:
+    return leaves["params"] if "params" in leaves else leaves
+
+
+def _transformer_key(rest) -> str:
+    """Path inside a Transformer2D module -> diffusers' suffix."""
+    if rest[0] != "block_0":  # norm, proj_in, proj_out
+        return ".".join(rest)
+    inner = list(rest[1:])
+    if inner[0] == "ff":
+        inner[1] = {"proj_in": "net.0.proj", "proj_out": "net.2"}[inner[1]]
+    elif inner[0].startswith("attn") and inner[1] == "to_out":
+        inner[1] = "to_out.0"
+    return "transformer_blocks.0." + ".".join(inner)
+
+
+def unet_state_dict_from_flax(leaves: dict) -> dict:
+    """A Flax `DualBranchUNet` parameter tree (numpy leaves, with or without
+    the top-level "params") as a diffusers-named state dict of float32
+    tensors, the inverse of the JAX package's torch -> Flax converter. The
+    number of levels and of branch up blocks is read off the tree."""
+    params = _params(leaves)
+    n_levels = sum(1 for k in params if re.fullmatch(r"down_block_\d+", k))
+    n_last = sum(1 for k in params if re.fullmatch(r"up_block_branch_\d+", k))
+    sd = {}
+    for path, value in _flatten(params):
+        top, rest = path[0], list(path[1:])
+        leaf = _LEAF_NAMES[rest[-1]] if rest else None
+        m = re.fullmatch(
+            r"(down_block|up_block)(?:_branch(\d*))?_(\d+)", top)
+        if top in ("time_embedding", "add_embedding", "conv_in",
+                   "fusion_conv"):
+            key = ".".join([top, *rest[:-1], leaf])
+        elif top.startswith("conv_in_branch"):
+            key = f"conv_in_branch.{int(top[14:] or 0)}.{leaf}"
+        elif top == "head":
+            key = f"{rest[0]}.{leaf}"
+        elif top.startswith("head_branch"):
+            key = f"{rest[0]}_branch.{int(top[11:] or 0)}.{leaf}"
+        elif m or top == "mid_block":
+            if top == "mid_block":
+                prefix = "mid_block"
+            else:
+                family, branch, idx = m.groups()
+                idx = int(idx)
+                prefix = f"{family}s"
+                if branch is not None:
+                    prefix += f"_branch.{int(branch or 0)}"
+                    if family == "up_block":
+                        idx -= n_levels - n_last
+                prefix += f".{idx}"
+            sub, inner = rest[0], rest[1:-1]
+            if sub.startswith("resnet_"):
+                body = f"resnets.{sub[7:]}." + ".".join(inner)
+            elif sub.startswith("attn_"):
+                body = f"attentions.{sub[5:]}." + _transformer_key(inner)
+            else:  # downsample / upsample
+                body = f"{sub}rs.0.conv"
+            key = f"{prefix}.{body}.{leaf}"
+        else:
+            raise KeyError(f"no diffusers name for {'/'.join(path)}")
+        sd[key] = _torch_leaf(rest[-1], value)
+    return sd
+
+
+def vae_state_dict_from_flax(leaves: dict) -> dict:
+    """A Flax `AutoencoderKL` parameter tree (numpy leaves) as a
+    diffusers-named state dict of float32 tensors."""
+    sd = {}
+    for path, value in _flatten(_params(leaves)):
+        leaf = _LEAF_NAMES[path[-1]]
+        if path[0] in ("quant_conv", "post_quant_conv"):
+            key = f"{path[0]}.{leaf}"
+        else:
+            side, mod, inner = path[0], path[1], list(path[2:-1])
+            m = re.fullmatch(r"(down|up)_(\d+)_(resnet_(\d+)|\w+sample)", mod)
+            if m:
+                tag, idx, what, j = m.groups()
+                body = (f"resnets.{j}." + ".".join(inner) if j is not None
+                        else f"{what}rs.0.conv")
+                key = f"{side}.{tag}_blocks.{idx}.{body}.{leaf}"
+            elif mod.startswith("mid_resnet_"):
+                key = (f"{side}.mid_block.resnets.{mod[11:]}."
+                       + ".".join(inner) + f".{leaf}")
+            elif mod == "mid_attn":
+                name = "to_out.0" if inner[0] == "to_out" else inner[0]
+                key = f"{side}.mid_block.attentions.0.{name}.{leaf}"
+            else:  # conv_in, conv_norm_out, conv_out
+                key = f"{side}.{mod}.{leaf}"
+        sd[key] = _torch_leaf(path[-1], value)
+    return sd
+
+
+def prompt_embeddings_from_numpy(d, device="cuda"):
+    """PromptEmbeddings from the fields of the JAX package's (text_vd,
+    uncond_vd, text, uncond, null), given as a mapping or a NamedTuple."""
+    from humangaussian_torch.guidance.prompt import PromptEmbeddings
+
+    dev = resolve_device(device)
+    f = _fields(d)
+    return PromptEmbeddings(**{
+        k: _f32(f[k], dev) for k in PromptEmbeddings._fields})

@@ -1,0 +1,339 @@
+"""Structure-Aware SDS guidance: ANPG / SDS gradients and the
+reparameterized loss.
+
+Port of humangaussian_tpu/guidance/dual_branch.py. Per step
+(`DualBranchGuidance.__call__`):
+
+  1. resize the rgb and depth renders to `image_size`^2 and VAE-encode
+     both; the depth latents are renormalized to the rgb latents'
+     statistics;
+  2. encode the skeleton pose image -> `whole_latents`, renormalized, and
+     channel-concatenate it onto BOTH noisy latents as conditioning;
+  3. one batched UNet forward on 3B inputs ([cond | neg | null] text
+     embeddings) -> the ANPG gradient
+       delta_c = s * (e_text - e_null)
+       delta_d = t < 200 ? e_null : (e_null - e_neg)
+       grad    = w(t) * (delta_c + delta_d),  w = 1 - alpha_bar_t
+     with an optional per-pixel norm clamp (mode `sds` is plain CFG-SDS on
+     a 2B batch);
+  4. the reparameterized loss, so that autograd carries `grad` into the
+     renderer: 0.5 ||latents - sg(latents - g_rgb)||^2 / B
+     + lw_depth ||depth_latents - sg(depth_latents - g_depth)||^2 / B.
+
+The UNet runs under `torch.no_grad()` (the score is consumed through a
+stop-gradient); the two differentiated encodes run under
+`torch.utils.checkpoint` when `remat_encode` is on, which recomputes the
+encoder in the backward instead of keeping its convolution activations.
+
+Noise: every draw comes from a `torch.Generator` or is passed in (`noise=`,
+`depth_noise=`, `latent_eps=`), so a test can inject the reference's
+draws. The reference's per-sample key folding (`sample_idx`, which makes
+its draws invariant to how a batch is sharded) has no counterpart yet.
+
+Layout: images are `[B, H, W, 3]` in [0, 1], latents and `grad`
+`[B, h, w, C]`, as in the reference; the VAE and the UNet turn them
+channels-first inside.
+
+Waiting (not ported): `compute_grad_sjc`, `guidance_eval`, `branch_num > 1`.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from humangaussian_torch.guidance.schedule import DiffusionSchedule
+from humangaussian_torch.guidance.vae import sample_latent
+
+# latent-space normalization constants of the joint model
+RGB_MEAN = 0.14654
+RGB_STD = 1.03744
+WHOLE_MEAN = -0.2481
+WHOLE_STD = 1.45647
+DEPTH_MEAN = 0.21360
+DEPTH_STD = 1.20629
+
+VAE_SCALE = 0.18215  # sd-vae-ft-mse scaling_factor
+
+
+def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float):
+    """CFG std rescale (Lin et al., section 3.4)."""
+    axes = tuple(range(1, noise_cfg.dim()))
+    std_text = noise_pred_text.std(dim=axes, keepdim=True, unbiased=False)
+    std_cfg = noise_cfg.std(dim=axes, keepdim=True, unbiased=False)
+    rescaled = noise_cfg * (std_text / std_cfg.clamp_min(1e-8))
+    return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
+
+
+def resize_bilinear(x, size: int):
+    """[B, H, W, C] -> [B, size, size, C], bilinear with half-pixel centres
+    and, when shrinking, the triangle filter widened by the scale
+    (anti-aliasing), as `jax.image.resize(..., "bilinear")` does."""
+    if x.shape[1] == size and x.shape[2] == size:
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class GuidanceConfig:
+    guidance_scale: float = 100.0
+    weighting_strategy: str = "sds"
+    lw_depth: float = 0.5
+    grad_clip_pixel: bool = True
+    grad_clip_threshold: float = 1.0
+    original_size: int = 1024
+    target_size: int = 1024
+    anpg_boundary_t: int = 200  # below it delta_d is e_null alone
+    mode: str = "anpg"  # "anpg" | "sds"
+    guidance_rescale: float = 0.0
+    latent_size: int = 64
+    image_size: int = 512
+    remat_encode: bool = True  # recompute the VAE encoder in the backward
+
+
+def _repeat(x, k: int):
+    return x.repeat(k, *([1] * (x.dim() - 1)))
+
+
+class DualBranchGuidance:
+    """The frozen prior (UNet, VAE, schedule) and the guidance math.
+
+    The modules' parameters do not require gradients; the object is not an
+    `nn.Module` because nothing of it is trained."""
+
+    def __init__(self, unet, vae, schedule: DiffusionSchedule,
+                 cfg: GuidanceConfig = GuidanceConfig()):
+        if cfg.mode not in ("anpg", "sds"):
+            raise ValueError(
+                f"unknown guidance mode {cfg.mode!r}; the port has 'anpg' "
+                "and 'sds'")
+        self.unet = unet.eval().requires_grad_(False)
+        self.vae = vae.eval().requires_grad_(False)
+        self.schedule = schedule
+        self.cfg = cfg
+
+    @property
+    def device(self) -> torch.device:
+        return self.schedule.alphas_cumprod.device
+
+    def _normal(self, shape, generator):
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=self.device)
+
+    # ---- VAE transport ---------------------------------------------------
+    def encode_images(self, imgs, generator=None, eps=None):
+        """[B, H, W, 3] in [0, 1] -> sampled latents [B, h, w, 4] times
+        VAE_SCALE; `eps` [B, h, w, 4] replaces the generator's draw."""
+        mean, logvar = self.vae.encode(imgs * 2.0 - 1.0)
+        return sample_latent(mean, logvar, generator, eps) * VAE_SCALE
+
+    def decode_latents(self, latents):
+        img = self.vae.decode(latents / VAE_SCALE)
+        return (img * 0.5 + 0.5).clamp(0.0, 1.0)
+
+    # ---- UNet scoring ----------------------------------------------------
+    def _unet_eps(self, rgb_lat_in, depth_lat_in, t, text_embeddings):
+        """[kB, h, w, 8] inputs -> [kB, h, w, 8] predictions (rgb, depth),
+        without gradients."""
+        c = self.cfg
+        time_ids = torch.tensor(
+            [[c.original_size, c.original_size, 0, 0, c.target_size,
+              c.target_size]], dtype=torch.float32, device=rgb_lat_in.device
+        ).repeat(rgb_lat_in.shape[0], 1)
+        with torch.no_grad():
+            return self.unet(rgb_lat_in, depth_lat_in, t, text_embeddings,
+                             time_ids)
+
+    def _unet_k(self, k, latents_noisy, depth_noisy, whole_latents, t, text):
+        whole = _repeat(whole_latents, k)
+        lat_in = torch.cat([_repeat(latents_noisy, k), whole], dim=-1)
+        dep_in = torch.cat([_repeat(depth_noisy, k), whole], dim=-1)
+        return self._unet_eps(lat_in, dep_in, t.repeat(k), text)
+
+    def compute_grad(self, latents, depth_latents, whole_latents, t,
+                     text_embeddings, generator=None, noise=None,
+                     depth_noise=None):
+        """ANPG (or plain CFG-SDS) gradient for both branches.
+
+        latents, depth_latents, whole_latents [B, h, w, 4];
+        text_embeddings [3B, L, D] in [cond | neg | null] order; t [B] int.
+        `noise` / `depth_noise` [B, h, w, 4] replace the generator's draws.
+        Returns grad [B, h, w, 8]."""
+        c = self.cfg
+        b = latents.shape[0]
+        if noise is None:
+            noise = self._normal(latents.shape, generator)
+        if depth_noise is None:
+            depth_noise = self._normal(depth_latents.shape, generator)
+        latents_noisy = self.schedule.add_noise(latents, noise, t)
+        depth_noisy = self.schedule.add_noise(depth_latents, depth_noise, t)
+
+        if c.mode == "anpg":
+            # NFSD decomposition over a 3-way [cond | neg | null] batch
+            pred = self._unet_k(3, latents_noisy, depth_noisy, whole_latents,
+                                t, text_embeddings)
+            e_text, e_neg, e_null = pred.chunk(3, dim=0)
+            delta_c = c.guidance_scale * (e_text - e_null)
+            mask = (t < c.anpg_boundary_t).float().reshape(b, 1, 1, 1)
+            delta_d = mask * e_null + (1.0 - mask) * (e_null - e_neg)
+            score = delta_c + delta_d
+        else:
+            # 2-way [cond | neg] batch and the CFG with the TEXT prediction
+            # as its base term: e_text + s (e_text - e_uncond)
+            pred = self._unet_k(2, latents_noisy, depth_noisy, whole_latents,
+                                t, text_embeddings[: 2 * b])
+            e_text, e_uncond = pred.chunk(2, dim=0)
+            noise_pred = e_text + c.guidance_scale * (e_text - e_uncond)
+            if c.guidance_rescale > 0.0:
+                noise_pred = rescale_noise_cfg(noise_pred, e_text,
+                                               c.guidance_rescale)
+            score = noise_pred - torch.cat([noise, depth_noise], dim=-1)
+
+        w = self.schedule.sds_weight(t, c.weighting_strategy)
+        grad = w.reshape(b, 1, 1, 1) * score
+        if c.grad_clip_pixel:
+            # per-pixel norm clamp over the channels
+            gnorm = torch.linalg.vector_norm(grad, dim=-1, keepdim=True) + 1e-8
+            grad = gnorm.clamp_max(c.grad_clip_threshold) * grad / gnorm
+        return torch.nan_to_num(grad)
+
+    # ---- sampling ----------------------------------------------------------
+    def denoise_pred(self, latents_noisy, depth_noisy, whole_latents, t,
+                     text2):
+        """2-way CFG model output for both branches; text2 [2B, L, D] is
+        [cond | neg]."""
+        pred = self._unet_k(2, latents_noisy, depth_noisy, whole_latents, t,
+                            text2)
+        e_text, e_uncond = pred.chunk(2, dim=0)
+        out = e_text + self.cfg.guidance_scale * (e_text - e_uncond)
+        if self.cfg.guidance_rescale > 0.0:
+            out = rescale_noise_cfg(out, e_text, self.cfg.guidance_rescale)
+        return out
+
+    @torch.no_grad()
+    def sample_joint(self, pose_image, text2, generator=None,
+                     num_steps: int = 50, latents=None, depth_latents=None,
+                     latent_eps=None):
+        """Text -> (image, depth) sampling: joint DDIM denoising of the rgb
+        and depth latents from pure noise, both conditioned on the pose
+        image; the depth latents are un-normalized before decoding.
+
+        pose_image [B, H, W, 3] in [0, 1]; text2 [2B, L, D] = [cond | neg].
+        `latents` / `depth_latents` [B, h, w, 4] replace the initial noise
+        and `latent_eps` the pose encode's draw. Returns (images, depths),
+        both [B, H, W, 3] in [0, 1]."""
+        c = self.cfg
+        b = pose_image.shape[0]
+        whole_latents = self.encode_images(
+            resize_bilinear(pose_image, c.image_size), generator, latent_eps)
+        whole_latents = (
+            (whole_latents - WHOLE_MEAN) / WHOLE_STD * RGB_STD + RGB_MEAN
+        )
+        shape = (b, c.latent_size, c.latent_size, 4)
+        if latents is None:
+            latents = self._normal(shape, generator)
+        if depth_latents is None:
+            depth_latents = self._normal(shape, generator)
+
+        ts = self.schedule.trailing_timesteps(num_steps)
+        for i, t_i in enumerate(ts):
+            t_prev = ts[i + 1] if i + 1 < len(ts) else -1
+            t_arr = torch.full((b,), int(t_i), dtype=torch.int64,
+                               device=self.device)
+            t_prev_arr = torch.full_like(t_arr, int(t_prev))
+            pred = self.denoise_pred(latents, depth_latents, whole_latents,
+                                     t_arr, text2)
+            latents = self.schedule.ddim_step(pred[..., :4], latents, t_arr,
+                                              t_prev_arr)
+            depth_latents = self.schedule.ddim_step(
+                pred[..., 4:], depth_latents, t_arr, t_prev_arr)
+
+        depth_out = (
+            (depth_latents - RGB_MEAN) / RGB_STD * DEPTH_STD + DEPTH_MEAN
+        )
+        return self.decode_latents(latents), self.decode_latents(depth_out)
+
+    # ---- the public step ---------------------------------------------------
+    def __call__(self, pose_image, rgb, depth, text_embeddings, t,
+                 generator=None, grad_clip_val=None, latent_eps=None,
+                 noise=None, depth_noise=None):
+        """One guidance step.
+
+        pose_image [B, H, W, 3]: the skeleton conditioning render; rgb
+        [B, H, W, 3]: the differentiable render; depth [B, H, W, 3]: the
+        normalized structure image; text_embeddings [3B, L, D] = [cond |
+        neg | null]; t [B] int timesteps. `latent_eps` is a dict with any
+        of "rgb", "depth", "pose" -> [B, h, w, 4] replacing the encodes'
+        draws; `noise` / `depth_noise` replace `compute_grad`'s.
+
+        Returns {"loss_sds", "grad_norm", "grad"}: `loss_sds` carries the
+        gradient into rgb and depth; `grad` [B, h, w, 8] is detached."""
+        c = self.cfg
+        b = rgb.shape[0]
+        eps = latent_eps or {}
+
+        down = 2 ** (len(self.vae.cfg.block_out_channels) - 1)
+        lat_shape = (b, c.image_size // down, c.image_size // down,
+                     self.vae.cfg.latent_channels)
+
+        # draws in a fixed order (rgb, depth, pose, noise, depth noise) so a
+        # seeded generator reproduces a step; they are made outside the
+        # checkpointed encodes, whose recomputation must see the same draw
+        draws = {
+            key: eps[key] if key in eps else self._normal(lat_shape,
+                                                          generator)
+            for key in ("rgb", "depth", "pose")
+        }
+
+        def encode(img, key):
+            fn = lambda x: self.encode_images(x, eps=draws[key])  # noqa: E731
+            if c.remat_encode and img.requires_grad:
+                return checkpoint(fn, img, use_reentrant=False)
+            return fn(img)
+
+        latents = encode(resize_bilinear(rgb, c.image_size), "rgb")
+        depth_latents = (
+            encode(resize_bilinear(depth, c.image_size), "depth")
+            - DEPTH_MEAN) / DEPTH_STD * RGB_STD + RGB_MEAN
+        with torch.no_grad():
+            whole_latents = encode(
+                resize_bilinear(pose_image, c.image_size), "pose")
+            whole_latents = (
+                (whole_latents - WHOLE_MEAN) / WHOLE_STD * RGB_STD + RGB_MEAN
+            )
+            grad = self.compute_grad(
+                latents.detach(), depth_latents.detach(), whole_latents, t,
+                text_embeddings, generator, noise, depth_noise)
+            if grad_clip_val is not None:
+                grad = grad.clamp(-grad_clip_val, grad_clip_val)
+
+        # the reparameterized SDS loss
+        target = (latents - grad[..., :4]).detach()
+        loss_sds = 0.5 * ((latents - target) ** 2).sum() / b
+        d_target = (depth_latents - grad[..., 4:8]).detach()
+        loss_sds = loss_sds + c.lw_depth * (
+            (depth_latents - d_target) ** 2).sum() / b
+        return {
+            "loss_sds": loss_sds,
+            "grad_norm": torch.linalg.vector_norm(grad),
+            "grad": grad,
+        }
+
+
+def sample_timesteps(batch: int, min_step: int, max_step: int,
+                     generator=None, device="cuda"):
+    """t ~ U[min_step, max_step] inclusive, [batch] int64."""
+    return torch.randint(min_step, max_step + 1, (batch,),
+                         generator=generator, device=device)
+
+
+def min_max_steps(num_train_timesteps: int, min_percent: float,
+                  max_percent: float):
+    """The timestep range of a (min, max) percent pair; the avatar system
+    anneals max from 0.98 to 0.5."""
+    return (int(num_train_timesteps * min_percent),
+            int(num_train_timesteps * max_percent))

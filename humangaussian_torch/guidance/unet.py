@@ -1,0 +1,471 @@
+"""The dual-branch SD2 UNet (Texture-Structure Joint Model) as torch modules.
+
+Port of humangaussian_tpu/guidance/unet.py: a Stable-Diffusion-2-base UNet
+(320 / 640 / 1280 / 1280 channels, 2 layers per block, cross-attention width
+1024, linear attention projections) with a structure (depth) branch:
+
+- branch copies of conv_in, the first `copy_first_n_block` down blocks, the
+  last `copy_last_n_block` up blocks, conv_norm_out and conv_out;
+- the two stems are fused (averaged) after `copy_first_n_block` down
+  blocks; the shared trunk, the mid block and the shared up blocks run
+  once;
+- the branch's last up block(s) run on a copy of the shared feature with
+  the branch's own skip stack (its stem skips, then the trunk's);
+- size micro-conditioning: 6 ids (original H x W, crop, target H x W)
+  through a 256-wide sinusoid and an MLP, added to the time embedding;
+- the forward takes two 8-channel inputs (4 noisy latent + 4 pose latent
+  channels each) and returns the channel-concat of the rgb and the depth
+  prediction.
+
+Kernels: every GroupNorm is `GroupNormAct` (ops/groupnorm.py, kernels K3 /
+K5) and self-attention with `flash_attention` on and a token count that is a
+multiple of 128 is `self_attention` (ops/attention.py, kernel K4).
+Cross-attention and the 8 x 8 mid block (64 tokens) take the matrix-product
+branch, as in the reference.
+
+Parameter names are diffusers' `unet_ema` names (`down_blocks.0.resnets.0
+.norm1.weight`, `conv_in_branch.0.weight`, ...), so a state dict loads
+without a converter. Weights are `cfg.dtype` (bfloat16 at full width),
+GroupNorm parameters float32, the output float32; the computation runs in
+the dtype of the weights.
+
+Layout: `forward` takes and returns channel-minor arrays (`[B, h, w, C]`),
+the reference's public layout; inside, activations are channels-first
+tensors in the `channels_last` memory format, which is what cuDNN's bf16
+convolutions want and makes the `[B, h, w, C]` view GroupNormAct and the
+transformer blocks need free.
+
+Waiting (not ported): `SingleUNet`, `branch_num > 1`, `fusion: learn`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from humangaussian_torch.ops.attention import self_attention
+from humangaussian_torch.ops.groupnorm import GroupNormAct
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 8
+    out_channels: int = 4
+    block_out_channels: Sequence[int] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 1024
+    attn_heads: Sequence[int] = (5, 10, 20, 20)  # per level
+    down_block_has_attn: Sequence[bool] = (True, True, True, False)
+    norm_num_groups: int = 32
+    addition_time_embed_dim: int = 256
+    num_time_ids: int = 6
+    branch_num: int = 1
+    copy_first_n_block: int = 1
+    copy_last_n_block: int = 1
+    fusion: str = "avg"
+    flash_attention: bool = False  # kernel K4 for self-attention
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+SD2_BASE_CONFIG = UNetConfig(flash_attention=True)
+
+TINY_TEST_CONFIG = UNetConfig(
+    block_out_channels=(32, 64),
+    layers_per_block=1,
+    cross_attention_dim=32,
+    attn_heads=(2, 2),
+    down_block_has_attn=(True, False),
+    norm_num_groups=8,
+    addition_time_embed_dim=16,
+    dtype=torch.float32,
+)
+
+
+def sinusoidal_embedding(timesteps, dim: int):
+    """diffusers' Timesteps as SD2 configures it (cosines first, no
+    frequency shift): [B] -> [B, dim]."""
+    half = dim // 2
+    exponent = -math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device) / half
+    emb = torch.exp(exponent)[None, :] * timesteps.float()[:, None]
+    return torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
+
+
+class TimestepEmbedding(nn.Module):
+    def __init__(self, in_dim, out_dim):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, out_dim)
+        self.linear_2 = nn.Linear(out_dim, out_dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class ResnetBlock2D(nn.Module):
+    def __init__(self, in_ch, out_ch, temb_dim, groups):
+        super().__init__()
+        self.norm1 = GroupNormAct(groups, in_ch, eps=1e-5, silu=True)
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.time_emb_proj = nn.Linear(temb_dim, out_ch)
+        self.norm2 = GroupNormAct(groups, out_ch, eps=1e-5, silu=True)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv_shortcut = (
+            nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
+        )
+
+    def forward(self, x, temb):
+        h = self.conv1(self.norm1(x))
+        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(self.norm2(h))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class Attention(nn.Module):
+    def __init__(self, query_dim, context_dim, heads, use_flash=False):
+        super().__init__()
+        self.heads = heads
+        self.use_flash = use_flash
+        ctx = query_dim if context_dim is None else context_dim
+        self.to_q = nn.Linear(query_dim, query_dim, bias=False)
+        self.to_k = nn.Linear(ctx, query_dim, bias=False)
+        self.to_v = nn.Linear(ctx, query_dim, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
+
+    def forward(self, x, context=None):
+        ctx = x if context is None else context
+        b, n, inner = x.shape
+        h = self.heads
+        d = inner // h
+        q = self.to_q(x).reshape(b, n, h, d)
+        k = self.to_k(ctx).reshape(b, -1, h, d)
+        v = self.to_v(ctx).reshape(b, -1, h, d)
+        if self.use_flash and context is None and n % 128 == 0:
+            # kernel K4: the matrix-product branch would materialize
+            # [b, h, 4096, 4096] logits at the first level
+            out = self_attention(q, k, v).reshape(b, n, inner)
+        else:
+            logits = torch.einsum("bnhd,bmhd->bhnm", q.float(),
+                                  k.float()) / math.sqrt(d)
+            attn = torch.softmax(logits, dim=-1).to(x.dtype)
+            out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(
+                b, n, inner)
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim):
+        super().__init__()
+        self.proj = nn.Linear(dim, dim * 8)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)  # exact (erf) gelu
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim):
+        super().__init__()
+        # diffusers' layout: net.0 GEGLU, net.1 dropout, net.2 projection
+        self.net = nn.ModuleList(
+            [GEGLU(dim), nn.Dropout(0.0), nn.Linear(dim * 4, dim)]
+        )
+
+    def forward(self, x):
+        for m in self.net:
+            x = m(x)
+        return x
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim, context_dim, heads, use_flash):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim)
+        self.attn1 = Attention(dim, None, heads, use_flash)
+        self.norm2 = nn.LayerNorm(dim)
+        self.attn2 = Attention(dim, context_dim, heads)
+        self.norm3 = nn.LayerNorm(dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context):
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2DModel(nn.Module):
+    """Linear input and output projections (SD2's
+    `use_linear_projection`; the 1 x 1 convolution form is not ported)."""
+
+    def __init__(self, dim, context_dim, heads, groups, use_flash=False):
+        super().__init__()
+        self.norm = GroupNormAct(groups, dim, eps=1e-6)
+        self.proj_in = nn.Linear(dim, dim)
+        self.proj_out = nn.Linear(dim, dim)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(dim, context_dim, heads, use_flash)]
+        )
+
+    def forward(self, x, context):
+        b, c, hh, ww = x.shape
+        res = x
+        h = self.norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        h = self.transformer_blocks[0](self.proj_in(h), context)
+        h = self.proj_out(h).reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+        return h + res
+
+
+class _Resample(nn.Module):
+    """diffusers wraps a resampling conv as `{down,up}samplers.0.conv`."""
+
+    def __init__(self, ch, stride):
+        super().__init__()
+        # the UNet's downsampler pads symmetrically (padding 1), unlike the
+        # VAE's asymmetric (0, 1)
+        self.conv = nn.Conv2d(ch, ch, 3, stride=stride, padding=1)
+
+
+class DownBlock(nn.Module):
+    """CrossAttnDownBlock2D or DownBlock2D, by `has_attn`."""
+
+    def __init__(self, in_ch, out_ch, temb_dim, has_attn, heads,
+                 add_downsample, cfg: UNetConfig):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D(in_ch if i == 0 else out_ch, out_ch, temb_dim,
+                           cfg.norm_num_groups)
+             for i in range(cfg.layers_per_block)]
+        )
+        self.attentions = nn.ModuleList(
+            [_transformer(out_ch, heads, cfg)
+             for _ in range(cfg.layers_per_block)]
+        ) if has_attn else None
+        self.downsamplers = (
+            nn.ModuleList([_Resample(out_ch, 2)]) if add_downsample else None
+        )
+
+    def forward(self, x, temb, context):
+        res = []
+        for i, resnet in enumerate(self.resnets):
+            x = resnet(x, temb)
+            if self.attentions is not None:
+                x = self.attentions[i](x, context)
+            res.append(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0].conv(x)
+            res.append(x)
+        return x, res
+
+
+class UpBlock(nn.Module):
+    def __init__(self, prev_ch, skip_chs, out_ch, temb_dim, has_attn, heads,
+                 add_upsample, cfg: UNetConfig):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D((prev_ch if i == 0 else out_ch) + skip, out_ch,
+                           temb_dim, cfg.norm_num_groups)
+             for i, skip in enumerate(skip_chs)]
+        )
+        self.attentions = nn.ModuleList(
+            [_transformer(out_ch, heads, cfg) for _ in skip_chs]
+        ) if has_attn else None
+        self.upsamplers = (
+            nn.ModuleList([_Resample(out_ch, 1)]) if add_upsample else None
+        )
+
+    def forward(self, x, res_stack, temb, context):
+        for i, resnet in enumerate(self.resnets):
+            x = resnet(torch.cat([x, res_stack.pop()], dim=1), temb)
+            if self.attentions is not None:
+                x = self.attentions[i](x, context)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0].conv(
+                F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        return x
+
+
+class MidBlock(nn.Module):
+    def __init__(self, ch, temb_dim, heads, cfg: UNetConfig):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D(ch, ch, temb_dim, cfg.norm_num_groups)
+             for _ in range(2)]
+        )
+        self.attentions = nn.ModuleList([_transformer(ch, heads, cfg)])
+
+    def forward(self, x, temb, context):
+        x = self.resnets[0](x, temb)
+        x = self.attentions[0](x, context)
+        return self.resnets[1](x, temb)
+
+
+def _transformer(ch, heads, cfg: UNetConfig):
+    return Transformer2DModel(ch, cfg.cross_attention_dim, heads,
+                              cfg.norm_num_groups, cfg.flash_attention)
+
+
+def cast_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast a model's weights to `dtype`, keeping every GroupNormAct's
+    parameters float32 (the op reads them as f32 and its statistics are
+    f32 whatever the activation's type)."""
+    module.to(dtype)
+    for m in module.modules():
+        if isinstance(m, GroupNormAct):
+            m.float()
+    return module
+
+
+class DualBranchUNet(nn.Module):
+    def __init__(self, cfg: UNetConfig = SD2_BASE_CONFIG):
+        super().__init__()
+        if cfg.branch_num != 1:
+            raise NotImplementedError(
+                "branch_num > 1 is not ported (ROADMAP.md queue 1 item 19)")
+        if cfg.fusion not in ("avg", "sum"):
+            raise NotImplementedError(
+                f"fusion {cfg.fusion!r} is not ported (avg and sum are; "
+                "ROADMAP.md queue 1 item 19)")
+        self.cfg = cfg
+        chs = list(cfg.block_out_channels)
+        n = len(chs)
+        temb_dim = cfg.time_embed_dim
+        g = cfg.norm_num_groups
+        bn = cfg.branch_num
+
+        self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+        self.conv_in_branch = nn.ModuleList(
+            [nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+             for _ in range(bn)]
+        )
+        self.time_embedding = TimestepEmbedding(chs[0], temb_dim)
+        self.add_embedding = TimestepEmbedding(
+            cfg.addition_time_embed_dim * cfg.num_time_ids, temb_dim)
+
+        def make_down(count):
+            return nn.ModuleList(
+                [DownBlock(chs[max(i - 1, 0)], chs[i], temb_dim,
+                           cfg.down_block_has_attn[i], cfg.attn_heads[i],
+                           i < n - 1, cfg)
+                 for i in range(count)]
+            )
+
+        self.down_blocks = make_down(n)
+        self.down_blocks_branch = nn.ModuleList(
+            [make_down(cfg.copy_first_n_block) for _ in range(bn)]
+        )
+        self.mid_block = MidBlock(chs[-1], temb_dim, cfg.attn_heads[-1], cfg)
+
+        def make_up(first):
+            """Up blocks `first` .. n - 1, with diffusers' skip-channel
+            bookkeeping: the channels are reversed and each block takes
+            layers_per_block + 1 skips off the stack."""
+            rev = list(reversed(chs))
+            rev_attn = list(reversed(cfg.down_block_has_attn))
+            rev_heads = list(reversed(cfg.attn_heads))
+            skips = [chs[0]]  # bottom of the stack first
+            for i in range(n):
+                skips += [chs[i]] * cfg.layers_per_block
+                if i < n - 1:
+                    skips.append(chs[i])
+            take = cfg.layers_per_block + 1
+            blocks = []
+            for i in range(n):
+                skip_chs = list(reversed(skips[-take:]))
+                skips = skips[:-take]
+                if i >= first:
+                    blocks.append(UpBlock(
+                        rev[max(i - 1, 0)], skip_chs, rev[i], temb_dim,
+                        rev_attn[i], rev_heads[i], i < n - 1, cfg))
+            return nn.ModuleList(blocks)
+
+        self.up_blocks = make_up(0)
+        self.up_blocks_branch = nn.ModuleList(
+            [make_up(n - cfg.copy_last_n_block) for _ in range(bn)]
+        )
+
+        self.conv_norm_out = GroupNormAct(g, chs[0], eps=1e-5, silu=True)
+        self.conv_out = nn.Conv2d(chs[0], cfg.out_channels, 3, padding=1)
+        self.conv_norm_out_branch = nn.ModuleList(
+            [GroupNormAct(g, chs[0], eps=1e-5, silu=True) for _ in range(bn)]
+        )
+        self.conv_out_branch = nn.ModuleList(
+            [nn.Conv2d(chs[0], cfg.out_channels, 3, padding=1)
+             for _ in range(bn)]
+        )
+        cast_weights(self, cfg.dtype)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv_in.weight.dtype
+
+    def forward(self, sample, sample_branch, timesteps,
+                encoder_hidden_states, time_ids):
+        """sample, sample_branch [B, h, w, in_channels]: the noisy rgb and
+        depth latents, each with the pose latent appended; timesteps [B];
+        encoder_hidden_states [B, L, cross_attention_dim]; time_ids
+        [B, num_time_ids]. Returns [B, h, w, 2 * out_channels] float32:
+        the rgb prediction, then the depth prediction."""
+        cfg = self.cfg
+        dtype = self.dtype
+        n = len(cfg.block_out_channels)
+        first_n, last_n = cfg.copy_first_n_block, cfg.copy_last_n_block
+        b = time_ids.shape[0]
+
+        emb = self.time_embedding(sinusoidal_embedding(
+            timesteps, cfg.block_out_channels[0]).to(dtype))
+        size_emb = sinusoidal_embedding(
+            time_ids.reshape(-1), cfg.addition_time_embed_dim
+        ).reshape(b, cfg.num_time_ids * cfg.addition_time_embed_dim)
+        emb = emb + self.add_embedding(size_emb.to(dtype))
+        context = encoder_hidden_states.to(dtype)
+
+        def stem(x):
+            return x.to(dtype).permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+
+        h = self.conv_in(stem(sample))
+        h_br = self.conv_in_branch[0](stem(sample_branch))
+        res_main, res_br = [h], [h_br]
+        for blk in self.down_blocks[:first_n]:
+            h, rs = blk(h, emb, context)
+            res_main += rs
+        for blk in self.down_blocks_branch[0]:
+            h_br, rs = blk(h_br, emb, context)
+            res_br += rs
+
+        h = h + h_br
+        if cfg.fusion == "avg":
+            h = h / (1.0 + cfg.branch_num)
+
+        for blk in self.down_blocks[first_n:]:
+            h, rs = blk(h, emb, context)
+            res_main += rs
+            res_br += rs
+
+        h = self.mid_block(h, emb, context)
+
+        layers_up = cfg.layers_per_block + 1
+        for blk in self.up_blocks[: n - last_n]:
+            h = blk(h, res_main, emb, context)
+            del res_br[-layers_up:]  # the branch stack pops in lockstep
+
+        h_b = h
+        for blk in self.up_blocks_branch[0]:
+            h_b = blk(h_b, res_br, emb, context)
+        for blk in self.up_blocks[n - last_n:]:
+            h = blk(h, res_main, emb, context)
+
+        out = torch.cat(
+            [self.conv_out(self.conv_norm_out(h)).float(),
+             self.conv_out_branch[0](
+                 self.conv_norm_out_branch[0](h_b)).float()], dim=1)
+        return out.permute(0, 2, 3, 1)

@@ -1,10 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each kernel is one `.cu` file under `humangaussian_torch/csrc/` with a plain
-C entry point. At first use it is compiled by `nvcc` for `sm_90a` into a
-shared library under `<repo>/build/kernels/` (named by a hash of the source
-and flags, so an edited source rebuilds) and loaded with ctypes. Building or
-loading raises on failure; nothing falls back to a plain version.
+Each kernel is one plain C entry point of a `.cu` file under
+`humangaussian_torch/csrc/` (a source may hold several). At first use the
+source is compiled by `nvcc` for `sm_90a` into a shared library under
+`<repo>/build/kernels/` (named by the source and a hash of it and the flags,
+so an edited source rebuilds) and loaded with ctypes. Building or loading
+raises on failure; nothing falls back to a plain version.
 
 Every `Kernel` keeps `launches`, a plain integer that its `launch` adds one
 to after each successful launch, so a run can show that its path went
@@ -44,8 +45,8 @@ def find_nvcc() -> str:
 
 
 class Kernel:
-    """One CUDA source with one C entry point `symbol(argtypes) -> int`,
-    which returns `cudaGetLastError()` after its launch."""
+    """One C entry point `symbol(argtypes) -> int` of a CUDA source; it
+    returns `cudaGetLastError()` after its launch."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes):
         self.name = name
@@ -59,7 +60,7 @@ class Kernel:
     def library_path(self) -> Path:
         digest = hashlib.sha1(self.source.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.name}-{digest.hexdigest()[:12]}.so"
+        return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:12]}.so"
 
     def build(self) -> Path:
         """Compile the source unless its library exists; returns its path."""
@@ -120,14 +121,35 @@ RASTERIZE_BWD = Kernel(
      _P],
 )
 
-KERNELS = (RASTERIZE_FWD, RASTERIZE_BWD)
+GROUPNORM_FWD_STATS = Kernel(
+    "groupnorm_fwd_stats", "groupnorm_stats.cu", "hg_groupnorm_fwd_stats",
+    # x, samples, rows, channels, rows_per_block, is_bf16, out, stream
+    [_P, _I, _I, _I, _I, _I, _P, _P],
+)
+
+GROUPNORM_BWD_STATS = Kernel(
+    "groupnorm_bwd_stats", "groupnorm_stats.cu", "hg_groupnorm_bwd_stats",
+    # x, dz, mu, rstd, gamma, beta, samples, rows, channels, rows_per_block,
+    # is_bf16, silu, out, stream
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+)
+
+ATTENTION_FWD = Kernel(
+    "attention_fwd", "attention_fwd.cu", "hg_attention_fwd",
+    # q, k, v, out, batch, seq_q, seq_k, heads, scale, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+)
+
+KERNELS = (RASTERIZE_FWD, RASTERIZE_BWD, GROUPNORM_FWD_STATS,
+           GROUPNORM_BWD_STATS, ATTENTION_FWD)
 
 
 def build_all() -> None:
     """Build every kernel, one nvcc process per source, all started
     together, then load them."""
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        list(pool.map(Kernel.build, KERNELS))
+    per_source = {k.source: k for k in KERNELS}.values()
+    with ThreadPoolExecutor(max_workers=len(per_source)) as pool:
+        list(pool.map(Kernel.build, per_source))
     for k in KERNELS:
         k.function()
 

@@ -5,6 +5,8 @@ same arrays. A camera is built once by the JAX package and its matrices
 are handed to the port as they are, so both rasterizers see bit-identical
 cameras (the builders themselves are compared in test_torch_core.py).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -114,3 +116,113 @@ def np_(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+# ---- the guidance slice --------------------------------------------------
+
+
+def flax_leaves(tree) -> dict:
+    """A Flax parameter tree as nested plain dicts of numpy arrays (what
+    humangaussian_torch.convert.*_state_dict_from_flax take)."""
+    return {k: flax_leaves(v) if hasattr(v, "items") else np.asarray(v)
+            for k, v in tree.items()}
+
+
+def _jitter(leaves: dict, rs, amount=0.05) -> dict:
+    """Move every bias and norm scale off its initial 0 / 1, so that a
+    parity test exercises them."""
+    out = {}
+    for k, v in leaves.items():
+        if hasattr(v, "items"):
+            out[k] = _jitter(v, rs, amount)
+        elif v.ndim == 1:
+            out[k] = (v + amount * rs.randn(*v.shape)).astype(np.float32)
+        else:
+            out[k] = v
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_unet_pair(seed=0, flash=False, latent=8):
+    """(flax module, flax params, port module) of the tiny dual-branch UNet
+    with the same weights: Flax initializes from the seed, biases and norm
+    scales are jittered with numpy, and the port loads the tree through
+    `unet_state_dict_from_flax`. Cached: callers share the modules and must
+    not change their weights."""
+    import dataclasses
+
+    from humangaussian_torch.convert import unet_state_dict_from_flax
+    from humangaussian_torch.guidance import unet as port_unet
+    from humangaussian_tpu.guidance import unet as jax_unet
+
+    jcfg = dataclasses.replace(jax_unet.TINY_TEST_CONFIG,
+                               flash_attention=flash)
+    module = jax_unet.DualBranchUNet(jcfg)
+    x = jnp.zeros((1, latent, latent, 8))
+    params = module.init(jax.random.PRNGKey(seed), x, x, jnp.zeros((1,)),
+                         jnp.zeros((1, 7, jcfg.cross_attention_dim)),
+                         jnp.zeros((1, 6)))
+    leaves = _jitter(flax_leaves(params), np.random.RandomState(seed + 1))
+    port = port_unet.DualBranchUNet(dataclasses.replace(
+        port_unet.TINY_TEST_CONFIG, flash_attention=flash))
+    port.load_state_dict(unet_state_dict_from_flax(leaves))
+    return module, jax.tree.map(jnp.asarray, leaves), port.eval()
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_vae_pair(seed=0):
+    """(flax module, flax params, port module) of the tiny VAE, as
+    `tiny_unet_pair`."""
+    from humangaussian_torch.convert import vae_state_dict_from_flax
+    from humangaussian_torch.guidance import vae as port_vae
+    from humangaussian_tpu.guidance import vae as jax_vae
+
+    module = jax_vae.AutoencoderKL(jax_vae.tiny_vae_config())
+    key = jax.random.PRNGKey(seed)
+    params = module.init(key, jnp.zeros((1, 16, 16, 3)), key)
+    leaves = _jitter(flax_leaves(params), np.random.RandomState(seed + 2))
+    port = port_vae.AutoencoderKL(port_vae.tiny_vae_config())
+    port.load_state_dict(vae_state_dict_from_flax(leaves))
+    return module, jax.tree.map(jnp.asarray, leaves), port.eval()
+
+
+def tiny_guidance_pair(seed=0, **guidance_cfg):
+    """(JAX DualBranchGuidance, port DualBranchGuidance) at the tiny widths
+    (16^2 images, 8^2 latents) sharing weights, schedule and config."""
+    from humangaussian_torch.guidance import dual_branch as port_db
+    from humangaussian_torch.guidance.schedule import (
+        DiffusionSchedule as PortSchedule,
+    )
+    from humangaussian_tpu.guidance import dual_branch as jax_db
+    from humangaussian_tpu.guidance.schedule import DiffusionSchedule
+
+    cfg = dict(latent_size=8, image_size=16, guidance_scale=7.5,
+               remat_encode=False)
+    cfg.update(guidance_cfg)
+    junet, juparams, punet = tiny_unet_pair(seed)
+    jvae, jvparams, pvae = tiny_vae_pair(seed)
+    jg = jax_db.DualBranchGuidance(
+        unet=junet, unet_params=juparams, vae=jvae, vae_params=jvparams,
+        schedule=DiffusionSchedule.create(),
+        cfg=jax_db.GuidanceConfig(**cfg))
+    pg = port_db.DualBranchGuidance(
+        punet, pvae, PortSchedule.create(device="cpu"),
+        port_db.GuidanceConfig(**cfg))
+    return jg, pg
+
+
+def jax_guidance_draws(jg, rng, b, latent=8):
+    """The normal draws `DualBranchGuidance.__call__` of the JAX package
+    makes from `rng` (its key splits, per-sample folding included), as
+    numpy [b, latent, latent, 4] arrays keyed rgb, depth, pose, noise,
+    dnoise: what the port takes as `latent_eps`, `noise`, `depth_noise`."""
+    from humangaussian_tpu.guidance.dual_branch import per_sample_normal
+
+    idx = jnp.arange(b, dtype=jnp.int32)
+    k_rgb, k_depth, k_pose, k_grad = jax.random.split(rng, 4)
+    k_noise, k_dnoise = jax.random.split(k_grad)
+    shape = (b, latent, latent, 4)
+    return {name: np.array(per_sample_normal(k, idx, shape), np.float32)
+            for name, k in (("rgb", k_rgb), ("depth", k_depth),
+                            ("pose", k_pose), ("noise", k_noise),
+                            ("dnoise", k_dnoise))}

@@ -1,5 +1,5 @@
-"""The port's kernel plumbing: import isolation, wrapper checks, and K1 and
-K2 against their plain versions on a card.
+"""The port's kernel plumbing: import isolation, wrapper checks, and the
+five kernels against their plain versions on a card.
 
 The kernel-vs-plain tests need an NVIDIA GPU (marker `cuda`) and skip
 without one; on the card they hold K1 to `composite_plain` at 1e-4 absolute
@@ -7,7 +7,10 @@ on image and alpha and 1e-3 on depth, with at most 1e-4 of the pixels
 allowed past that (the 1e-4 saturation knife-edge and exp rounding), and
 K2 to `composite_backward_plain` at 1e-4 of each column's max-|grad|, with
 at most 1e-3 of the rows past that (a pair flipped at the knife-edge moves
-a row by its whole contribution; atomics sum in no fixed order).
+a row by its whole contribution; atomics sum in no fixed order); K3 and K5
+to `group_norm_stats_plain` / `group_norm_bwd_stats_plain` at 1e-5 of the
+largest sum; K4 to `self_attention_plain` at 2^-7 of the largest output
+(one bfloat16 ulp at the peak).
 """
 import os
 import subprocess
@@ -25,7 +28,12 @@ from humangaussian_torch.ops.rasterize_tiled import (
     composite_backward_plain,
     composite_plain,
 )
-from port_parity_torch import random_composite_args
+from humangaussian_torch.ops import attention, groupnorm
+from port_parity_torch import (
+    random_composite_args,
+    random_groupnorm_args,
+    random_qkv,
+)
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,9 +52,12 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'flax' or m.startswith('humangaussian_tpu')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 29, names\n"
+        "assert len(names) >= 38, names\n"
         "for n in ('train.photo', 'train.optim', 'densify', 'losses', "
-        "'config', 'ops.knn', 'data.photo', 'apps.launch'):\n"
+        "'config', 'ops.knn', 'data.photo', 'apps.launch', 'ops.groupnorm', "
+        "'ops.attention', 'utils.schedules', 'guidance.schedule', "
+        "'guidance.vae', 'guidance.unet', 'guidance.prompt', "
+        "'guidance.dual_branch'):\n"
         "    assert 'humangaussian_torch.' + n in names, n\n"
         "print('ok', len(names))\n"
     )
@@ -68,7 +79,7 @@ def test_cpu_takes_plain_and_does_not_count():
     np.testing.assert_array_equal(
         dfeats.numpy(),
         composite_backward_plain(*args[:5], ref, grads, *args[5:]).numpy())
-    assert kernels.launch_counts() == {"rasterize_fwd": 0, "rasterize_bwd": 0}
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 @pytest.mark.parametrize("bad", [
@@ -131,9 +142,48 @@ def test_backward_wrapper_rejects_bad_cotangents():
         composite_backward(*args[:5], out, grads, *args[5:])
 
 
+def test_guidance_wrappers_take_plain_on_the_cpu_and_do_not_count():
+    x3, dz3, gamma, beta = random_groupnorm_args()
+    q, k, v = random_qkv(s=64, d=16)
+    kernels.reset_launch_counts()
+    sums = groupnorm.group_norm_stats(x3)
+    assert torch.equal(sums, groupnorm.group_norm_stats_plain(x3))
+    mu_c, rstd_c = groupnorm.group_stats(sums, x3.shape[1], 8, 1e-5)
+    assert torch.equal(
+        groupnorm.group_norm_bwd_stats(x3, dz3, mu_c, rstd_c, gamma, beta,
+                                       True),
+        groupnorm.group_norm_bwd_stats_plain(x3, dz3, mu_c, rstd_c, gamma,
+                                             beta, True))
+    assert torch.equal(attention.self_attention(q, k, v),
+                       attention.self_attention_plain(q, k, v, 0.25))
+    assert set(kernels.launch_counts().values()) == {0}
+    assert set(kernels.launch_counts()) == {
+        "rasterize_fwd", "rasterize_bwd", "groupnorm_fwd_stats",
+        "groupnorm_bwd_stats", "attention_fwd"}
+
+
+def test_guidance_wrappers_never_fall_back_off_the_cpu():
+    """A tensor on any device but the CPU launches the kernel or raises
+    (the meta device has no kernel)."""
+    x3, dz3, gamma, beta = random_groupnorm_args(device="meta")
+    mu = torch.empty((2, 48), device="meta")
+    with pytest.raises(ValueError, match="no GroupNorm kernel"):
+        groupnorm.group_norm_stats(x3)
+    with pytest.raises(ValueError, match="no GroupNorm kernel"):
+        groupnorm.group_norm_bwd_stats(x3, dz3, mu, mu, gamma, beta, True)
+    with pytest.raises(ValueError, match="no GroupNorm kernel"):
+        groupnorm.group_norm_act(x3, gamma, beta, 8, 1e-5, True)
+    q, k, v = random_qkv(device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no attention kernel"):
+        attention.self_attention(q, k, v)
+
+
 @pytest.mark.parametrize("kernel,stem", [
     (kernels.RASTERIZE_FWD, "rasterize_fwd"),
     (kernels.RASTERIZE_BWD, "rasterize_bwd"),
+    (kernels.GROUPNORM_FWD_STATS, "groupnorm_stats"),
+    (kernels.GROUPNORM_BWD_STATS, "groupnorm_stats"),
+    (kernels.ATTENTION_FWD, "attention_fwd"),
 ])
 def test_kernel_build_naming(kernel, stem):
     lib = kernel.library_path()
@@ -156,8 +206,8 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("cams", [1, 3])
 def test_kernel_matches_plain(cuda_device, cams):
-    args = random_composite_args(device=cuda_device, cams=cams, tiles_x=3, tiles_y=2,
-                   n=400, pairs_per_tile=300)
+    args = random_composite_args(device=cuda_device, cams=cams, tiles_x=3,
+                                 tiles_y=2, n=400, pairs_per_tile=300)
     kernels.reset_launch_counts()
     out = composite(*args)
     torch.cuda.synchronize()
@@ -186,7 +236,8 @@ def test_backward_kernel_matches_plain(cuda_device, cams):
                for k, c in zip(("image", "depth", "alpha"), cot))
     (got,) = torch.autograd.grad(loss, feats)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"rasterize_fwd": 1, "rasterize_bwd": 1}
+    counts = kernels.launch_counts()
+    assert (counts["rasterize_fwd"], counts["rasterize_bwd"]) == (1, 1)
     plain = composite_plain(*args)
     want = composite_backward_plain(*args[:5], plain, cot, *args[5:])
     assert torch.isfinite(got).all()
@@ -194,3 +245,78 @@ def test_backward_kernel_matches_plain(cuda_device, cams):
         scale = float(want[:, j].abs().max())
         err = (got[:, j] - want[:, j]).abs() / scale
         assert int((err > 1e-4).sum()) <= max(1, err.numel() // 1000), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,c,dtype", [
+    (2, 37, 48, torch.float32),  # odd rows
+    (3, 50, 33, torch.float32),  # odd channel count: the scalar loads
+    (4, 1024, 320, torch.bfloat16),
+    (2, 64, 2560, torch.bfloat16),
+])
+def test_groupnorm_kernels_match_plain(cuda_device, n, rows, c, dtype):
+    x3, dz3, gamma, beta = random_groupnorm_args(cuda_device, 1, n, rows, c,
+                                                 dtype)
+    kernels.reset_launch_counts()
+    got = groupnorm.group_norm_stats(x3)
+    want = groupnorm.group_norm_stats_plain(x3)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    mu_c = want[:, 0] / rows
+    rstd_c = torch.rsqrt((want[:, 1] / rows - mu_c**2).clamp_min(0) + 1e-5)
+    for silu in (True, False):
+        got5 = groupnorm.group_norm_bwd_stats(x3, dz3, mu_c, rstd_c, gamma,
+                                              beta, silu)
+        want5 = groupnorm.group_norm_bwd_stats_plain(x3, dz3, mu_c, rstd_c,
+                                                     gamma, beta, silu)
+        assert float((got5 - want5).abs().max()) <= 1e-5 * float(
+            want5.abs().max())
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["groupnorm_fwd_stats"] == 1
+    assert counts["groupnorm_bwd_stats"] == 2
+
+
+@pytest.mark.cuda
+def test_group_norm_act_on_the_card_matches_the_library(cuda_device):
+    """Output and input gradient of the op (K3 forward, K5 backward) against
+    F.group_norm + F.silu in float32, 2e-5."""
+    import torch.nn.functional as F
+
+    x3, dz3, gamma, beta = random_groupnorm_args(cuda_device, 2, 2, 256, 64)
+    x = x3.reshape(2, 16, 16, 64).requires_grad_(True)
+    y = groupnorm.group_norm_act(x, gamma, beta, 8, 1e-5, True)
+    (dx,) = torch.autograd.grad(y, x, dz3.reshape(y.shape))
+    xr = x3.reshape(2, 16, 16, 64).permute(0, 3, 1, 2).detach() \
+        .requires_grad_(True)
+    yr = F.silu(F.group_norm(xr, 8, gamma, beta, 1e-5))
+    (dxr,) = torch.autograd.grad(
+        yr, xr, dz3.reshape(2, 16, 16, 64).permute(0, 3, 1, 2))
+    assert float((y.permute(0, 3, 1, 2) - yr).detach().abs().max()) <= 2e-5
+    assert float((dx.permute(0, 3, 1, 2) - dxr).abs().max()) <= 2e-5 * max(
+        1.0, float(dxr.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,m", [(2, 256, 3, None), (1, 1024, 2, None),
+                                     (1, 128, 2, 320)])
+def test_attention_kernel_matches_plain(cuda_device, b, s, h, m):
+    q, k, v = random_qkv(cuda_device, 2, b, s, h, 64, torch.bfloat16, m)
+    kernels.reset_launch_counts()
+    got = attention.self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["attention_fwd"] == 1
+    want = attention.self_attention_plain(q, k, v, 0.125)
+    assert torch.isfinite(got).all()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0 ** -7 * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["float32", "head_dim", "length"])
+def test_attention_kernel_rejects_what_it_does_not_take(cuda_device, bad):
+    kw = {"float32": dict(dtype=torch.float32),
+          "head_dim": dict(d=32, dtype=torch.bfloat16),
+          "length": dict(s=96, dtype=torch.bfloat16)}[bad]
+    q, k, v = random_qkv(cuda_device, **kw)
+    with pytest.raises((TypeError, ValueError)):
+        attention.self_attention(q, k, v)

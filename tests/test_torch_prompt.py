@@ -1,0 +1,144 @@
+"""guidance/prompt.py of the port against the JAX package: the direction
+index and the [cond | neg | null] batch exactly over a grid of angles, the
+dummy encoder, the md5 cache round trip."""
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from humangaussian_torch.convert import prompt_embeddings_from_numpy
+from humangaussian_torch.guidance import prompt as port
+from humangaussian_tpu.guidance import prompt as ref
+
+torch.set_num_threads(1)
+
+
+def _angle_grid():
+    az = np.arange(-360.0, 721.0, 7.5, dtype=np.float32)
+    el = np.array([-30.0, 0.0, 59.0, 60.0, 60.5, 89.0], np.float32)
+    azg, elg = np.meshgrid(az, el)
+    return elg.reshape(-1), azg.reshape(-1)
+
+
+@pytest.mark.parametrize("thresholds", [
+    {}, {"overhead_threshold": 30.0, "front_threshold": 60.0,
+         "back_threshold": 20.0}])
+def test_direction_index_matches_over_a_grid(thresholds):
+    el, az = _angle_grid()
+    want = np.asarray(ref.direction_index(jnp.asarray(el), jnp.asarray(az),
+                                          **thresholds))
+    got = port.direction_index(torch.from_numpy(el), torch.from_numpy(az),
+                               **thresholds)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert set(np.unique(want)) == {0, 1, 2, 3}
+    np.testing.assert_array_equal(
+        port.shift_azimuth_deg(torch.from_numpy(az)).numpy(),
+        np.asarray(ref.shift_azimuth_deg(jnp.asarray(az))))
+
+
+@pytest.mark.parametrize("front_style", [False, True])
+def test_direction_prompts_match(front_style):
+    for a, b in zip(port.directions(front_style), ref.directions(front_style)):
+        assert a.name == b.name
+        assert a.prompt("a man") == b.prompt("a man")
+        assert a.negative_prompt("ugly") == b.negative_prompt("ugly")
+
+
+def _processors(tmp_path, **kw):
+    enc = port.dummy_encode_fn(5, 8)
+    pcfg = port.PromptProcessorConfig(
+        prompt="a man in a suit", negative_prompt="blurry",
+        cache_dir=str(tmp_path / "port"), **kw)
+    rcfg = ref.PromptProcessorConfig(
+        prompt="a man in a suit", negative_prompt="blurry",
+        cache_dir=str(tmp_path / "ref"), **kw)
+    return (port.PromptProcessor(pcfg, enc, device="cpu"),
+            ref.PromptProcessor(rcfg, ref.dummy_encode_fn(5, 8)))
+
+
+@pytest.mark.parametrize("view_dependent", [True, False])
+def test_text_embeddings_match_exactly(tmp_path, view_dependent):
+    pp, rp = _processors(tmp_path)
+    pe, re_ = pp(), rp()
+    for name in port.PromptEmbeddings._fields:
+        np.testing.assert_array_equal(getattr(pe, name).numpy(),
+                                      np.asarray(getattr(re_, name)))
+    el, az = _angle_grid()
+    want = np.asarray(re_.get_text_embeddings(
+        jnp.asarray(el), jnp.asarray(az),
+        view_dependent_prompting=view_dependent))
+    got = pe.get_text_embeddings(
+        torch.from_numpy(el), torch.from_numpy(az),
+        view_dependent_prompting=view_dependent)
+    assert got.shape == (3 * el.shape[0], 5, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the last third is the null prompt, whatever the view
+    np.testing.assert_array_equal(got[-1].numpy(), pe.null.numpy())
+
+
+def test_dummy_encoder_matches():
+    prompts = ["", "a man", "a man, back view"]
+    np.testing.assert_array_equal(port.dummy_encode_fn(7, 16)(prompts),
+                                  ref.dummy_encode_fn(7, 16)(prompts))
+
+
+def test_cache_round_trip(tmp_path):
+    """The first call encodes and writes one .npy per distinct prompt under
+    the md5 of model path and prompt; the second call reads them back and
+    does not encode."""
+    calls = []
+    enc = port.dummy_encode_fn(5, 8)
+
+    def counting(prompts):
+        calls.append(list(prompts))
+        return enc(prompts)
+
+    cfg = port.PromptProcessorConfig(
+        prompt="a man", negative_prompt="blurry", model_path="some/model",
+        cache_dir=str(tmp_path))
+    first = port.PromptProcessor(cfg, counting, device="cpu")()
+    assert len(calls) == 1 and len(calls[0]) == 11
+    names = set(os.listdir(tmp_path))
+    key = port._hash_prompt("some/model", "a man, back view")
+    assert key + ".npy" in names
+    assert key == ref._hash_prompt("some/model", "a man, back view")
+    assert len(names) == 7  # prompt, negative, "", four directions
+    second = port.PromptProcessor(cfg, counting, device="cpu")()
+    assert len(calls) == 1
+    for a, b in zip(first, second):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    uncached = port.PromptProcessor(
+        port.PromptProcessorConfig(prompt="a man", negative_prompt="blurry",
+                                   use_cache=False), counting, device="cpu")()
+    assert len(calls) == 2
+    np.testing.assert_array_equal(uncached.text.numpy(), first.text.numpy())
+
+
+def test_processor_without_an_encoder_says_what_is_missing():
+    with pytest.raises(NotImplementedError, match="encode_fn"):
+        port.PromptProcessor(port.PromptProcessorConfig(prompt="a man"),
+                             device="cpu")
+
+
+def test_library_prompt(tmp_path):
+    lib = tmp_path / "lib.json"
+    lib.write_text('{"people": ["A tall man in a suit", "a woman"]}')
+    assert port.resolve_library_prompt("lib:man_suit", str(lib)) == \
+        ref.resolve_library_prompt("lib:man_suit", str(lib))
+    with pytest.raises(ValueError):
+        port.resolve_library_prompt("lib:robot", str(lib))
+    cfg = port.PromptProcessorConfig(prompt="lib:woman", use_cache=False,
+                                     prompt_library_path=str(lib))
+    assert port.PromptProcessor(cfg, port.dummy_encode_fn(2, 2),
+                                device="cpu").prompt == "a woman"
+
+
+def test_prompt_embeddings_from_numpy(tmp_path):
+    _, rp = _processors(tmp_path)
+    re_ = rp()
+    pe = prompt_embeddings_from_numpy(re_, device="cpu")
+    for name in port.PromptEmbeddings._fields:
+        np.testing.assert_array_equal(getattr(pe, name).numpy(),
+                                      np.asarray(getattr(re_, name)))

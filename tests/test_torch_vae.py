@@ -1,0 +1,110 @@
+"""guidance/vae.py of the port against the Flax AutoencoderKL at the tiny
+widths, weights shared through `vae_state_dict_from_flax`: the encode
+moments, the decode, and d(sum of latents)/d(image), each within 1e-4 of
+the reference's max."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from humangaussian_torch.guidance import vae as port_vae
+from port_parity import tiny_vae_pair
+from torch_vae_mirror import TorchAutoencoderKL
+
+torch.set_num_threads(1)
+REL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return tiny_vae_pair(seed=0)
+
+
+def _close(got, want, what):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want,
+                               atol=REL * np.abs(want).max(), err_msg=what)
+
+
+def test_encode_moments_match(pair):
+    module, params, port = pair
+    img = np.random.RandomState(0).rand(2, 16, 16, 3).astype(np.float32)
+    img = img * 2 - 1
+    jmean, jlogvar = module.apply(params, jnp.asarray(img),
+                                  method=module.encode)
+    with torch.no_grad():
+        mean, logvar = port.encode(torch.from_numpy(img))
+    assert mean.shape == (2, 8, 8, 4) and mean.dtype == torch.float32
+    _close(mean, jmean, "mean")
+    _close(logvar, jlogvar, "logvar")
+
+
+def test_decode_matches(pair):
+    module, params, port = pair
+    z = np.random.RandomState(1).randn(2, 8, 8, 4).astype(np.float32)
+    want = module.apply(params, jnp.asarray(z), method=module.decode)
+    with torch.no_grad():
+        got = port.decode(torch.from_numpy(z))
+    assert got.shape == (2, 16, 16, 3)
+    _close(got, want, "decode")
+
+
+def test_encoder_gradient_matches(pair):
+    """The encoder sits on the gradient path of the guidance step."""
+    module, params, port = pair
+    rng = np.random.RandomState(2)
+    img = rng.rand(2, 16, 16, 3).astype(np.float32) * 2 - 1
+    eps = rng.randn(2, 8, 8, 4).astype(np.float32)
+
+    def jloss(x):
+        mean, logvar = module.apply(params, x, method=module.encode)
+        return jnp.sum(mean + jnp.exp(0.5 * logvar) * eps)
+
+    want = jax.grad(jloss)(jnp.asarray(img))
+    x = torch.tensor(img, requires_grad=True)
+    mean, logvar = port.encode(x)
+    port_vae.sample_latent(mean, logvar, eps=torch.from_numpy(eps)).sum() \
+        .backward()
+    _close(x.grad, want, "d latents / d image")
+
+
+def test_logvar_is_clipped():
+    vae = port_vae.AutoencoderKL(port_vae.tiny_vae_config())
+    with torch.no_grad():
+        vae.quant_conv.bias[4:] = 1e3
+        _, hi = vae.encode(torch.zeros(1, 16, 16, 3))
+        vae.quant_conv.bias[4:] = -1e3
+        _, lo = vae.encode(torch.zeros(1, 16, 16, 3))
+    assert float(hi.max()) == 20.0 and float(lo.min()) == -30.0
+
+
+def test_sample_latent_draws_from_the_generator():
+    mean, logvar = torch.zeros(1, 4, 4, 4), torch.zeros(1, 4, 4, 4)
+    a = port_vae.sample_latent(mean, logvar, torch.Generator().manual_seed(3))
+    b = port_vae.sample_latent(mean, logvar, torch.Generator().manual_seed(3))
+    assert torch.equal(a, b) and float(a.std()) > 0.5
+
+
+def test_state_dict_has_the_diffusers_names():
+    """Exactly the keys and shapes of the mirror of diffusers'
+    AutoencoderKL, and the older attention names load after the
+    upgrade."""
+    from humangaussian_tpu.guidance.vae import tiny_vae_config as jax_tiny
+
+    port = port_vae.AutoencoderKL(port_vae.tiny_vae_config())
+    mirror = TorchAutoencoderKL(jax_tiny())
+    want = {k: tuple(v.shape) for k, v in mirror.state_dict().items()}
+    assert {k: tuple(v.shape) for k, v in port.state_dict().items()} == want
+    legacy = {}
+    for k, v in port.state_dict().items():
+        for new, old in (("to_q", "query"), ("to_k", "key"),
+                         ("to_v", "value"), ("to_out.0", "proj_attn")):
+            if f"attentions.0.{new}." in k:
+                k = k.replace(new, old)
+                if k.endswith("weight"):
+                    v = v[:, :, None, None]
+        legacy[k] = v
+    assert any("proj_attn" in k for k in legacy)
+    upgraded = port_vae.upgrade_vae_state_dict(legacy)
+    assert {k: tuple(v.shape) for k, v in upgraded.items()} == want
