@@ -55,19 +55,25 @@ source, started together), writes the assets, then:
    and against float64 sums at a small float32 shape and at the main
    path's extremes ([24, 4096, 320], [24, 4096, 960], [24, 64, 2560],
    bfloat16): every sum within 1e-5 of the f64 sum of magnitudes of its
-   (sample, channel); `group_norm_act` with the kernels' statistics within
-   one bfloat16 ulp of itself with the plain statistics on all but 1e-4 of
-   the outputs; times, bounds (bytes over 3.35 TB/s) and, as the library
-   yardstick, `F.group_norm` + `F.silu` and its autograd backward;
+   (sample, channel); K3a (csrc/groupnorm_apply.cu) against
+   `group_norm_apply_plain` on the same sums, and the fused forward of
+   `group_norm_act` (K3 + K3a) against the plain op
+   (`group_norm_stats_plain` + `group_norm_apply_plain`): in bfloat16
+   within one ulp on all but 1e-4 of the outputs, in float32 within 1e-5
+   of max |y|; times, bounds (bytes over 3.35 TB/s: the op reads x twice
+   and writes y once) and, as the library yardstick, `F.group_norm` +
+   `F.silu` and its autograd backward;
 10. holds K4 (csrc/attention_fwd.cu) against its plain version at the
    UNet's self-attention shapes ((120, 4096, 64), (240, 1024, 64),
-   (480, 256, 64) as (batch x heads, tokens, head dim), bfloat16): largest
-   |kernel - plain| at most 2^-7 of the largest |output| (one bfloat16 ulp
-   at the peak; p is rounded to bfloat16 before the PV product on both
-   sides, only the summation order differs), and prints the distance to a
-   float32 softmax; times, bound (flops of the two products over 989
-   TFLOP/s, bytes over 3.35 TB/s), `F.scaled_dot_product_attention` as the
-   library yardstick;
+   (480, 256, 64) as (batch x heads, tokens, head dim), bfloat16) and at
+   (120, 4096, 64) with q sharpened 8x (the online softmax's running
+   maximum moves often): largest |kernel - plain| at most 2^-7 of the
+   largest |output| (one bfloat16 ulp at the peak; the kernel rounds p to
+   bfloat16 relative to the running maximum, the plain version relative to
+   the final one), and prints the distance to a float32 softmax; prints
+   the kernel's registers and shared memory, times, TFLOP/s, bound (flops
+   of the two products over 989 TFLOP/s, bytes over 3.35 TB/s),
+   `F.scaled_dot_product_attention` as the library yardstick;
 11. writes seeded `unet_ema` and VAE state dicts in diffusers layout
    (bfloat16, `torch.save`), builds the prior from them with
    `apps.launch.build_guidance` on configs/avatar.yaml (899,719,048 UNet
@@ -77,20 +83,23 @@ source, started together), writes the assets, then:
    timesteps on both sides of 200 and backpropagates `loss_sds` to the
    Gaussian parameters (K2): loss and gradients finite, image gradients
    non-zero, the loss equal to the norms of `grad`; one step launches K1
-   and K2 once, K3 77 times and K4 20 times (one UNet forward: 54 resnet
-   norms, 21 transformer norms, 2 heads; 10 self-attention sites at 4096
-   tokens, 5 at 1024, 5 at 256). Times 3 steps end to end and staged
+   and K2 once, K3 and K3a 77 times each and K4 20 times (one UNet
+   forward: 54 resnet norms, 21 transformer norms, 2 heads; 10
+   self-attention sites at 4096 tokens, 5 at 1024, 5 at 256). Times 3 steps end to end and staged
    (render, encodes, UNet, loss + backward), prints peak memory and one
    profile, and times a VAE encode in both memory formats;
 12. runs `sample_joint` at batch 2 for 4 DDIM steps: 512^2 images and
-   depths finite and in [0, 1], K3 and K4 launched 4 x 77 and 4 x 20 times;
+   depths finite and in [0, 1], K3, K3a and K4 launched 4 x 77, 4 x 77 and
+   4 x 20 times;
 13. differentiates the full-width UNet with respect to its input latents
-   (batch 2, 64^2, bfloat16): K5 launches once per K3 launch (77); then a
+   (batch 2, 64^2, bfloat16): K3a and K5 launch once per K3 launch (77);
+   then a
    float32 full-width UNet at 16^2 latents: the input gradient through K3 /
    K5 within 1e-3 of max-|grad| of the gradient through their plain
    versions;
-and prints the `kernels` JSON line (all five kernels, each with the launches
-of its own path: K1 and K2 phases 4 to 6, K3 and K4 phase 11, K5 phase 13)
+and prints the `kernels` JSON line (all six kernels, each with the launches
+of its own path: K1 and K2 phases 4 to 6, K3, K3a and K4 phase 11, K5
+phase 13)
 and, last, the device JSON line. `--only GROUP[,GROUP]` runs some phase
 groups alone and prints no result lines.
 
@@ -480,14 +489,15 @@ def write_assets(tmp: str, seed: int = 0):
 PHASE_GROUPS = ("render", "norm", "attention", "guidance", "sample",
                 "unet-backward")
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate, H100 SXM data sheet
-# the main path's extremes for K3 / K5: [samples, rows, channels] at batch 24
-# (3 x 8 latents): the first level's 64^2 rows at 320 and at the widest
-# concatenated input (960), and the 8^2 mid block's input at 2560
+# the main path's extremes for K3 / K3a / K5: [samples, rows, channels] at
+# batch 24 (3 x 8 latents): the first level's 64^2 rows at 320 and at the
+# widest concatenated input (960), and the 8^2 mid block's input at 2560
 GN_SHAPES = ((2, 37, 48), (24, 4096, 320), (24, 4096, 960), (24, 64, 2560))
 GN_MAIN = (24, 4096, 320)
 GN_GROUPS = {48: 8}  # 32 groups everywhere at full width
 GN_STATS_TOL = 1e-5  # of the f64 sum of magnitudes per (sample, channel)
 GN_BAD_FRACTION = 1e-4  # of the outputs may miss plain by more than a ulp
+GN_F32_TOL = 1e-5  # of max |y|: the fused op vs plain in float32
 # (batch, tokens, heads) of the UNet's self-attention sites at batch 24
 ATTN_SHAPES = ((24, 4096, 5), (24, 1024, 10), (24, 256, 20))
 ATTN_TOL = 2.0 ** -7  # K4 vs plain, of max |out|: one bf16 ulp of the peak
@@ -508,16 +518,17 @@ def plain_versions():
     the comparisons use it; the paths never do."""
     from humangaussian_torch.ops import attention, groupnorm
 
-    saved = (groupnorm.group_norm_stats, groupnorm.group_norm_bwd_stats,
-             attention._attention_forward)
+    saved = (groupnorm.group_norm_stats, groupnorm.group_norm_apply,
+             groupnorm.group_norm_bwd_stats, attention._attention_forward)
     groupnorm.group_norm_stats = groupnorm.group_norm_stats_plain
+    groupnorm.group_norm_apply = groupnorm.group_norm_apply_plain
     groupnorm.group_norm_bwd_stats = groupnorm.group_norm_bwd_stats_plain
     attention._attention_forward = attention.self_attention_plain
     try:
         yield
     finally:
-        (groupnorm.group_norm_stats, groupnorm.group_norm_bwd_stats,
-         attention._attention_forward) = saved
+        (groupnorm.group_norm_stats, groupnorm.group_norm_apply,
+         groupnorm.group_norm_bwd_stats, attention._attention_forward) = saved
 
 
 def bf16_ulp(x):
@@ -540,6 +551,8 @@ def norm_phase(dev) -> dict:
     from humangaussian_torch import kernels
     from humangaussian_torch.ops.groupnorm import (
         group_norm_act,
+        group_norm_apply,
+        group_norm_apply_plain,
         group_norm_bwd_stats,
         group_norm_bwd_stats_plain,
         group_norm_stats,
@@ -548,9 +561,10 @@ def norm_phase(dev) -> dict:
         rows_per_block,
     )
 
-    print("phase 9: K3 and K5 (GroupNorm statistics) vs plain")
+    print("phase 9: K3, K3a and K5 (GroupNorm) vs plain")
     g = torch.Generator(device="cpu").manual_seed(9)
     fwd = {"err": 0.0, "by_shape": {}}
+    app = {"err": 0.0, "by_shape": {}}
     bwd = {"err": 0.0, "by_shape": {}}
     for n, rows, c in GN_SHAPES:
         groups = GN_GROUPS.get(c, 32)
@@ -604,31 +618,52 @@ def norm_phase(dev) -> dict:
             del xh, dy, want5, scale5
         del x64, want, scale
 
-        # the whole op: kernel statistics vs plain statistics
+        def off_plain(got, want):
+            """Share of outputs past the limit and the largest difference:
+            one bfloat16 ulp, or 1e-5 of max |y| in float32."""
+            err = (got.float() - want.float()).abs()
+            if dtype == torch.bfloat16:
+                share = float((err > bf16_ulp(want)).float().mean())
+                return share, share <= GN_BAD_FRACTION, float(err.max())
+            rel = float(err.max()) / float(want.abs().max())
+            return rel, rel <= GN_F32_TOL, float(err.max())
+
+        # K3a alone on the kernel's sums, and the whole fused forward (K3 +
+        # K3a) against the plain op (both plain versions)
         x4 = x.reshape(n, rows, 1, c)
         for silu in (True, False):
+            y_a = group_norm_apply(x, got, gamma, beta, groups, 1e-5, silu)
+            torch.cuda.synchronize()
+            y_ap = group_norm_apply_plain(x, got, gamma, beta, groups, 1e-5,
+                                          silu)
+            how, ok, worst = off_plain(y_a, y_ap)
+            app["err"] = max(app["err"], worst)
+            print(f"  K3a {label} silu={silu}: "
+                  f"{'share over one ulp' if dtype == torch.bfloat16 else 'of max |y|'}"
+                  f" {how:.2e}, max difference {worst:.3e}")
+            check(ok and bool(torch.isfinite(y_a).all()), f"K3a {label}")
             y_k = group_norm_act(x4, gamma, beta, groups, 1e-5, silu)
             with plain_versions():
                 y_p = group_norm_act(x4, gamma, beta, groups, 1e-5, silu)
-            if dtype == torch.bfloat16:
-                off = (y_k.float() - y_p.float()).abs() > bf16_ulp(y_p)
-            else:
-                off = (y_k - y_p).abs() > 1e-5 + 1e-5 * y_p.abs()
-            share = float(off.float().mean())
-            print(f"  group_norm_act {label} silu={silu}: {share:.2e} of the "
-                  f"outputs over one ulp of plain (allowed "
-                  f"{GN_BAD_FRACTION:g}), max difference "
-                  f"{float((y_k.float() - y_p.float()).abs().max()):.3e}")
-            check(share <= GN_BAD_FRACTION, f"group_norm_act {label}")
-            check(bool(torch.isfinite(y_k).all()), f"group_norm_act {label}")
+            how, ok, worst = off_plain(y_k, y_p)
+            print(f"  group_norm_act {label} silu={silu} (K3 + K3a vs the "
+                  f"plain op): {how:.2e} (limit "
+                  f"{GN_BAD_FRACTION if dtype == torch.bfloat16 else GN_F32_TOL:g}),"
+                  f" max difference {worst:.3e}")
+            check(ok and bool(torch.isfinite(y_k).all()),
+                  f"group_norm_act {label}")
 
-        # times (each over runs of back-to-back calls): the two kernels,
+        # times (each over runs of back-to-back calls): the three kernels,
         # their plain versions, the whole op, and the library's GroupNorm +
         # SiLU (forward, and its autograd backward)
         spin(lambda: group_norm_stats(x))
         k3_ms = cuda_ms(lambda: group_norm_stats(x), reps=10, inner=10)
         k3_plain_ms = cuda_ms(lambda: group_norm_stats_plain(x), reps=3,
                               inner=5)
+        k3a_ms = cuda_ms(lambda: group_norm_apply(
+            x, got, gamma, beta, groups, 1e-5, True), reps=10, inner=10)
+        k3a_plain_ms = cuda_ms(lambda: group_norm_apply_plain(
+            x, got, gamma, beta, groups, 1e-5, True), reps=3, inner=5)
         k5_ms = cuda_ms(lambda: group_norm_bwd_stats(
             x, dz, mu_c, rstd_c, gamma, beta, True), reps=10, inner=10)
         k5_plain_ms = cuda_ms(lambda: group_norm_bwd_stats_plain(
@@ -650,18 +685,33 @@ def norm_phase(dev) -> dict:
         lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
             y_lib, xl, dz_cf, retain_graph=True), reps=5, inner=10)
         item = x.element_size()
-        k3_bound = (x.numel() * item + n * 2 * c * 4) / H100_BYTES_PER_S * 1e3
+        xbytes = x.numel() * item
+        sums_bytes = n * 2 * c * 4
+        k3_bound = (xbytes + sums_bytes) / H100_BYTES_PER_S * 1e3
+        # K3a: x and the sums, gamma, beta read once, y written once
+        k3a_bound = ((2 * xbytes + sums_bytes + 2 * c * 4)
+                     / H100_BYTES_PER_S * 1e3)
+        # the op: x read by both passes (it does not fit in L2 at the large
+        # shapes), y written once
+        op_bound = (3 * xbytes + 2 * c * 4) / H100_BYTES_PER_S * 1e3
         k5_bound = ((2 * x.numel() * item + (2 * n * c + 2 * c) * 4
                      + n * 2 * c * 4) / H100_BYTES_PER_S * 1e3)
         print(f"  {label}: K3 {k3_ms:.4f} ms (plain {k3_plain_ms:.4f}, bound "
-              f"{k3_bound:.5f} by bytes), K5 {k5_ms:.4f} ms (plain "
-              f"{k5_plain_ms:.4f}, bound {k5_bound:.5f} by bytes); "
-              f"group_norm_act forward {op_ms:.4f} ms vs F.group_norm + "
+              f"{k3_bound:.5f} by bytes), K3a {k3a_ms:.4f} ms (plain "
+              f"{k3a_plain_ms:.4f}, bound {k3a_bound:.5f} by bytes), K5 "
+              f"{k5_ms:.4f} ms (plain {k5_plain_ms:.4f}, bound "
+              f"{k5_bound:.5f} by bytes); group_norm_act forward "
+              f"{op_ms:.4f} ms (bound {op_bound:.5f}) vs F.group_norm + "
               f"F.silu {lib_ms:.4f} ms, backward {op_bwd_ms:.4f} ms vs the "
               f"library's autograd {lib_bwd_ms:.4f} ms")
         fwd["by_shape"][label] = {
             "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-            "op_forward_ms": op_ms, "library_ms": lib_ms}
+            "op_forward_ms": op_ms, "op_bound_ms": op_bound,
+            "library_ms": lib_ms}
+        app["by_shape"][label] = {
+            "ms": k3a_ms, "plain_ms": k3a_plain_ms, "bound_ms": k3a_bound,
+            "op_forward_ms": op_ms, "op_bound_ms": op_bound,
+            "library_ms": None, "op_library_ms": lib_ms}
         bwd["by_shape"][label] = {
             "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
             "op_backward_ms": op_bwd_ms, "library_ms": lib_bwd_ms}
@@ -669,18 +719,24 @@ def norm_phase(dev) -> dict:
 
     main = "[%d, %d, %d] bfloat16" % GN_MAIN
     out = {}
-    for kernel, acc, line, lib_note in (
-        (kernels.GROUPNORM_FWD_STATS, fwd, 70,
+    for kernel, acc, source, replaces, lib_note in (
+        (kernels.GROUPNORM_FWD_STATS, fwd, "groupnorm_stats.cu",
+         "humangaussian_tpu/ops/groupnorm.py:70",
          "F.group_norm + F.silu forward (the whole op, not the sums alone)"),
-        (kernels.GROUPNORM_BWD_STATS, bwd, 102,
+        (kernels.GROUPNORM_FWD_APPLY, app, "groupnorm_apply.cu",
+         "humangaussian_tpu/ops/groupnorm.py:206",
+         "none: no one call normalizes from given sums (the whole op vs "
+         "F.group_norm + F.silu is op_library_ms)"),
+        (kernels.GROUPNORM_BWD_STATS, bwd, "groupnorm_stats.cu",
+         "humangaussian_tpu/ops/groupnorm.py:102",
          "autograd backward of F.group_norm + F.silu (the whole backward)"),
     ):
         at = acc["by_shape"][main]
         out[kernel.name] = {
             "name": kernel.name,
             "route": "cuda",
-            "source": "humangaussian_torch/csrc/groupnorm_stats.cu",
-            "replaces": f"humangaussian_tpu/ops/groupnorm.py:{line}",
+            "source": f"humangaussian_torch/csrc/{source}",
+            "replaces": replaces,
             "launches": 0,
             "max_abs_err": acc["err"],
             "ms": at["ms"],
@@ -698,6 +754,8 @@ def norm_phase(dev) -> dict:
 def attention_phase(dev) -> dict:
     """Phase 10: K4 against its plain version and an f32 softmax oracle,
     times, bound and scaled_dot_product_attention as the yardstick."""
+    import ctypes
+
     import torch.nn.functional as F
 
     from humangaussian_torch import kernels
@@ -708,14 +766,27 @@ def attention_phase(dev) -> dict:
     )
 
     print("phase 10: K4 (self-attention forward) vs plain")
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    lib = ctypes.CDLL(str(kernels.ATTENTION_FWD.build()))
+    check(lib.hg_attention_fwd_info(ctypes.byref(regs), ctypes.byref(smem))
+          == 0, "hg_attention_fwd_info failed")
+    print(f"  K4: {regs.value} registers a thread at launch (setmaxnreg: "
+          f"producer 24, consumers 240), {smem.value} bytes of dynamic "
+          f"shared memory a block")
     g = torch.Generator(device="cpu").manual_seed(10)
     by_shape = {}
     worst = 0.0
-    for b, s, h in ATTN_SHAPES:
+    # the UNet's shapes, then the first again with q sharpened 8x (checked,
+    # not timed)
+    for (b, s, h), sharpen in [*((x, 1.0) for x in ATTN_SHAPES),
+                               (ATTN_SHAPES[0], 8.0)]:
         q, k, v = (torch.randn((b, s, h, 64), generator=g).to(
             dev, torch.bfloat16) for _ in range(3))
+        if sharpen != 1.0:
+            q = (q.float() * sharpen).to(torch.bfloat16)
         scale = 1.0 / 8.0
-        label = f"({b * h}, {s}, 64)"
+        label = f"({b * h}, {s}, 64)" + (
+            f" q x {sharpen:g}" if sharpen != 1.0 else "")
         got = self_attention(q, k, v)
         torch.cuda.synchronize()
         plain = self_attention_plain(q, k, v, scale)
@@ -733,6 +804,8 @@ def attention_phase(dev) -> dict:
         check(bool(torch.isfinite(got).all()), f"K4 {label}: non-finite")
         worst = max(worst, err)
         del oracle, plain
+        if sharpen != 1.0:
+            continue
 
         spin(lambda: self_attention(q, k, v))
         ms = cuda_ms(lambda: self_attention(q, k, v), reps=5, inner=4)
@@ -767,6 +840,8 @@ def attention_phase(dev) -> dict:
         "bound_by": at["bound_by"],
         "library_ms": at["library_ms"],
         "library_call": "F.scaled_dot_product_attention",
+        "registers": regs.value,
+        "shared_memory_bytes": smem.value,
         "shape": f"({b * h}, {s}, 64)",
         "by_shape": by_shape,
     }}
@@ -858,7 +933,7 @@ def pose_stand_in(batch, size, dev, seed=11):
 def guidance_phase(dev, guidance, embeddings, assets) -> dict:
     """Phase 11: the avatar trainer's guidance step at full width, joined
     to the batched render: 8 orbit views at 1024^2 (K1), per-image min-max
-    depth, `DualBranchGuidance.__call__` (K3, K4 in the UNet), and
+    depth, `DualBranchGuidance.__call__` (K3, K3a, K4 in the UNet), and
     `loss_sds` backpropagated to the Gaussian parameters (K2). Returns the
     launch counts of one step."""
     from humangaussian_torch import kernels
@@ -955,6 +1030,7 @@ def guidance_phase(dev, guidance, embeddings, assets) -> dict:
     check(reached, "no gradient reached the Gaussians")
     want = {"rasterize_fwd": 1, "rasterize_bwd": 1,
             "groupnorm_fwd_stats": NORMS_PER_UNET_FORWARD,
+            "groupnorm_fwd_apply": NORMS_PER_UNET_FORWARD,
             "groupnorm_bwd_stats": 0,
             "attention_fwd": ATTN_PER_UNET_FORWARD}
     check(counts == want, f"launches {counts}, want {want}")
@@ -1048,19 +1124,20 @@ def sample_phase(dev, guidance, embeddings):
               f"{name} outside [0, 1]")
     print(f"  {start.elapsed_time(end):.3f} ms; images mean "
           f"{float(images.mean()):.4f}, depths mean {float(depths.mean()):.4f}"
-          f"; launches K3 {counts['groupnorm_fwd_stats']}, K4 "
-          f"{counts['attention_fwd']}")
+          f"; launches K3 {counts['groupnorm_fwd_stats']}, K3a "
+          f"{counts['groupnorm_fwd_apply']}, K4 {counts['attention_fwd']}")
     check(counts["groupnorm_fwd_stats"] == 4 * NORMS_PER_UNET_FORWARD
+          and counts["groupnorm_fwd_apply"] == 4 * NORMS_PER_UNET_FORWARD
           and counts["attention_fwd"] == 4 * ATTN_PER_UNET_FORWARD,
           f"sample_joint launches {counts}")
 
 
 def unet_backward_phase(dev, unet) -> dict:
     """Phase 13: K5 on a path. The full-width UNet differentiated with
-    respect to its input latents (batch 2, 64^2, bfloat16): K5 must launch
-    once per K3 launch. Then a float32 UNet at 16^2 latents, matrix-product
-    attention: the input gradient through K3 / K5 against the gradient
-    through their plain versions. Returns the launch counts of the first."""
+    respect to its input latents (batch 2, 64^2, bfloat16): K3a and K5 must
+    launch once per K3 launch. Then a float32 UNet at 16^2 latents,
+    matrix-product attention: the input gradient through K3 / K3a / K5
+    against the gradient through their plain versions. Returns the launch counts of the first."""
     import dataclasses
 
     from humangaussian_torch import kernels
@@ -1108,6 +1185,7 @@ def unet_backward_phase(dev, unet) -> dict:
           "non-finite input gradient")
     check(all(float(x.abs().max()) > 0 for x in grads), "zero input gradient")
     check(counts["groupnorm_fwd_stats"] == NORMS_PER_UNET_FORWARD
+          and counts["groupnorm_fwd_apply"] == NORMS_PER_UNET_FORWARD
           and counts["groupnorm_bwd_stats"] == NORMS_PER_UNET_FORWARD
           and counts["attention_fwd"] == ATTN_PER_UNET_FORWARD,
           f"launches {counts}")
@@ -1128,7 +1206,7 @@ def unet_backward_phase(dev, unet) -> dict:
     worst = 0.0
     for a, b_ in zip(got, want):
         worst = max(worst, float((a - b_).abs().max() / b_.abs().max()))
-    print(f"  float32, batch 2, 16^2: input gradient through K3 / K5 vs "
+    print(f"  float32, batch 2, 16^2: input gradient through K3 / K3a / K5 vs "
           f"through the plain versions {worst:.3e} of max |grad| (limit "
           f"{UNET_GRAD_TOL:g}); K5 launches {k5}")
     check(worst <= UNET_GRAD_TOL, f"UNet input gradient off by {worst}")
@@ -1210,7 +1288,8 @@ def run(dev, only=()) -> int:
         guidance, embeddings = build_prior(dev, tmp)
         if want("guidance"):
             counts = guidance_phase(dev, guidance, embeddings, assets)
-            for name in ("groupnorm_fwd_stats", "attention_fwd"):
+            for name in ("groupnorm_fwd_stats", "groupnorm_fwd_apply",
+                         "attention_fwd"):
                 if name in rows:
                     rows[name]["launches"] = counts[name]
         if want("sample"):

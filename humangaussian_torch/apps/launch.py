@@ -92,8 +92,11 @@ def build_guidance(cfg: dict, device="cuda"):
     widths, 16^2 images and 8^2 latents unless the config says otherwise);
     `system.guidance.unet.*` overrides architecture fields; `model_key`
     holds `unet_ema/` and `vae_key` the VAE, both in diffusers layout.
-    With `half_precision_weights` (the default) weights are bfloat16 and
-    the prior computes in bfloat16, else both are float32."""
+    The prior computes in its configuration's dtype (bfloat16 for sd2-base,
+    float32 for tiny) whatever `half_precision_weights` says; with the flag
+    (the default) every floating weight, the GroupNorm parameters
+    included, is first rounded through bfloat16, as the reference stores
+    its weights in bfloat16 and casts them to the compute dtype."""
     import torch
 
     from humangaussian_torch import resolve_device
@@ -106,6 +109,7 @@ def build_guidance(cfg: dict, device="cuda"):
         SD2_BASE_CONFIG,
         TINY_TEST_CONFIG,
         DualBranchUNet,
+        cast_weights,
     )
     from humangaussian_torch.guidance.vae import (
         AutoencoderKL,
@@ -141,16 +145,15 @@ def build_guidance(cfg: dict, device="cuda"):
             "system.guidance.unet.branch_num must be 1 on the training "
             "path: the dual-branch guidance supplies one depth branch")
 
-    dtype = (torch.bfloat16 if g_raw.get("half_precision_weights", True)
-             else torch.float32)
+    bf16_weights = bool(g_raw.get("half_precision_weights", True))
     # build on the meta device, then materialize straight on `dev`: the
     # full-width UNet is 899.7M parameters
     with torch.device("meta"):
-        unet = DualBranchUNet(dataclasses.replace(unet_cfg, dtype=dtype))
-        vae = AutoencoderKL(dataclasses.replace(vae_cfg, dtype=dtype))
-    for module, path in (
-        (unet, _find_weights(g_raw["model_key"], "unet_ema")),
-        (vae, _find_weights(g_raw["vae_key"], "")),
+        unet = DualBranchUNet(unet_cfg)
+        vae = AutoencoderKL(vae_cfg)
+    for module, path, dtype in (
+        (unet, _find_weights(g_raw["model_key"], "unet_ema"), unet_cfg.dtype),
+        (vae, _find_weights(g_raw["vae_key"], ""), vae_cfg.dtype),
     ):
         module.to_empty(device=dev)
         state = load_state_dict_file(path)
@@ -164,6 +167,7 @@ def build_guidance(cfg: dict, device="cuda"):
         if unexpected:
             print(f"warning: {len(unexpected)} unmatched keys in {path}, "
                   f"e.g. {unexpected[:3]}")
+        cast_weights(module, dtype, round_to_bf16=bf16_weights)
     # the UNet's activations are channels_last (see guidance/unet.py)
     unet.to(memory_format=torch.channels_last)
     return DualBranchGuidance(

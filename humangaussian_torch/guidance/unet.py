@@ -17,8 +17,8 @@ Port of humangaussian_tpu/guidance/unet.py: a Stable-Diffusion-2-base UNet
   channels each) and returns the channel-concat of the rgb and the depth
   prediction.
 
-Kernels: every GroupNorm is `GroupNormAct` (ops/groupnorm.py, kernels K3 /
-K5) and self-attention with `flash_attention` on and a token count that is a
+Kernels: every GroupNorm is `GroupNormAct` (ops/groupnorm.py, kernels K3
+and K3a forward, K5 backward) and self-attention with `flash_attention` on and a token count that is a
 multiple of 128 is `self_attention` (ops/attention.py, kernel K4).
 Cross-attention and the 8 x 8 mid block (64 tokens) take the matrix-product
 branch, as in the reference.
@@ -27,7 +27,8 @@ Parameter names are diffusers' `unet_ema` names (`down_blocks.0.resnets.0
 .norm1.weight`, `conv_in_branch.0.weight`, ...), so a state dict loads
 without a converter. Weights are `cfg.dtype` (bfloat16 at full width),
 GroupNorm parameters float32, the output float32; the computation runs in
-the dtype of the weights.
+`cfg.dtype` (`cast_weights`; the launcher rounds the weights through
+bfloat16 first when `half_precision_weights` is on).
 
 Layout: `forward` takes and returns channel-minor arrays (`[B, h, w, C]`),
 the reference's public layout; inside, activations are channels-first
@@ -313,14 +314,22 @@ def _transformer(ch, heads, cfg: UNetConfig):
                               cfg.norm_num_groups, cfg.flash_attention)
 
 
-def cast_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+def cast_weights(module: nn.Module, dtype: torch.dtype,
+                 round_to_bf16: bool = False) -> nn.Module:
     """Cast a model's weights to `dtype`, keeping every GroupNormAct's
     parameters float32 (the op reads them as f32 and its statistics are
-    f32 whatever the activation's type)."""
-    module.to(dtype)
-    for m in module.modules():
-        if isinstance(m, GroupNormAct):
-            m.float()
+    f32 whatever the activation's type). With `round_to_bf16`, every
+    floating parameter, the GroupNormAct ones included, is first rounded
+    through bfloat16 (the reference's `half_precision_weights` storage)."""
+    norm = {id(p) for m in module.modules() if isinstance(m, GroupNormAct)
+            for p in m.parameters()}
+    with torch.no_grad():
+        for p in module.parameters():
+            if not p.is_floating_point():
+                continue
+            if round_to_bf16:
+                p.copy_(p.to(torch.bfloat16))
+            p.data = p.data.to(torch.float32 if id(p) in norm else dtype)
     return module
 
 

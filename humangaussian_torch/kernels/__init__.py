@@ -134,6 +134,13 @@ GROUPNORM_BWD_STATS = Kernel(
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
 )
 
+GROUPNORM_FWD_APPLY = Kernel(
+    "groupnorm_fwd_apply", "groupnorm_apply.cu", "hg_groupnorm_fwd_apply",
+    # x, sums, gamma, beta, samples, rows, channels, groups, eps, is_bf16,
+    # silu, out, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P],
+)
+
 ATTENTION_FWD = Kernel(
     "attention_fwd", "attention_fwd.cu", "hg_attention_fwd",
     # q, k, v, out, batch, seq_q, seq_k, heads, scale, stream
@@ -141,7 +148,7 @@ ATTENTION_FWD = Kernel(
 )
 
 KERNELS = (RASTERIZE_FWD, RASTERIZE_BWD, GROUPNORM_FWD_STATS,
-           GROUPNORM_BWD_STATS, ATTENTION_FWD)
+           GROUPNORM_FWD_APPLY, GROUPNORM_BWD_STATS, ATTENTION_FWD)
 
 
 def build_all() -> None:

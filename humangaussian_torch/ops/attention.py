@@ -13,16 +13,19 @@ non-causal multi-head attention on `[B, S, H, D]` (the reference's layout):
 Forward: kernel K4 (csrc/attention_fwd.cu) for CUDA tensors,
 `self_attention_plain`, which repeats that arithmetic in torch, for CPU
 tensors; nothing else decides. The kernel takes bfloat16, D = 64 and
-sequence lengths that are multiples of 64 (every self-attention site of the
-UNet that passes the `n % 128 == 0` gate); anything else on a CUDA tensor
-raises. Backward: recomputed through `softmax_attention`, the ordinary
+sequence lengths that are multiples of 128 (every self-attention site of
+the UNet that passes the `n % 128 == 0` gate); anything else on a CUDA
+tensor raises. It makes one pass over K/V with an online softmax, so it
+rounds p to bfloat16 relative to the running row maximum where the plain
+version uses the final one: one bf16 rounding of each p either way.
+Backward: recomputed through `softmax_attention`, the ordinary
 normalize-then-cast formulation, as the reference's VJP recomputes through
 its XLA einsums.
 
-Dropped from the reference: the `[B*H, S, D]` fold (the kernel reads the
-`[B, S, H, D]` strides directly), the `[block_q, S]` logits tile and the
-whole-head K/V blocks in VMEM (the CUDA kernel streams 64-key tiles in two
-passes; see the source).
+Dropped from the reference: the `[B*H, S, D]` fold (the kernel's TMA
+tensor maps read the `[B, S, H, D]` strides directly), the `[block_q, S]`
+logits tile and the whole-head K/V blocks in VMEM (the CUDA kernel streams
+128-key tiles; see the source).
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import torch
 from humangaussian_torch.kernels import ATTENTION_FWD
 
 KERNEL_HEAD_DIM = 64
-KERNEL_SEQ_MULTIPLE = 64
+KERNEL_SEQ_MULTIPLE = 128
 
 
 def _check_qkv(q, k, v):
@@ -77,11 +80,8 @@ def softmax_attention(q, k, v, sm_scale: float) -> torch.Tensor:
     return torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float()).to(q.dtype)
 
 
-def _attention_forward(q, k, v, sm_scale: float) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return self_attention_plain(q, k, v, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
+def _check_kernel_args(q, k, sm_scale):
+    """What K4 takes; checked for every device but the CPU."""
     b, s, h, d = q.shape
     m = k.shape[1]
     if q.dtype != torch.bfloat16:
@@ -96,12 +96,26 @@ def _attention_forward(q, k, v, sm_scale: float) -> torch.Tensor:
             f"of {KERNEL_SEQ_MULTIPLE}, got {s} queries and {m} keys")
     if b * h > 65535:
         raise ValueError(f"batch x heads = {b * h} exceeds the grid's 65535")
+    if not sm_scale > 0:
+        raise ValueError(f"the attention kernel takes sm_scale > 0, got "
+                         f"{sm_scale}")
+
+
+def _attention_forward(q, k, v, sm_scale: float) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return self_attention_plain(q, k, v, sm_scale)
+    _check_kernel_args(q, k, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {q.device}")
+    b, s, h, _ = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the attention kernel needs 16-byte aligned q, k, v")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         ATTENTION_FWD.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            m, h, sm_scale,
+            k.shape[1], h, sm_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     return out
 

@@ -1,30 +1,35 @@
-"""Fused GroupNorm(+SiLU) with hand-written statistics kernels and an
-analytic backward.
+"""Fused GroupNorm(+SiLU) with hand-written kernels and an analytic
+backward.
 
 Port of humangaussian_tpu/ops/groupnorm.py. The op normalizes over the
 channel-minor axis of `[N, ..., C]` (the reference's layout, kept here so
 both packages see the same arrays), per (sample, group), with f32
-statistics; the output is cast back to `x.dtype`:
+statistics; the output is cast back to `x.dtype`. The forward is two
+kernels:
 
   statistics (kernel K3, csrc/groupnorm_stats.cu): per (sample, channel)
-      sum and sum of squares over the R = prod(...) rows of `[N, R, C]`;
-  group combine (tiny torch code): channel sums -> per (sample, group)
-      mean and rstd (variance as E[x^2] - mean^2, clamped at 0)
-      -> per-channel a = gamma * rstd, b = beta - mu * a;
-  normalize (+SiLU) (elementwise torch code): y = act(x * a + b).
+      sum and sum of squares over the R = prod(...) rows of `[N, R, C]`
+      into a zeroed [N, 2, C];
+  normalize (+SiLU) (kernel K3a, csrc/groupnorm_apply.cu): each block
+      forms its sample's group mean and rstd (variance as E[x^2] - mean^2,
+      clamped at 0) and per-channel a = gamma * rstd, b = beta - mu * a in
+      shared memory, then writes y = act(x * a + b) 16 bytes a thread.
 
-The backward mirrors it: kernel K5 re-reads (x, dz) and gives per (sample,
-channel) S1 = sum(dy) and S2 = sum(dy * xhat), with xhat and the SiLU
-derivative recomputed in registers; the group means, dgamma and dbeta come
-from S1 and S2, and
+So the forward of a CUDA tensor is K3, one zero-fill and K3a. Under
+autograd the op saves the sums; the backward derives the per-channel mean
+and rstd from them (`group_stats`, tiny torch code). Kernel K5 re-reads
+(x, dz) and gives per (sample, channel) S1 = sum(dy) and S2 = sum(dy *
+xhat), with xhat and the SiLU derivative recomputed in registers; the group
+means, dgamma and dbeta come from S1 and S2, and
 
   dx = rstd * (gamma * dy - mean_g(gamma dy) - xhat * mean_g(gamma dy xhat))
 
-is one more elementwise pass.
+is one more elementwise torch pass.
 
-Dispatch: a CUDA tensor launches K3 / K5, a CPU tensor takes the plain
-versions (`group_norm_stats_plain`, `group_norm_bwd_stats_plain`); nothing
-else decides, and nothing falls back from a kernel to a plain version.
+Dispatch: a CUDA tensor launches K3 / K3a / K5, a CPU tensor takes the
+plain versions (`group_norm_stats_plain`, `group_norm_apply_plain`,
+`group_norm_bwd_stats_plain`); nothing else decides, and nothing falls
+back from a kernel to a plain version.
 
 Dropped from the reference: `_pick_block_rows` and the pure-XLA route for
 row counts no block divides (the CUDA kernels take any row count), the
@@ -40,6 +45,7 @@ from torch import nn
 
 from humangaussian_torch.kernels import (
     GROUPNORM_BWD_STATS,
+    GROUPNORM_FWD_APPLY,
     GROUPNORM_FWD_STATS,
 )
 
@@ -52,7 +58,7 @@ _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def rows_per_block(samples: int, rows: int, channels: int) -> int:
-    """Rows each block of K3 / K5 reduces: the whole of `rows` when samples
+    """Rows each block of K3 / K5 (the statistics kernels) reduces: the whole of `rows` when samples
     x channel blocks already fill the card, else split (in multiples of the
     8 rows a block takes per step, at least 32) so that the launch reaches
     about `_TARGET_BLOCKS` blocks."""
@@ -103,6 +109,65 @@ def group_norm_stats(x3: torch.Tensor) -> torch.Tensor:
             x3.data_ptr(), n, rows, c, rows_per_block(n, rows, c),
             int(x3.dtype == torch.bfloat16), out.data_ptr(),
             torch.cuda.current_stream(x3.device).cuda_stream)
+    return out
+
+
+def group_stats(sums: torch.Tensor, rows: int, groups: int, eps: float):
+    """[N, 2, C] channel sums -> per-channel mu, rstd [N, C] f32."""
+    n, _, c = sums.shape
+    cg = c // groups
+    m = rows * cg  # elements per (sample, group)
+    gsum = sums.reshape(n, 2, groups, cg).sum(dim=3)  # [N, 2, G]
+    mean = gsum[:, 0] / m
+    var = (gsum[:, 1] / m - mean * mean).clamp_min(0.0)
+    rstd = torch.rsqrt(var + eps)
+    return (mean.repeat_interleave(cg, dim=1),
+            rstd.repeat_interleave(cg, dim=1))
+
+
+def group_norm_apply_plain(x3, sums, gamma, beta, groups: int, eps: float,
+                           silu: bool) -> torch.Tensor:
+    """K3a's function in plain torch: x3 [N, R, C] and its K3 sums
+    [N, 2, C] -> act(x3 * a + b) in x3's dtype, from the reference's group
+    combine and normalize arithmetic."""
+    mu_c, rstd_c = group_stats(sums, x3.shape[1], groups, eps)
+    a = (gamma * rstd_c)[:, None, :]  # [N, 1, C]
+    b = (beta - mu_c * gamma * rstd_c)[:, None, :]
+    y = x3.to(torch.float32) * a + b
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x3.dtype)
+
+
+def group_norm_apply(x3, sums, gamma, beta, groups: int, eps: float,
+                     silu: bool) -> torch.Tensor:
+    """GroupNorm(+SiLU) of `x3` [N, R, C] (contiguous) from its sums
+    [N, 2, C] f32 and gamma, beta [C] f32, in x3's dtype: K3a for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    _check_x3("x3", x3)
+    n, rows, c = x3.shape
+    for name, t, shape in (("sums", sums, (n, 2, c)), ("gamma", gamma, (c,)),
+                           ("beta", beta, (c,))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device != x3.device:
+            raise ValueError(
+                f"{name} must be float32 {shape} on {x3.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if groups <= 0 or c % groups:
+        raise ValueError(f"{c} channels do not divide into {groups} groups")
+    if x3.device.type == "cpu":
+        return group_norm_apply_plain(x3, sums, gamma, beta, groups, eps,
+                                      silu)
+    _check_kernel_input("x3", x3)
+    if rows * c >= 2**31:
+        raise ValueError(f"{rows} x {c} elements per sample exceed 2^31")
+    out = torch.empty_like(x3)
+    with torch.cuda.device(x3.device):
+        GROUPNORM_FWD_APPLY.launch(
+            x3.data_ptr(), sums.contiguous().data_ptr(),
+            gamma.contiguous().data_ptr(), beta.contiguous().data_ptr(), n,
+            rows, c, groups, eps, int(x3.dtype == torch.bfloat16), int(silu),
+            out.data_ptr(), torch.cuda.current_stream(x3.device).cuda_stream)
     return out
 
 
@@ -163,19 +228,6 @@ def group_norm_bwd_stats(x3, dz3, mu_c, rstd_c, gamma, beta,
     return out
 
 
-def group_stats(sums: torch.Tensor, rows: int, groups: int, eps: float):
-    """[N, 2, C] channel sums -> per-channel mu, rstd [N, C] f32."""
-    n, _, c = sums.shape
-    cg = c // groups
-    m = rows * cg  # elements per (sample, group)
-    gsum = sums.reshape(n, 2, groups, cg).sum(dim=3)  # [N, 2, G]
-    mean = gsum[:, 0] / m
-    var = (gsum[:, 1] / m - mean * mean).clamp_min(0.0)
-    rstd = torch.rsqrt(var + eps)
-    return (mean.repeat_interleave(cg, dim=1),
-            rstd.repeat_interleave(cg, dim=1))
-
-
 def _as_rows(x):
     n, c = x.shape[0], x.shape[-1]
     return x.reshape(n, -1, c)
@@ -185,24 +237,20 @@ class _GroupNormAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, groups, eps, silu):
         x3 = _as_rows(x.contiguous())
-        rows = x3.shape[1]
         gamma = scale.to(torch.float32)
         beta = bias.to(torch.float32)
-        mu_c, rstd_c = group_stats(group_norm_stats(x3), rows, groups, eps)
-        a = (gamma * rstd_c)[:, None, :]  # [N, 1, C]
-        b = (beta - mu_c * gamma * rstd_c)[:, None, :]
-        y = x3.to(torch.float32) * a + b
-        if silu:
-            y = y * torch.sigmoid(y)
-        ctx.save_for_backward(x3, scale, bias, mu_c, rstd_c)
-        ctx.cfg = (groups, silu, x.shape)
-        return y.to(x.dtype).reshape(x.shape)
+        sums = group_norm_stats(x3)
+        y = group_norm_apply(x3, sums, gamma, beta, groups, eps, silu)
+        ctx.save_for_backward(x3, scale, bias, sums)
+        ctx.cfg = (groups, eps, silu, x.shape)
+        return y.reshape(x.shape)
 
     @staticmethod
     def backward(ctx, dz):
-        x3, scale, bias, mu_c, rstd_c = ctx.saved_tensors
-        groups, silu, shape = ctx.cfg
+        x3, scale, bias, fwd_sums = ctx.saved_tensors
+        groups, eps, silu, shape = ctx.cfg
         n, rows, c = x3.shape
+        mu_c, rstd_c = group_stats(fwd_sums, rows, groups, eps)
         dz3 = _as_rows(dz.contiguous())
         gamma = scale.to(torch.float32)
         beta = bias.to(torch.float32)

@@ -4,7 +4,10 @@ The same numpy q, k, v go through `humangaussian_tpu.ops.attention
 .self_attention` (its Pallas kernel in interpret mode, as on any non-TPU
 backend) and through the port, whose CPU path is the plain version of its
 CUDA kernel. Tolerances are the JAX package's own for its kernel: float32
-2e-5, bfloat16 2e-2; gradients 5e-4 of max-|grad|.
+2e-5, bfloat16 2e-2; gradients 5e-4 of max-|grad|. The CUDA kernel's own
+rounding (an online softmax over 128-key tiles) is emulated in torch here
+and held to 2^-7 of max |out|, the limit the kernel meets against the
+plain version on the card.
 """
 import jax
 import jax.numpy as jnp
@@ -16,6 +19,8 @@ from humangaussian_torch.ops import attention as port_attn
 from humangaussian_tpu.ops import attention as jax_attn
 
 torch.set_num_threads(1)
+KERNEL_TILE = 128  # keys per tile of csrc/attention_fwd.cu
+BF16_ULP_OF_PEAK = 2.0 ** -7
 
 
 def _qkv(b, s, h, d, seed=0):
@@ -118,10 +123,78 @@ def test_more_keys_than_queries():
         first, atol=2e-5)
 
 
+def online_softmax_emulation(q, k, v, sm_scale, tile=KERNEL_TILE):
+    """The arithmetic of the CUDA kernel, in torch: keys in tiles of
+    `tile`, a running row maximum m, p = exp(logit - m) in f32 rounded to
+    bfloat16 for the PV product, the accumulator and l rescaled by
+    exp(m_old - m) in f32, l summed from the f32 p, out = acc / l."""
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * sm_scale
+    b, h, s, m_keys = logits.shape
+    m = torch.full((b, h, s, 1), -torch.inf)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, q.shape[-1]))
+    for t0 in range(0, m_keys, tile):
+        t = logits[..., t0:t0 + tile]
+        m_new = torch.maximum(m, t.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(t - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhnm,bmhd->bhnd", p.to(q.dtype).float(),
+            v[:, t0:t0 + tile].float())
+        m = m_new
+    return (acc / l).permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("sharpen", [1.0, 8.0])
+def test_online_softmax_rounding_matches_pallas_and_plain(sharpen):
+    """The kernel rounds p to bf16 relative to the running maximum, not the
+    final one. Emulated at S = 512 (four key tiles, bf16, 2 heads), with
+    ordinary logits and with q sharpened 8x (the maximum moves often), it
+    stays within 2^-7 of max |out| of the JAX Pallas kernel (interpret
+    mode) and of the plain version."""
+    q, k, v = _qkv(1, 512, 2, 64, seed=7)
+    q = q * sharpen
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    emulated = online_softmax_emulation(*tb, 0.125).float().numpy()
+    plain = port_attn.self_attention_plain(*tb, 0.125).float().numpy()
+    pallas = np.asarray(jax_attn.self_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    ).astype(jnp.float32))
+    for name, want in (("pallas", pallas), ("plain", plain)):
+        err = np.abs(emulated - want).max()
+        assert err <= BF16_ULP_OF_PEAK * np.abs(want).max(), (name, err)
+    # one tile covering every key is the plain version's arithmetic
+    whole = online_softmax_emulation(*tb, 0.125, tile=512).float().numpy()
+    np.testing.assert_allclose(whole, plain,
+                               atol=BF16_ULP_OF_PEAK * np.abs(plain).max())
+
+
 @pytest.mark.parametrize("bad", ["rank", "kv_shape", "dtype", "heads",
-                                 "not_tensor"])
+                                 "not_tensor", "length", "kernel_dtype",
+                                 "kernel_scale"])
 def test_wrapper_rejects_bad_arguments(bad):
     q, k, v = (torch.zeros(1, 128, 2, 64) for _ in range(3))
+    if bad in ("length", "kernel_dtype", "kernel_scale"):
+        # off the CPU the kernel's own limits apply before any launch: keys
+        # in multiples of 128, bfloat16, a positive scale (the meta device
+        # has no kernel, so a call that passed them would raise "no
+        # attention kernel")
+        q, k, v = (torch.zeros(1, 128, 2, 64, device="meta",
+                               dtype=torch.bfloat16) for _ in range(3))
+        if bad == "length":
+            k, v = (torch.zeros(1, 192, 2, 64, device="meta",
+                                dtype=torch.bfloat16) for _ in range(2))
+            with pytest.raises(ValueError, match="multiples of 128"):
+                port_attn.self_attention(q, k, v)
+        elif bad == "kernel_scale":
+            with pytest.raises(ValueError, match="sm_scale > 0"):
+                port_attn.self_attention(q, k, v, sm_scale=-0.125)
+        else:
+            q, k, v = q.float(), k.float(), v.float()
+            with pytest.raises(TypeError, match="bfloat16"):
+                port_attn.self_attention(q, k, v)
+        return
     if bad == "rank":
         q = q[0]
     elif bad == "kv_shape":

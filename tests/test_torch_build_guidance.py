@@ -1,10 +1,18 @@
 """apps/launch.py::build_guidance of the port: the prior built from
-diffusers-layout weight files on the CPU, at the tiny widths."""
+diffusers-layout weight files on the CPU, at the tiny widths, and its
+compute type against the reference's way of building the prior (its
+converters and its `half_precision_weights` cast)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from humangaussian_torch.apps import launch
+from humangaussian_torch.guidance import unet as port_unet
+from humangaussian_torch.guidance import vae as port_vae
 from port_parity_torch import tiny_port_guidance
 
 torch.set_num_threads(1)
@@ -34,12 +42,17 @@ def _write_tiny_weights(root, pg):
         "remat_encode": False}}}
 
 
+def _bf16_exact(t):
+    return torch.equal(t, t.to(torch.bfloat16).to(t.dtype))
+
+
 @pytest.mark.parametrize("half", [False, True])
 def test_build_guidance_loads_the_tiny_prior(tmp_path, half):
     """The launcher's guidance half: files -> DualBranchGuidance on the
-    CPU. With float32 weights the step equals the object the files were
-    written from; with `half_precision_weights` the prior is bfloat16 with
-    float32 GroupNorm parameters and still gives finite gradients."""
+    CPU. Without `half_precision_weights` the step equals the object the
+    files were written from; with it the tiny prior still computes in its
+    configuration's float32, on weights rounded through bfloat16 (the
+    GroupNorm parameters too), and gives finite gradients."""
     pg = tiny_port_guidance(seed=0)
     cfg = _write_tiny_weights(tmp_path, pg)
     cfg["system"]["guidance"]["half_precision_weights"] = half
@@ -54,15 +67,108 @@ def test_build_guidance_loads_the_tiny_prior(tmp_path, half):
     out["loss_sds"].backward()
     assert bool(torch.isfinite(rgb.grad).all()) and float(
         rgb.grad.abs().max()) > 0
+    assert built.unet.dtype == built.vae.dtype == torch.float32
+    assert built.unet.conv_norm_out.weight.dtype == torch.float32
     if half:
-        assert built.unet.dtype == torch.bfloat16
-        assert built.vae.dtype == torch.bfloat16
-        assert built.unet.conv_norm_out.weight.dtype == torch.float32
+        assert all(_bf16_exact(p) for p in built.unet.parameters())
+        assert all(_bf16_exact(p) for p in built.vae.parameters())
     else:
         want = pg(pose, rgb.detach(), depth, text, t,
                   torch.Generator().manual_seed(1))
         np.testing.assert_allclose(out["grad"].numpy(), want["grad"].numpy(),
                                    atol=1e-6)
+
+
+def _reference_prior(root, unet_cfg, vae_cfg, half):
+    """The tiny prior as the reference's launcher builds it from the same
+    files: its loader and converters, then, with `half_precision_weights`,
+    every float32 leaf cast to bfloat16
+    (humangaussian_tpu/apps/launch.py:165-177); the modules compute in
+    their configuration's dtype."""
+    from humangaussian_tpu.guidance import convert
+
+    unet_params, _ = convert.convert_unet_state_dict(
+        convert.load_torch_state_dict(str(
+            root / "joint" / "unet_ema" / "diffusion_pytorch_model.bin")),
+        num_levels=len(unet_cfg.block_out_channels),
+        copy_last_n=unet_cfg.copy_last_n_block)
+    vae_params, _ = convert.convert_vae_state_dict(
+        convert.load_torch_state_dict(str(
+            root / "vae" / "diffusion_pytorch_model.bin")))
+    if half:
+        def cast(tree):
+            return jax.tree.map(
+                lambda x: x.astype(jnp.bfloat16)
+                if getattr(x, "dtype", None) == jnp.float32 else x, tree)
+
+        unet_params, vae_params = cast(unet_params), cast(vae_params)
+    return unet_params, vae_params
+
+
+@pytest.mark.parametrize("half", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compute_type_matches_the_reference(tmp_path, monkeypatch, dtype,
+                                            half):
+    """The prior computes in the configuration's dtype whatever
+    `half_precision_weights` says; the flag only rounds the stored weights
+    through bfloat16, GroupNorm parameters included. For each case the
+    port's UNet and VAE-encode outputs match the reference's prior built
+    from the same files, and a bfloat16 configuration gives a bfloat16
+    prior with the flag off as with it on. Limits, of the reference's max:
+    float32 1e-5; bfloat16 2^-5, because the two frameworks round at other
+    places through a whole network: on these weights each side's bfloat16
+    output lies 1.3e-2 to 1.8e-2 of max from the float32 answer, and the
+    two lie 1.4e-2 to 1.7e-2 apart."""
+    from humangaussian_tpu.guidance import unet as jax_unet
+    from humangaussian_tpu.guidance import vae as jax_vae
+
+    pg = tiny_port_guidance(seed=2)
+    rng = np.random.RandomState(3)
+    with torch.no_grad():  # norm parameters whose bf16 rounding shows
+        for name, p in (*pg.unet.named_parameters(),
+                        *pg.vae.named_parameters()):
+            if "norm" in name:
+                p.add_(torch.from_numpy(
+                    0.1 * rng.randn(*p.shape).astype(np.float32)))
+    cfg = _write_tiny_weights(tmp_path, pg)
+    cfg["system"]["guidance"]["half_precision_weights"] = half
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    monkeypatch.setattr(port_unet, "TINY_TEST_CONFIG", dataclasses.replace(
+        port_unet.TINY_TEST_CONFIG, dtype=tdt))
+    tiny_vae = port_vae.tiny_vae_config
+    monkeypatch.setattr(port_vae, "tiny_vae_config",
+                        lambda: dataclasses.replace(tiny_vae(), dtype=tdt))
+    built = launch.build_guidance(cfg, "cpu")
+    assert built.unet.dtype == built.vae.dtype == tdt
+    norm = built.unet.conv_norm_out.weight
+    assert norm.dtype == torch.float32
+    assert _bf16_exact(norm) == half
+
+    jucfg = dataclasses.replace(jax_unet.TINY_TEST_CONFIG, dtype=jdt)
+    jvcfg = dataclasses.replace(jax_vae.tiny_vae_config(), dtype=jdt)
+    unet_params, vae_params = _reference_prior(tmp_path, jucfg, jvcfg, half)
+    x = rng.randn(2, 8, 8, 8).astype(np.float32)
+    xb = rng.randn(2, 8, 8, 8).astype(np.float32)
+    t = np.array([10.0, 600.0], np.float32)
+    text = (rng.randn(2, 7, 32) * 0.5).astype(np.float32)
+    ids = np.tile(np.array([[1024, 1024, 0, 0, 1024, 1024]], np.float32),
+                  (2, 1))
+    img = (rng.rand(2, 16, 16, 3) * 2 - 1).astype(np.float32)
+    args = (x, xb, t, text, ids)
+    want_unet = np.asarray(jax_unet.DualBranchUNet(jucfg).apply(
+        unet_params, *map(jnp.asarray, args)).astype(jnp.float32))
+    jvae = jax_vae.AutoencoderKL(jvcfg)
+    want_mean = np.asarray(jvae.apply(vae_params, jnp.asarray(img),
+                                      method=jvae.encode)[0]
+                           .astype(jnp.float32))
+    with torch.no_grad():
+        got_unet = built.unet(*map(torch.from_numpy, args)).float().numpy()
+        got_mean = built.vae.encode(torch.from_numpy(img))[0].float().numpy()
+    rel = 1e-5 if dtype == "float32" else 2.0 ** -5
+    for name, got, want in (("unet", got_unet, want_unet),
+                            ("vae mean", got_mean, want_mean)):
+        np.testing.assert_allclose(got, want, atol=rel * np.abs(want).max(),
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("edit,error", [

@@ -164,6 +164,36 @@ def test_backward_stats_plain_matches_pallas_kernel(pallas):
                                    atol=F32_TOL * np.abs(want).max())
 
 
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,groups", [((2, 16, 16, 32), 8),
+                                          ((2, 5, 7, 24), 4)])
+def test_apply_plain_matches_jax_forward(pallas, shape, groups, dtype,
+                                         silu):
+    """K3a's plain version on K3's plain sums is the whole forward of the
+    JAX `group_norm_act` (its Pallas statistics in interpret mode where
+    the rows allow): float32 2e-5, bfloat16 activations 0.05."""
+    x, scale, bias, _ = _inputs(shape, seed=5)
+    n, c = shape[0], shape[-1]
+    jx = jnp.asarray(x).astype(jnp.dtype(dtype))
+    want = np.asarray(jax_gn.group_norm_act(
+        jx, jnp.asarray(scale), jnp.asarray(bias), groups, 1e-5,
+        silu).astype(jnp.float32))
+    x3 = torch.from_numpy(x).to(getattr(torch, dtype)).reshape(n, -1, c)
+    sums = port_gn.group_norm_stats_plain(x3)
+    got = port_gn.group_norm_apply_plain(
+        x3, sums, torch.from_numpy(scale), torch.from_numpy(bias), groups,
+        1e-5, silu)
+    assert got.dtype == x3.dtype and got.shape == x3.shape
+    np.testing.assert_allclose(got.float().numpy().reshape(shape), want,
+                               atol=F32_TOL if dtype == "float32"
+                               else BF16_TOL)
+    # the wrapper's CPU path is the plain version
+    assert torch.equal(port_gn.group_norm_apply(
+        x3, sums, torch.from_numpy(scale), torch.from_numpy(bias), groups,
+        1e-5, silu), got)
+
+
 @pytest.mark.parametrize("n,rows,c,want_blocks", [
     (24, 4096, 320, 1080),  # 5 channel blocks x 24 samples x 9 row slices
     (24, 64, 2560, 1920),
@@ -179,7 +209,8 @@ def test_rows_per_block_fills_the_card(n, rows, c, want_blocks):
 
 
 @pytest.mark.parametrize("bad", ["groups", "scale", "ndim", "rank3",
-                                 "noncontig", "dz", "mu"])
+                                 "noncontig", "dz", "mu", "apply_sums",
+                                 "apply_groups", "apply_gamma"])
 def test_wrappers_reject_bad_arguments(bad):
     x = torch.zeros(2, 4, 4, 8)
     scale, bias = torch.ones(8), torch.zeros(8)
@@ -203,3 +234,12 @@ def test_wrappers_reject_bad_arguments(bad):
         elif bad == "mu":
             port_gn.group_norm_bwd_stats(x3, x3, mu[:1], mu, scale, bias,
                                          True)
+        elif bad == "apply_sums":
+            port_gn.group_norm_apply(x3, torch.zeros(2, 8), scale, bias, 4,
+                                     1e-5, True)
+        elif bad == "apply_groups":
+            port_gn.group_norm_apply(x3, torch.zeros(2, 2, 8), scale, bias,
+                                     3, 1e-5, True)
+        elif bad == "apply_gamma":
+            port_gn.group_norm_apply(x3, torch.zeros(2, 2, 8), scale.double(),
+                                     bias, 4, 1e-5, True)

@@ -1,5 +1,5 @@
 """The port's kernel plumbing: import isolation, wrapper checks, and the
-five kernels against their plain versions on a card.
+six kernels against their plain versions on a card.
 
 The kernel-vs-plain tests need an NVIDIA GPU (marker `cuda`) and skip
 without one; on the card they hold K1 to `composite_plain` at 1e-4 absolute
@@ -9,7 +9,8 @@ K2 to `composite_backward_plain` at 1e-4 of each column's max-|grad|, with
 at most 1e-3 of the rows past that (a pair flipped at the knife-edge moves
 a row by its whole contribution; atomics sum in no fixed order); K3 and K5
 to `group_norm_stats_plain` / `group_norm_bwd_stats_plain` at 1e-5 of the
-largest sum; K4 to `self_attention_plain` at 2^-7 of the largest output
+largest sum; K3a to `group_norm_apply_plain` within one bfloat16 ulp on all
+but 1e-4 of the outputs (bfloat16) or 1e-5 of max |y| (float32); K4 to `self_attention_plain` at 2^-7 of the largest output
 (one bfloat16 ulp at the peak).
 """
 import os
@@ -154,12 +155,16 @@ def test_guidance_wrappers_take_plain_on_the_cpu_and_do_not_count():
                                        True),
         groupnorm.group_norm_bwd_stats_plain(x3, dz3, mu_c, rstd_c, gamma,
                                              beta, True))
+    assert torch.equal(
+        groupnorm.group_norm_apply(x3, sums, gamma, beta, 8, 1e-5, True),
+        groupnorm.group_norm_apply_plain(x3, sums, gamma, beta, 8, 1e-5,
+                                         True))
     assert torch.equal(attention.self_attention(q, k, v),
                        attention.self_attention_plain(q, k, v, 0.25))
     assert set(kernels.launch_counts().values()) == {0}
     assert set(kernels.launch_counts()) == {
         "rasterize_fwd", "rasterize_bwd", "groupnorm_fwd_stats",
-        "groupnorm_bwd_stats", "attention_fwd"}
+        "groupnorm_fwd_apply", "groupnorm_bwd_stats", "attention_fwd"}
 
 
 def test_guidance_wrappers_never_fall_back_off_the_cpu():
@@ -173,6 +178,9 @@ def test_guidance_wrappers_never_fall_back_off_the_cpu():
         groupnorm.group_norm_bwd_stats(x3, dz3, mu, mu, gamma, beta, True)
     with pytest.raises(ValueError, match="no GroupNorm kernel"):
         groupnorm.group_norm_act(x3, gamma, beta, 8, 1e-5, True)
+    sums = torch.empty((2, 2, 48), device="meta")
+    with pytest.raises(ValueError, match="no GroupNorm kernel"):
+        groupnorm.group_norm_apply(x3, sums, gamma, beta, 8, 1e-5, True)
     q, k, v = random_qkv(device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="no attention kernel"):
         attention.self_attention(q, k, v)
@@ -182,6 +190,7 @@ def test_guidance_wrappers_never_fall_back_off_the_cpu():
     (kernels.RASTERIZE_FWD, "rasterize_fwd"),
     (kernels.RASTERIZE_BWD, "rasterize_bwd"),
     (kernels.GROUPNORM_FWD_STATS, "groupnorm_stats"),
+    (kernels.GROUPNORM_FWD_APPLY, "groupnorm_apply"),
     (kernels.GROUPNORM_BWD_STATS, "groupnorm_stats"),
     (kernels.ATTENTION_FWD, "attention_fwd"),
 ])
@@ -277,6 +286,36 @@ def test_groupnorm_kernels_match_plain(cuda_device, n, rows, c, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,c,groups,dtype", [
+    (2, 37, 48, 8, torch.float32),  # odd rows
+    (3, 50, 33, 3, torch.float32),  # no 16-byte vectors: the scalar loop
+    (4, 1024, 320, 32, torch.bfloat16),
+    (2, 64, 2560, 32, torch.bfloat16),
+])
+def test_groupnorm_apply_kernel_matches_plain(cuda_device, n, rows, c,
+                                              groups, dtype):
+    x3, _, gamma, beta = random_groupnorm_args(cuda_device, 3, n, rows, c,
+                                               dtype)
+    sums = groupnorm.group_norm_stats_plain(x3)
+    kernels.reset_launch_counts()
+    for silu in (True, False):
+        got = groupnorm.group_norm_apply(x3, sums, gamma, beta, groups, 1e-5,
+                                         silu)
+        torch.cuda.synchronize()
+        want = groupnorm.group_norm_apply_plain(x3, sums, gamma, beta,
+                                                groups, 1e-5, silu)
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            _, e = torch.frexp(want.float().abs().clamp_min(2.0 ** -126))
+            ulp = torch.ldexp(torch.ones_like(err), e - 8)
+            assert float((err > ulp).float().mean()) <= 1e-4
+        else:
+            assert float(err.max()) <= 1e-5 * float(want.abs().max())
+    assert kernels.launch_counts()["groupnorm_fwd_apply"] == 2
+
+
+@pytest.mark.cuda
 def test_group_norm_act_on_the_card_matches_the_library(cuda_device):
     """Output and input gradient of the op (K3 forward, K5 backward) against
     F.group_norm + F.silu in float32, 2e-5."""
@@ -298,7 +337,7 @@ def test_group_norm_act_on_the_card_matches_the_library(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,m", [(2, 256, 3, None), (1, 1024, 2, None),
-                                     (1, 128, 2, 320)])
+                                     (1, 128, 2, 384)])
 def test_attention_kernel_matches_plain(cuda_device, b, s, h, m):
     q, k, v = random_qkv(cuda_device, 2, b, s, h, 64, torch.bfloat16, m)
     kernels.reset_launch_counts()
@@ -316,7 +355,7 @@ def test_attention_kernel_matches_plain(cuda_device, b, s, h, m):
 def test_attention_kernel_rejects_what_it_does_not_take(cuda_device, bad):
     kw = {"float32": dict(dtype=torch.float32),
           "head_dim": dict(d=32, dtype=torch.bfloat16),
-          "length": dict(s=96, dtype=torch.bfloat16)}[bad]
+          "length": dict(s=192, dtype=torch.bfloat16)}[bad]
     q, k, v = random_qkv(cuda_device, **kw)
     with pytest.raises((TypeError, ValueError)):
         attention.self_attention(q, k, v)
