@@ -45,10 +45,15 @@ source, started together), writes the assets, then:
    raise the number of alive Gaussians, `last.ply` load with finite
    parameters; the test PSNR is printed;
 7. times with CUDA events (medians after a warm-up) K1 and K2 per 1024^2
-   avatar view and at the first training view, the end-to-end ms per
-   animated frame, per orbit view and per training step (split into
-   forward render, loss, backward, statistics + Adam) and per densify
-   pass;
+   avatar view (shape a) and at the first training view (shape b), with
+   their busy tiles, largest segment, the share of pair x pixel slots
+   that the sub-tile skip removes (`subtile_pair_mask`) and two bounds:
+   from the contributions alone (`needed_bounds`, the `kernels` line's
+   `bound_ms`) and from every pair-pixel visit of the plain walk
+   (`bound_ms_visits`), the end-to-end
+   ms per animated frame, per orbit view and per training step (split
+   into forward render, loss, backward, statistics + Adam) and per
+   densify pass;
 8. profiles 4 animated frames, 2 orbit batches and 4 training steps with
    torch.profiler;
 9. holds K3 and K5 (csrc/groupnorm_stats.cu) against their plain versions
@@ -78,10 +83,15 @@ source, started together), writes the assets, then:
    (bfloat16, `torch.save`), builds the prior from them with
    `apps.launch.build_guidance` on configs/avatar.yaml (899,719,048 UNet
    parameters) and the prompt embeddings with `dummy_encode_fn(77, 1024)`,
-   renders 8 orbit views of the avatar at 1024^2 with `render_batch` (K1),
+   holds K1 and K2 against their plain versions (phase 2's limits) on the
+   step's own batch (shape c: 8 orbit views of the avatar at 1024^2 with
+   configs/avatar.yaml's `system.rasterizer`, tile 32 and a 2x2 tile
+   rect) and times them there beside their bounds, then renders that
+   batch with `render_batch` (K1),
    min-maxes the depth per image, calls `DualBranchGuidance.__call__` with
    timesteps on both sides of 200 and backpropagates `loss_sds` to the
-   Gaussian parameters (K2): loss and gradients finite, image gradients
+   Gaussian parameters (K2): loss and gradients finite on every row (the
+   dead slots the PLY loader pads with included), image gradients
    non-zero, the loss equal to the norms of `grad`; one step launches K1
    and K2 once, K3 and K3a 77 times each and K4 20 times (one UNet
    forward: 54 resnet norms, 21 transformer norms, 2 heads; 10
@@ -99,7 +109,8 @@ source, started together), writes the assets, then:
    versions;
 and prints the `kernels` JSON line (all six kernels, each with the launches
 of its own path: K1 and K2 phases 4 to 6, K3, K3a and K4 phase 11, K5
-phase 13)
+phase 13; K1's and K2's rows also carry `ms_guidance_batch`,
+`bound_ms_guidance_batch` and `bound_ms_guidance_batch_visits`, shape c)
 and, last, the device JSON line. `--only GROUP[,GROUP]` runs some phase
 groups alone and prints no result lines.
 
@@ -293,17 +304,21 @@ def last_contributor_account(name, got, plain):
           f"{elsewhere:.3e}")
 
 
-def k2_bound(kargs, tiles, fwd, contribs):
-    """(bound ms, bound by, bytes ms, ops ms) of K2 on these inputs: every
-    input read once (feature rows, pair ids, segment table, the four saved
-    images, the three cotangents) and the gradient rows written once, over
-    the memory rate; the replayed pair-pixel visits (up to each pixel's
-    last contributor) and the contributions over the instruction rate."""
+def k2_bound(kargs, tiles, fwd, contribs, visits=None):
+    """(bound ms, bound by, bytes ms, ops ms, visits) of K2 on these
+    inputs: every input read once (feature rows, pair ids, segment table,
+    the four saved images, the three cotangents) and the gradient rows
+    written once, over the memory rate; the pair-pixel visits and the
+    contributions over the instruction rate. `visits` defaults to the
+    replayed visits of the plain walk (up to each pixel's last
+    contributor); given `contribs`, only the work any implementation must
+    do is counted (see `needed_bounds`)."""
     feats, gids = kargs[0], kargs[1]
     pixels = fwd["depth"].numel()
     n_bytes = (2 * feats.numel() * 4 + gids.numel() * 4
                + 2 * tiles[0] * tiles[1] * 4 + pixels * (6 + 5) * 4)
-    visits = int(fwd["n_contrib"].sum())
+    if visits is None:
+        visits = int(fwd["n_contrib"].sum())
     bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
     ops_ms = max(
         (visits * (OPS_PER_VISIT + 1) + contribs * OPS_PER_CONTRIB_BWD)
@@ -312,8 +327,78 @@ def k2_bound(kargs, tiles, fwd, contribs):
     return max(bytes_ms, ops_ms), by, bytes_ms, ops_ms, visits
 
 
+def raster_work(kargs, tiles, cfg, fwd):
+    """Busy tiles, the largest segment, and the shares of pair x pixel
+    slots that the sub-tile skip removes (before any early stop): K1's over
+    each tile's count; K2's over each block's walk limit, the largest last
+    contributor of the whole tile for a tile-wide block, of the sub-tile
+    for a sub-tile block."""
+    from humangaussian_torch.ops.rasterize_tiled import (
+        SUBTILE,
+        counted_pairs,
+        subtile_pair_mask,
+    )
+
+    feats, gids, starts, counts = kargs
+    tx, ty = tiles
+    tile, per = cfg.tile, cfg.tile // SUBTILE
+    counts64 = counts.to(torch.int64)
+    n_blocks = counts64.numel()
+    tile_of, local, pos = counted_pairs(starts, counts)
+    walked = subtile_pair_mask(feats, gids, starts, counts, tx, ty,
+                               cfg)[pos]  # [Pc, subs]
+    nc = fwd["n_contrib"].to(torch.int64)
+    b = nc.shape[0]
+    sub_last = (nc.reshape(b, ty, per, SUBTILE, tx, per, SUBTILE)
+                .amax(dim=(3, 6)).permute(0, 1, 3, 2, 4)
+                .reshape(n_blocks, per * per))
+    sub_last = torch.minimum(sub_last, counts64[:, None])
+    k2_walked = walked & (local[:, None] < sub_last[tile_of])
+    busy = counts64[counts64 > 0]
+    return {
+        "busy_tiles": int(busy.numel()),
+        "max_segment": int(busy.max()) if busy.numel() else 0,
+        "k1_skip_share": 1.0 - float(walked.sum()) * SUBTILE ** 2
+        / max(float(counts64.sum()) * tile ** 2, 1.0),
+        "k2_skip_share": 1.0 - float(k2_walked.sum()) * SUBTILE ** 2
+        / max(float(sub_last.amax(dim=1).sum()) * tile ** 2, 1.0),
+    }
+
+
+def needed_bounds(kargs, tiles, fwd, contribs):
+    """K1's and K2's bounds counted from the contributions alone: a pair
+    that passes the alpha gate at a pixel before the pixel saturates is
+    work every implementation does (its power term, exp and blend in K1,
+    its replay and gradient in K2); a visit that fails the gate is work an
+    implementation with a finer cull than the kernels' could skip, so it
+    is left out. Each bound is (ms, by, bytes ms, ops ms, ...)."""
+    pixels = fwd["depth"].numel()
+    b1 = k1_bound(kargs, tiles, pixels, contribs, contribs)
+    b1 = (*b1[:3], max(b1[3], b1[4]))
+    return b1, k2_bound(kargs, tiles, fwd, contribs, visits=contribs)
+
+
+def bound_text(needed, visits_bound):
+    """The bound from the contributions and, beside it, the one that
+    counts every visit of the plain walk."""
+    return (f"bound {needed[0]:.5f} ms by {needed[1]} from the "
+            f"contributions (bytes {needed[2]:.5f} ms, operations "
+            f"{needed[3]:.5f} ms); counting every visit of the plain walk "
+            f"{visits_bound[0]:.5f} ms by {visits_bound[1]}")
+
+
+def work_line(work):
+    return (f"{work['busy_tiles']} busy tiles, largest segment "
+            f"{work['max_segment']}; the sub-tile skip removes "
+            f"{100 * work['k1_skip_share']:.1f}% of K1's pair x pixel slots "
+            f"and {100 * work['k2_skip_share']:.1f}% of K2's")
+
+
 def k1_bound(kargs, tiles, pixels, visits, contribs):
-    """(bound ms, bound by, bytes ms, instruction ms, SFU ms) of K1."""
+    """(bound ms, bound by, bytes ms, instruction ms, SFU ms) of K1: the
+    inputs read once and the seven output channels written once over the
+    memory rate, the pair-pixel visits and the contributions over the
+    instruction and SFU rates."""
     in_bytes = (kargs[0].numel() * 4 + kargs[1].numel() * 4
                 + 2 * tiles[0] * tiles[1] * 4 + 12)
     bytes_ms = (in_bytes + pixels * 7 * 4) / H100_BYTES_PER_S * 1e3
@@ -930,13 +1015,69 @@ def pose_stand_in(batch, size, dev, seed=11):
     return torch.from_numpy(img).to(dev)
 
 
-def guidance_phase(dev, guidance, embeddings, assets) -> dict:
+def guidance_batch_kernels(avatar, cams, rcfg, bg) -> dict:
+    """Shape (c): K1 and K2 on the guidance step's own batch (the orbit
+    views of phase 11 at SIZE^2, the training rect) against their plain
+    versions with phase 2's limits, timed (CUDA events, medians after a
+    warm-up) beside their bounds, with the work the sub-tile skip
+    removes."""
+    from humangaussian_torch.ops.rasterize_tiled import (
+        composite,
+        composite_backward,
+        composite_inputs,
+        composite_plain,
+    )
+
+    cam_list = [cams[i] for i in range(len(cams))]
+    with torch.no_grad():
+        _, pairs, kargs, tiles = composite_inputs(
+            avatar.means, avatar.scales, avatar.quats, avatar.features,
+            avatar.opacities, avatar.alive, cam_list, avatar.max_sh_degree,
+            rcfg)
+    label = f"guidance batch of {len(cam_list)}"
+    got = composite(*kargs, bg, *tiles, rcfg)
+    torch.cuda.synchronize()
+    plain = composite_plain(*kargs, bg, *tiles, rcfg)
+    k1_err = compare(label, got, plain)
+    last_contributor_account(label, got, plain)
+    k2_err, cot, _ = k2_vs_plain(label, kargs, bg, tiles, rcfg, got, plain,
+                                 seed=16)
+    visits, contribs = int(plain["visits"]), int(plain["contribs"])
+    del plain
+    fwd = {k: got[k] for k in ("image", "depth", "final_t", "n_contrib")}
+
+    def k1():
+        composite(*kargs, bg, *tiles, rcfg)
+
+    def k2():
+        composite_backward(*kargs, bg, fwd, cot, *tiles, rcfg)
+
+    k1_ms = cuda_ms(k1, reps=20)
+    k2_ms = cuda_ms(k2, reps=20)
+    b1 = k1_bound(kargs, tiles, got["depth"].numel(), visits, contribs)
+    b2 = k2_bound(kargs, tiles, fwd, contribs)
+    n1, n2 = needed_bounds(kargs, tiles, fwd, contribs)
+    print(f"  {label}: pairs={int(pairs.gids.numel())} overflow="
+          f"{int(pairs.overflow)} pair-pixel visits={visits} contributions="
+          f"{contribs}; {work_line(raster_work(kargs, tiles, rcfg, fwd))}")
+    print(f"  K1 {label}: {k1_ms:.4f} ms, {bound_text(n1, b1)}")
+    print(f"  K2 {label}: {k2_ms:.4f} ms, replays {b2[4]} visits, "
+          f"{bound_text(n2, b2)}")
+    return {"k1_err": k1_err, "k2_err": k2_err, "k1_ms": k1_ms,
+            "k1_bound": n1[0], "k1_bound_visits": b1[0], "k2_ms": k2_ms,
+            "k2_bound": n2[0], "k2_bound_visits": b2[0]}
+
+
+def guidance_phase(dev, guidance, embeddings, assets):
     """Phase 11: the avatar trainer's guidance step at full width, joined
     to the batched render: 8 orbit views at 1024^2 (K1), per-image min-max
     depth, `DualBranchGuidance.__call__` (K3, K3a, K4 in the UNet), and
-    `loss_sds` backpropagated to the Gaussian parameters (K2). Returns the
-    launch counts of one step."""
+    `loss_sds` backpropagated to the Gaussian parameters (K2), rendered
+    with configs/avatar.yaml's training rasterizer. Returns the launch
+    counts of one step and K1's and K2's numbers on its batch."""
     from humangaussian_torch import kernels
+    from humangaussian_torch.apps.launch import _take
+    from humangaussian_torch.config import load_config
     from humangaussian_torch.core.camera import camera_from_c2w
     from humangaussian_torch.data.cameras import (
         RandomCameraConfig,
@@ -958,12 +1099,18 @@ def guidance_phase(dev, guidance, embeddings, assets) -> dict:
     print(f"phase 11: the guidance step (batch {GUIDANCE_BATCH}, {SIZE}^2 "
           f"renders, 512^2 encodes, 3 x {GUIDANCE_BATCH} x 64^2 latents)")
     avatar = load_ply(assets[1], device=dev)
+    guidance_cfg = load_config(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "configs", "avatar.yaml"))
     orbit = eval_camera_batch(RandomCameraConfig(), "test", device=dev)
     pick = torch.arange(GUIDANCE_BATCH, device=dev) * (
         orbit.c2w.shape[0] // GUIDANCE_BATCH)
     cams = camera_from_c2w(orbit.c2w[pick], orbit.fovy[pick], SIZE, SIZE)
-    rcfg = RasterizeConfig(max_tiles_per_gaussian=9)
+    # the training rasterizer of the shipped configuration (2x2 tile rect)
+    rcfg = _take(RasterizeConfig, guidance_cfg["system"]["rasterizer"])
+    print(f"  rasterizer: tile {rcfg.tile}, max_tiles_per_gaussian "
+          f"{rcfg.max_tiles_per_gaussian}")
     white = torch.ones(3, device=dev)
+    batch_row = guidance_batch_kernels(avatar, cams, rcfg, white)
     pose = pose_stand_in(GUIDANCE_BATCH, SIZE, dev)
     text = embeddings.get_text_embeddings(orbit.elevation[pick],
                                           orbit.azimuth[pick])
@@ -1015,12 +1162,12 @@ def guidance_phase(dev, guidance, embeddings, assets) -> dict:
               f"d loss / d {name}: non-finite")
         check(float(g.abs().max()) > 0, f"d loss / d {name} is zero")
         print(f"  d loss / d {name}: max {float(g.abs().max()):.3e}")
-    # over the alive Gaussians (the PLY loader pads to a capacity with dead
-    # slots, whose zero quaternion has no gradient)
+    # every row, the dead slots the PLY loader pads with zero quaternions
+    # included
     reached = False
     for name, leaf in leaves.items():
         check(leaf.grad is not None, f"d loss / d {name}: no gradient")
-        g = leaf.grad[avatar.alive]
+        g = leaf.grad
         check(bool(torch.isfinite(g).all()),
               f"d loss / d {name}: {int((~torch.isfinite(g)).sum())} "
               f"non-finite values")
@@ -1098,7 +1245,7 @@ def guidance_phase(dev, guidance, embeddings, assets) -> dict:
         print(f"  VAE encode of {GUIDANCE_BATCH} x 512^2, {fmt}: forward "
               f"{fwd_ms:.3f} ms, forward + backward "
               f"{cuda_ms(encode_backward, reps=3):.3f} ms")
-    return counts
+    return counts, batch_row
 
 
 def sample_phase(dev, guidance, embeddings):
@@ -1287,11 +1434,23 @@ def run(dev, only=()) -> int:
     if want("guidance") or want("sample"):
         guidance, embeddings = build_prior(dev, tmp)
         if want("guidance"):
-            counts = guidance_phase(dev, guidance, embeddings, assets)
+            counts, batch = guidance_phase(dev, guidance, embeddings,
+                                           assets)
             for name in ("groupnorm_fwd_stats", "groupnorm_fwd_apply",
                          "attention_fwd"):
                 if name in rows:
                     rows[name]["launches"] = counts[name]
+            for name, key, err in (("rasterize_fwd", "k1", batch["k1_err"]),
+                                   ("rasterize_bwd", "k2",
+                                    batch["k2_err"][0])):
+                if name in rows:
+                    rows[name]["max_abs_err"] = max(
+                        rows[name]["max_abs_err"], err)
+                    rows[name]["ms_guidance_batch"] = batch[key + "_ms"]
+                    rows[name]["bound_ms_guidance_batch"] = batch[
+                        key + "_bound"]
+                    rows[name]["bound_ms_guidance_batch_visits"] = batch[
+                        key + "_bound_visits"]
         if want("sample"):
             sample_phase(dev, guidance, embeddings)
         unet = guidance.unet
@@ -1571,12 +1730,12 @@ def render_phases(dev, tmp, assets) -> dict:
     k1_ms = cuda_ms(lambda: composite(*kargs, black, tx, ty, cfg), reps=20)
     plain_ms = cuda_ms(lambda: composite_plain(*kargs, black, tx, ty, cfg),
                        reps=3)
-    bound_ms, bound_by, bytes_ms, alu_ms, sfu_ms = k1_bound(
-        kargs, (tx, ty), SIZE * SIZE, visits, contribs)
+    k1_visits_bound = k1_bound(kargs, (tx, ty), SIZE * SIZE, visits,
+                               contribs)
+    k1_needed, k2_avatar_needed = needed_bounds(kargs, (tx, ty), avatar_fwd,
+                                                contribs)
     print(f"  K1 {SIZE}^2 avatar view: {k1_ms:.4f} ms (plain {plain_ms:.3f} "
-          f"ms), {n_pairs} pairs, bound {bound_ms:.5f} ms by {bound_by} "
-          f"(bytes {bytes_ms:.5f} ms, instructions {alu_ms:.5f} ms, "
-          f"exp on the SFU {sfu_ms:.5f} ms)")
+          f"ms), {n_pairs} pairs, {bound_text(k1_needed, k1_visits_bound)}")
     k2_avatar_ms = cuda_ms(
         lambda: composite_backward(*kargs, black, avatar_fwd, avatar_cot, tx,
                                    ty, cfg), reps=20)
@@ -1584,9 +1743,9 @@ def render_phases(dev, tmp, assets) -> dict:
         lambda: composite_backward_plain(*kargs, black, avatar_fwd,
                                          avatar_cot, tx, ty, cfg), reps=3)
     print(f"  K2 {SIZE}^2 avatar view: {k2_avatar_ms:.4f} ms (plain "
-          f"{k2_avatar_plain_ms:.3f} ms), bound {avatar_k2_bound[0]:.5f} ms "
-          f"by {avatar_k2_bound[1]} (bytes {avatar_k2_bound[2]:.5f} ms, "
-          f"operations {avatar_k2_bound[3]:.5f} ms)")
+          f"{k2_avatar_plain_ms:.3f} ms), "
+          f"{bound_text(k2_avatar_needed, avatar_k2_bound)}")
+    print(f"  avatar view: {work_line(raster_work(kargs, (tx, ty), cfg, avatar_fwd))}")
 
     # the trainer as the launcher builds it, on the first training view
     cfg_train = load_config(os.path.join(repo, "configs", "photo.yaml"),
@@ -1620,20 +1779,22 @@ def render_phases(dev, tmp, assets) -> dict:
         reps=20)
     k1_train_bound = k1_bound(targs, (ttx, tty), SIZE * SIZE, t_visits,
                               t_contribs)
+    k1_train_needed, k2_needed = needed_bounds(targs, (ttx, tty), tfwd,
+                                               t_contribs)
     k2_ms = cuda_ms(
         lambda: composite_backward(*targs, black, tfwd, tcot, ttx, tty,
                                    trainer.raster_cfg), reps=20)
     k2_plain_ms = cuda_ms(
         lambda: composite_backward_plain(*targs, black, tfwd, tcot, ttx, tty,
                                          trainer.raster_cfg), reps=3)
-    k2_bound_ms, k2_bound_by, k2_bytes_ms, k2_ops_ms, k2_visits = k2_bound(
-        targs, (ttx, tty), tfwd, t_contribs)
-    print(f"  K1 first training view: {k1_train_ms:.4f} ms, bound "
-          f"{k1_train_bound[0]:.5f} ms by {k1_train_bound[1]}")
+    k2_visits_bound = k2_bound(targs, (ttx, tty), tfwd, t_contribs)
+    print(f"  K1 first training view: {k1_train_ms:.4f} ms, "
+          f"{bound_text(k1_train_needed, k1_train_bound)}")
     print(f"  K2 first training view: {k2_ms:.4f} ms (plain "
-          f"{k2_plain_ms:.3f} ms), replays {k2_visits} visits, bound "
-          f"{k2_bound_ms:.5f} ms by {k2_bound_by} (bytes {k2_bytes_ms:.5f} "
-          f"ms, operations {k2_ops_ms:.5f} ms)")
+          f"{k2_plain_ms:.3f} ms), replays {k2_visits_bound[4]} visits, "
+          f"{bound_text(k2_needed, k2_visits_bound)}")
+    print(f"  first training view: "
+          f"{work_line(raster_work(targs, (ttx, tty), trainer.raster_cfg, tfwd))}")
     del tfwd, tplain, tcot
 
     def staged_step():
@@ -1761,8 +1922,9 @@ def render_phases(dev, tmp, assets) -> dict:
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
+            "bound_ms": k1_needed[0],
+            "bound_by": k1_needed[1],
+            "bound_ms_visits": k1_visits_bound[0],
             "library_ms": None,
             "ms_first_training_view": k1_train_ms,
         },
@@ -1776,8 +1938,9 @@ def render_phases(dev, tmp, assets) -> dict:
             "max_err_over_max_grad": k2_err[1],
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
-            "bound_ms": k2_bound_ms,
-            "bound_by": k2_bound_by,
+            "bound_ms": k2_needed[0],
+            "bound_by": k2_needed[1],
+            "bound_ms_visits": k2_visits_bound[0],
             "library_ms": None,
             "ms_avatar_view": k2_avatar_ms,
         },

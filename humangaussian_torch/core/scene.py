@@ -28,9 +28,19 @@ def inverse_sigmoid(x):
     return torch.log(x / (1.0 - x))
 
 
+def quat_norm(q: torch.Tensor) -> torch.Tensor:
+    """|q| over the last axis, keepdim, equal to `torch.linalg.norm` on
+    every row but with a gradient of 0 where the norm is 0 (the zero
+    quaternions of the PLY loader's padded slots), where that of the plain
+    norm is NaN."""
+    zero = torch.linalg.norm(q.detach(), dim=-1, keepdim=True) == 0.0
+    n = torch.linalg.norm(torch.where(zero, 1.0, q), dim=-1, keepdim=True)
+    return torch.where(zero, 0.0, n)
+
+
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """Quaternion (w,x,y,z) [..,4] -> rotation matrix [..,3,3] (normalizes)."""
-    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-12)
+    q = q / (quat_norm(q) + 1e-12)
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     return torch.stack(
         [
@@ -90,9 +100,7 @@ class GaussianScene(NamedTuple):
 
     @property
     def rotations(self) -> torch.Tensor:
-        return self.quats / (
-            torch.linalg.norm(self.quats, dim=-1, keepdim=True) + 1e-12
-        )
+        return self.quats / (quat_norm(self.quats) + 1e-12)
 
     @property
     def opacities(self) -> torch.Tensor:

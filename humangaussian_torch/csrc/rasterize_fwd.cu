@@ -1,10 +1,9 @@
 // K1: tiled front-to-back alpha compositing of 3D Gaussian splats (forward).
 //
 // Replaces humangaussian_tpu/ops/rasterize_tiled.py::_fwd_kernel (launched
-// by _fwd_call), in the form of the upstream CUDA renderCUDA loop: one
-// block per (camera, 32x32 pixel tile) over the whole camera batch in one
-// launch; each block walks its tile's depth-sorted pair segment front to
-// back. The plain PyTorch version is
+// by _fwd_call), in the form of the upstream CUDA renderCUDA loop over each
+// tile's depth-sorted pair segment, for the whole camera batch in one
+// launch. The plain PyTorch version is
 // humangaussian_torch/ops/rasterize_tiled.py::composite_plain.
 //
 // Semantics per pixel (CUDA done-latch; the JAX log-transmittance form is
@@ -20,41 +19,48 @@
 // past the segment-local index of the last contributing pair; the
 // backward kernel replays up to it).
 //
-// What bounds it on Hopper: fp32 ALU work per pair-pixel (about 20 flops
-// plus one exp for every pair a pixel visits) and the pair bytes read from
-// device memory (a 4-byte pair index plus a 40-byte feature row). The design
-// answers both: the block's threads stage a batch of pairs (index gather
-// and feature rows) in shared memory once, and every thread reuses each
-// staged pair from there; the block stops at the first batch boundary
-// where every pixel of the tile is saturated (__syncthreads_count), so
-// deep pairs behind an opaque surface cost no ALU work and are never read.
+// What bounds it on Hopper: the fp32 instruction rate (about 16 issued
+// instructions and one exp for every pair a pixel visits, 9 more when the
+// pair contributes), provided the work reaches every SM and the dependent
+// chain of each visit is hidden by other warps.
 //
-// Thread layout: 1024 threads, one pixel each. On an avatar view only a
-// few dozen of the 1024 tiles hold pairs, fewer than the card's 132 SMs,
-// so the launch takes as long as the longest tile's walk down its
-// segment, and that walk is latency-bound: each pair is a chain of
-// dependent ops ending in an exp. 32 warps per busy tile hide that
-// latency better than 8 warps of 4 pixels each (chip_smoke.py measured
-// the 256 x 4 layout slower on the same view; PERF.md). A tile on the
-// silhouette never saturates all its pixels and walks its whole segment;
-// the early stop pays off only inside the body.
+// The design before this one served a 32x32 binning tile with one block of
+// 1024 threads. On a 1024^2 avatar view only about 70 of the 1024 tiles
+// hold pairs, fewer than the 132 SMs, so a launch lasted as long as the
+// longest tile's serial walk down its segment (up to 4096 pairs); a tile
+// on the silhouette never saturates and walks all of it. It measured 1.2446
+// ms per avatar view, 30x a bound that counts every pair-pixel visit
+// (chip_smoke.py, PERF.md).
+//
+// Design (rasterize_subtile.cuh): sixteen blocks of 8x8 pixels per tile,
+// 64 threads of one pixel. Each block drops, per staged round, the pairs
+// that cannot pass the alpha gate at any pixel of its sub-tile (binning's
+// exact box bound over the sub-tile) and walks only the survivors, still
+// in depth order and with their segment-local indices, so every output is
+// what a walk of the whole segment writes. A busy tile becomes sixteen
+// blocks (several per SM on an avatar view), a splat of a few pixels is
+// walked by the few sub-tiles it touches instead of all 1024 pixels of
+// its tile, and the whole-block early stop acts per sub-tile, so interior
+// sub-tiles stop sooner. The next round's rows are gathered with cp.async
+// while the threads walk the current one. On the card 8x8 blocks were
+// faster than 16x16 ones at the avatar view and the guidance batch and
+// tied at the training view, and rounds of 64 pairs beat rounds of 128 on
+// the guidance batch (variants timed in turns on one card while the
+// kernel was built): the finer skip removes more visits than the extra
+// staging costs, and the smaller buffers keep more blocks resident.
 //
 // The power term is evaluated with explicit round-to-nearest intrinsics
 // (no FMA contraction) in the order the plain version uses, so the kernel
 // and its plain version gate the same pairs; exp is the accurate expf.
 #include <cuda_runtime.h>
 
+#include "rasterize_subtile.cuh"
+
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kThreads = kTile * kTile;  // one pixel per thread
-constexpr int kFeat = 10;
-constexpr int kBatch = kThreads;  // pairs staged per round
+using namespace hg_subtile;
 
-// per-Gaussian feature row, as ops/rasterize_tiled.py::feature_matrix
-enum { FX, FY, FCA, FCB, FCC, FR, FG, FB, FOPA, FDEPTH };
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
 rasterize_fwd_kernel(const float* __restrict__ feats,
                      const int* __restrict__ gids,
                      const int* __restrict__ starts,
@@ -66,68 +72,81 @@ rasterize_fwd_kernel(const float* __restrict__ feats,
                      float* __restrict__ alpha_out,
                      float* __restrict__ final_t,
                      int* __restrict__ n_contrib) {
-  __shared__ float s_feat[kBatch * kFeat];
+  __shared__ __align__(16) float s_raw[kBatch * kRow];
+  __shared__ __align__(16) float s_walk[kBatch * kRow];
+  __shared__ int s_wn[kWarps];
 
-  const int block = blockIdx.x;  // camera * tiles + tile
-  const int tiles = tiles_x * tiles_y;
-  const int cam = block / tiles;
-  const int t = block - cam * tiles;
-  const int width = tiles_x * kTile;
-  const int height = tiles_y * kTile;
+  const Block blk = locate(tiles_x, tiles_y);
   const int tid = threadIdx.x;
-  const int col = (t % tiles_x) * kTile + tid % kTile;
-  const int row = (t / tiles_x) * kTile + tid / kTile;
+  const int col = blk.x0 + tid % kSub;
+  const int row = blk.y0 + tid / kSub;
   const float px = (float)col;
   const float py = (float)row;
+  const float x0 = (float)blk.x0;
+  const float y0 = (float)blk.y0;
+  const float gate = alpha_min * (1.0f - kSkipMargin);
 
   float T = 1.0f;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
   int last = 0;
   bool done = false;
 
-  const int start = starts[block];
-  const int count = counts[block];
+  const int count = counts[blk.tile_block];
+  if (count > 0) {  // block-uniform
+    Stager st{feats, gids + starts[blk.tile_block], count, 0};
+    auto nothing = [](int) {};
+    st.load_gid(0, tid);
+    st.issue(s_raw, 0, tid);
+    st.load_gid(kBatch, tid);
+    cp_async_wait_all();
+    int n = compact(s_raw, s_walk, s_wn, 0, count, x0, y0, gate, tid,
+                    nothing);
+    for (int base = 0;; base += kBatch) {
+      const int next = base + kBatch;
+      st.issue(s_raw, next, tid);  // in flight during the walk
+      st.load_gid(next + kBatch, tid);
 
-  for (int base = 0; base < count; base += kBatch) {
-    // whole-tile early stop; the barrier also keeps the previous batch's
-    // readers ahead of this batch's writers
-    if (__syncthreads_count(done) == kThreads) break;
-    const int n = min(kBatch, count - base);
-    if (tid < n) {
-      const float* f = feats + (size_t)gids[start + base + tid] * kFeat;
-      float* s = s_feat + tid * kFeat;
-#pragma unroll
-      for (int j = 0; j < kFeat; ++j) s[j] = f[j];
-    }
-    __syncthreads();
-
-    for (int k = 0; k < n && !done; ++k) {
-      const float* f = s_feat + k * kFeat;
-      const float dx = __fsub_rn(f[FX], px);
-      const float dy = __fsub_rn(f[FY], py);
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(f[FCA], dx), dx),
-                                   __fmul_rn(__fmul_rn(f[FCC], dy), dy));
-      const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                    __fmul_rn(__fmul_rn(f[FCB], dx), dy));
-      if (power > 0.0f) continue;
-      const float a = fminf(__fmul_rn(f[FOPA], expf(power)), alpha_max);
-      if (a < alpha_min) continue;
-      const float test_t = __fmul_rn(T, __fsub_rn(1.0f, a));
-      if (test_t < t_eps) {
-        done = true;
-        continue;
+      for (int k = 0; k < n && !done; ++k) {
+        const float* f = s_walk + k * kRow;
+        const float4 a = reinterpret_cast<const float4*>(f)[0];
+        const float4 b = reinterpret_cast<const float4*>(f)[1];
+        const float2 c = reinterpret_cast<const float2*>(f)[4];
+        // a = x y ca cb, b = cc r g b, c = opa depth
+        const float dx = __fsub_rn(a.x, px);
+        const float dy = __fsub_rn(a.y, py);
+        const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a.z, dx), dx),
+                                     __fmul_rn(__fmul_rn(b.x, dy), dy));
+        const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
+                                      __fmul_rn(__fmul_rn(a.w, dx), dy));
+        if (power > 0.0f) continue;
+        const float al = fminf(__fmul_rn(c.x, expf(power)), alpha_max);
+        if (al < alpha_min) continue;
+        const float test_t = __fmul_rn(T, __fsub_rn(1.0f, al));
+        if (test_t < t_eps) {
+          done = true;
+          continue;
+        }
+        const float w = __fmul_rn(al, T);
+        acc_r += b.y * w;
+        acc_g += b.z * w;
+        acc_b += b.w * w;
+        acc_d += c.y * w;
+        T = test_t;
+        last = __float_as_int(f[FIDX]) + 1;
       }
-      const float w = __fmul_rn(a, T);
-      acc_r += f[FR] * w;
-      acc_g += f[FG] * w;
-      acc_b += f[FB] * w;
-      acc_d += f[FDEPTH] * w;
-      T = test_t;
-      last = base + k + 1;
+
+      cp_async_wait_all();
+      // whole-sub-tile early stop; the barrier also keeps this round's
+      // readers of s_walk ahead of the next round's writers
+      if (__syncthreads_count(done) == kThreads || next >= count) break;
+      n = compact(s_raw, s_walk, s_wn, next, count, x0, y0, gate, tid,
+                  nothing);
     }
   }
 
-  const size_t pix = ((size_t)cam * height + row) * width + col;
+  const int width = tiles_x * kTile;
+  const int height = tiles_y * kTile;
+  const size_t pix = ((size_t)blk.cam * height + row) * width + col;
   image[pix * 3 + 0] = acc_r + T * background[0];
   image[pix * 3 + 1] = acc_g + T * background[1];
   image[pix * 3 + 2] = acc_b + T * background[2];
@@ -139,9 +158,11 @@ rasterize_fwd_kernel(const float* __restrict__ feats,
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Pointers are device pointers;
-// `num_blocks` = cameras x tiles_x x tiles_y. Launches on `stream`, does
-// not synchronize, and returns cudaGetLastError() (0 = launched).
+// Plain C entry point (loaded with ctypes). Pointers are device pointers,
+// `feats` 8-byte aligned; `num_blocks` = cameras x tiles_x x tiles_y
+// segments (the launch runs kSubs blocks per segment). Launches on
+// `stream`, does not synchronize, and returns cudaGetLastError() (0 =
+// launched).
 extern "C" int hg_rasterize_fwd(const void* feats, const void* gids,
                                 const void* starts, const void* counts,
                                 const void* background, int num_blocks,
@@ -150,7 +171,7 @@ extern "C" int hg_rasterize_fwd(const void* feats, const void* gids,
                                 void* depth, void* alpha, void* final_t,
                                 void* n_contrib, void* stream) {
   if (num_blocks > 0) {
-    rasterize_fwd_kernel<<<num_blocks, kThreads, 0,
+    rasterize_fwd_kernel<<<num_blocks * kSubs, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(feats), static_cast<const int*>(gids),
         static_cast<const int*>(starts), static_cast<const int*>(counts),

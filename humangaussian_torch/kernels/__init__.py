@@ -3,8 +3,9 @@
 Each kernel is one plain C entry point of a `.cu` file under
 `humangaussian_torch/csrc/` (a source may hold several). At first use the
 source is compiled by `nvcc` for `sm_90a` into a shared library under
-`<repo>/build/kernels/` (named by the source and a hash of it and the flags,
-so an edited source rebuilds) and loaded with ctypes. Building or loading
+`<repo>/build/kernels/` (named by the source and a hash of it, the `.cuh`
+headers beside it and the flags, so an edited source or header rebuilds)
+and loaded with ctypes. Building or loading
 raises on failure; nothing falls back to a plain version.
 
 Every `Kernel` keeps `launches`, a plain integer that its `launch` adds one
@@ -59,6 +60,8 @@ class Kernel:
 
     def library_path(self) -> Path:
         digest = hashlib.sha1(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            digest.update(header.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source.stem}-{digest.hexdigest()[:12]}.so"
 

@@ -110,7 +110,12 @@ def project_gaussians(
 
     # quat -> rotation entries as [N] columns (w-x-y-z, normalized)
     q0, q1, q2, q3 = quats[:, 0], quats[:, 1], quats[:, 2], quats[:, 3]
-    qnrm = torch.sqrt(q0 * q0 + q1 * q1 + q2 * q2 + q3 * q3) + 1e-12
+    # the norm's gradient is 0 where q = 0 (the PLY loader's padded slots),
+    # not NaN; its value is unchanged on every row
+    qsq = q0 * q0 + q1 * q1 + q2 * q2 + q3 * q3
+    zero = qsq == 0.0
+    qnrm = torch.where(zero, 0.0, torch.sqrt(torch.where(zero, 1.0, qsq))) \
+        + 1e-12
     qw, qx, qy, qz = q0 / qnrm, q1 / qnrm, q2 / qnrm, q3 / qnrm
     r00 = 1 - 2 * (qy * qy + qz * qz)
     r01 = 2 * (qx * qy - qw * qz)

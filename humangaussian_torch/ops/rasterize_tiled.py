@@ -9,6 +9,10 @@ batched form).
 Compositing is kernel K1, `humangaussian_torch/csrc/rasterize_fwd.cu`, the
 Hopper port of the JAX `_fwd_kernel`; its backward is kernel K2,
 `humangaussian_torch/csrc/rasterize_bwd.cu`, the port of `_bwd_kernel`.
+Both serve each 32x32 tile with SUBTILE x SUBTILE blocks that skip the
+pairs which cannot pass the alpha gate anywhere in their sub-tile
+(`csrc/rasterize_subtile.cuh`; `subtile_pair_mask` is the rule in plain
+torch); every output is what a walk of the whole segment gives.
 `composite` ties the two together in a `torch.autograd.Function` (the
 counterpart of the JAX `_render_core` custom_vjp): it returns the gradient
 of the per-Gaussian feature rows only, and projection, SH, the
@@ -36,7 +40,7 @@ import torch
 
 from humangaussian_torch.core.camera import Camera
 from humangaussian_torch.kernels import RASTERIZE_BWD, RASTERIZE_FWD
-from humangaussian_torch.ops.binning import build_pair_lists
+from humangaussian_torch.ops.binning import build_pair_lists, tile_alpha_bound
 from humangaussian_torch.ops.projection import (
     ProjectedGaussians,
     RasterizeConfig,
@@ -47,6 +51,8 @@ from humangaussian_torch.ops.projection import (
 FX, FY, FCA, FCB, FCC, FR, FG, FB, FOPA, FDEPTH = range(10)
 NUM_FEATURES = 10
 KERNEL_TILE = 32  # the tile edge K1 is compiled for
+SUBTILE = 8  # edge of the sub-tile one block of K1 / K2 serves
+SKIP_MARGIN = 1e-3  # binning's cull margin, reused by the sub-tile skip
 PLAIN_CHUNK = 32  # pairs per step of composite_plain ([tiles, pix, 32] temps)
 
 
@@ -131,6 +137,9 @@ def _check_kernel_device(feats, cfg):
                          f"got {cfg.tile}")
     if feats.device.type != "cuda":
         raise ValueError(f"no compositing kernel for device {feats.device}")
+    if feats.data_ptr() % 8:
+        raise ValueError("feats must be 8-byte aligned (the kernels copy "
+                         "feature rows 8 bytes at a time)")
 
 
 def composite_backward(feats, gids, starts, counts, background, saved,
@@ -455,6 +464,53 @@ def composite_backward_plain(feats, gids, starts, counts, background, saved,
         prefix = p_incl[..., -1]
         log_t_u = log_t_u + cum[..., -1]
     return dfeats
+
+
+def counted_pairs(starts, counts):
+    """(segment, segment-local index, position in `gids`) of every pair
+    below its segment's count, int64 [Pc] each, in segment order."""
+    counts64 = counts.to(torch.int64)
+    seg = torch.repeat_interleave(
+        torch.arange(counts64.shape[0], device=counts.device), counts64)
+    local = (torch.arange(seg.shape[0], device=counts.device)
+             - (torch.cumsum(counts64, 0) - counts64)[seg])
+    return seg, local, starts.to(torch.int64)[seg] + local
+
+
+def subtile_pair_mask(feats, gids, starts, counts, tiles_x: int,
+                      tiles_y: int, cfg: RasterizeConfig = RasterizeConfig()
+                      ) -> torch.Tensor:
+    """K1 / K2's sub-tile skip rule in plain torch: [P, (tile / SUBTILE)^2]
+    bool, True where the sub-tile's block walks pair p of `gids`.
+
+    Each tile is served by (tile / SUBTILE)^2 blocks of SUBTILE^2 pixels,
+    numbered row-major inside the tile. A block skips a pair of its tile's
+    segment whose best-case alpha over the sub-tile's pixel-centre box,
+    opa exp(-qmin / 2) with qmin from binning's exact `tile_alpha_bound`,
+    is below alpha_min (1 - SKIP_MARGIN), binning's own cull margin: such a
+    pair fails the alpha gate at every pixel of the sub-tile, so skipping
+    it changes no output. A pair whose conic is not positive definite is
+    always walked (the box bound assumes a convex quadratic). Pairs at or
+    past their tile's count are False in every column."""
+    per_edge = cfg.tile // SUBTILE
+    n_sub = per_edge * per_edge
+    dev = feats.device
+    tile_of, _, pos = counted_pairs(starts, counts)
+    f = feats[gids[pos].to(torch.int64)][:, None, :]  # [Pc, 1, 10]
+    t_local = tile_of % (tiles_x * tiles_y)
+    s = torch.arange(n_sub, device=dev)
+    sx = ((t_local % tiles_x)[:, None] * per_edge + s % per_edge)
+    sy = ((t_local // tiles_x)[:, None] * per_edge + s // per_edge)
+    ca, cb, cc = f[..., FCA], f[..., FCB], f[..., FCC]
+    qmin = tile_alpha_bound(f[..., FX], f[..., FY], ca, cb, cc,
+                            sx.to(torch.float32), sy.to(torch.float32),
+                            SUBTILE)
+    bound = f[..., FOPA] * torch.exp(-0.5 * qmin)
+    convex = (ca > 0.0) & (cc > 0.0) & (ca * cc > cb * cb)
+    walked = ~convex | (bound >= cfg.alpha_min * (1.0 - SKIP_MARGIN))
+    mask = torch.zeros((gids.shape[0], n_sub), dtype=torch.bool, device=dev)
+    mask[pos] = walked
+    return mask
 
 
 def composite_inputs(means, scales, quats, features, opacities, alive, cams,

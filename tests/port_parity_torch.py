@@ -79,3 +79,38 @@ def tiny_port_guidance(seed=0, **guidance_cfg):
         vae.AutoencoderKL(vae.tiny_vae_config()),
         DiffusionSchedule.create(device="cpu"),
         dual_branch.GuidanceConfig(**cfg))
+
+
+def projected_composite_args(device="cpu", seed=0, n=600, hw=(96, 64),
+                             cams=2, max_tiles=4, spread=0.5):
+    """composite's (feats, gids, starts, counts, background, tiles_x,
+    tiles_y) and the RasterizeConfig, built by projection and binning from
+    a seeded random scene seen by `cams` look-at cameras around it with a
+    rect of `max_tiles` tiles."""
+    from humangaussian_torch.core.camera import camera_from_c2w, look_at_c2w
+    from humangaussian_torch.ops.projection import RasterizeConfig
+    from humangaussian_torch.ops.rasterize_tiled import composite_inputs
+
+    rng = np.random.RandomState(seed)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    means = t(rng.randn(n, 3) * spread)
+    scales = t(np.exp(rng.randn(n, 3) * 0.5 - 3.0))
+    quats = t(rng.randn(n, 4))
+    sh = t(rng.randn(n, 1, 3) * 0.3)
+    opa = t(1.0 / (1.0 + np.exp(-rng.randn(n))))
+    alive = torch.ones(n, dtype=torch.bool, device=device)
+    angles = np.linspace(0.0, 2.0 * np.pi, cams, endpoint=False)
+    c2w = torch.stack([
+        look_at_c2w(t([3.0 * np.sin(a), 0.4, 3.0 * np.cos(a)]),
+                    t([0.0, 0.0, 0.0]), t([0.0, 1.0, 0.0]))
+        for a in angles])
+    cameras = camera_from_c2w(c2w, t([0.8] * cams), hw[0], hw[1])
+    cfg = RasterizeConfig(max_tiles_per_gaussian=max_tiles)
+    with torch.no_grad():
+        _, _, args, (tx, ty) = composite_inputs(
+            means, scales, quats, sh, opa, alive,
+            [cameras[i] for i in range(cams)], 0, cfg)
+    return (*args, t([0.2, 0.3, 0.4]), tx, ty), cfg

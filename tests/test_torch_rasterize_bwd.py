@@ -278,3 +278,56 @@ def test_pairs_past_the_latch_and_the_cap_get_zero():
     assert int(out["n_contrib"].max()) == 4
     np.testing.assert_array_equal(g[4:].numpy(), 0.0)
     assert bool((g[:4].abs().amax(dim=1) > 0).all())
+
+
+def test_padded_ply_scene_has_finite_gradients_on_every_row(tmp_path):
+    """A scene loaded through `io/ply.load_ply` is padded to its capacity
+    with zero quaternions; rendering a batch and backpropagating gives
+    finite gradients on every row (0 on the dead ones), and the alive rows'
+    gradients match those of the unpadded scene."""
+    from humangaussian_torch.core.camera import camera_from_c2w, look_at_c2w
+    from humangaussian_torch.core.scene import GaussianScene
+    from humangaussian_torch.io.ply import load_ply, save_ply
+    from humangaussian_torch.render import render_batch
+
+    means, log_scales, quats, feats, opa_logits, _ = make_scene(
+        n=300, n_dead=0, seed=21)
+    scene = GaussianScene(
+        means=torch.from_numpy(means), log_scales=torch.from_numpy(log_scales),
+        quats=torch.from_numpy(quats), sh_dc=torch.from_numpy(feats[:, 0]),
+        sh_rest=torch.zeros((300, 0, 3)),
+        opacity_logits=torch.from_numpy(opa_logits[:, None]),
+        alive=torch.ones(300, dtype=torch.bool))
+    path = str(tmp_path / "scene.ply")
+    save_ply(scene, path)
+    padded = load_ply(path, device="cpu")
+    assert padded.capacity == 512 and padded.num_alive == 300
+    assert float(padded.quats[300:].abs().max()) == 0.0
+    eyes = ([0.3, 0.2, 3.0], [-2.0, 0.5, 2.0])
+    c2w = torch.stack([look_at_c2w(torch.tensor(e), torch.zeros(3),
+                                   torch.tensor([0.0, 1.0, 0.0]))
+                       for e in eyes])
+    cams = camera_from_c2w(c2w, torch.tensor([0.8, 0.8]), 64, 64)
+    cot = [torch.from_numpy(c) for c in _cotangents((64, 64), 22, 2)]
+
+    def grads(sc):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in sc.params().items()}
+        out = render_batch(sc.replace_params(leaves), cams,
+                           torch.from_numpy(BG), cfg=TCfg(
+                               max_tiles_per_gaussian=4))
+        _scalar(out, cot).backward()
+        return {k: v.grad for k, v in leaves.items()}
+
+    got = grads(padded)
+    for key, g in got.items():
+        assert bool(torch.isfinite(g).all()), key
+        if g.numel():
+            assert float(g[300:].abs().max()) == 0.0, key
+    want = grads(load_ply(path, capacity=300, device="cpu"))
+    for key in ("means", "log_scales", "quats", "sh_dc", "opacity_logits"):
+        scale = float(want[key].abs().max())
+        assert scale > 0, key
+        np.testing.assert_allclose(got[key][:300].numpy() / scale,
+                                   want[key].numpy() / scale, atol=1e-6,
+                                   err_msg=key)
