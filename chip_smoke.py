@@ -57,17 +57,22 @@ source, started together), writes the assets, then:
 8. profiles 4 animated frames, 2 orbit batches and 4 training steps with
    torch.profiler;
 9. holds K3 and K5 (csrc/groupnorm_stats.cu) against their plain versions
-   and against float64 sums at a small float32 shape and at the main
-   path's extremes ([24, 4096, 320], [24, 4096, 960], [24, 64, 2560],
-   bfloat16): every sum within 1e-5 of the f64 sum of magnitudes of its
-   (sample, channel); K3a (csrc/groupnorm_apply.cu) against
-   `group_norm_apply_plain` on the same sums, and the fused forward of
-   `group_norm_act` (K3 + K3a) against the plain op
-   (`group_norm_stats_plain` + `group_norm_apply_plain`): in bfloat16
-   within one ulp on all but 1e-4 of the outputs, in float32 within 1e-5
-   of max |y|; times, bounds (bytes over 3.35 TB/s: the op reads x twice
-   and writes y once) and, as the library yardstick, `F.group_norm` +
-   `F.silu` and its autograd backward;
+   and against float64 sums at a small float32 shape, at the UNet's
+   extremes ([24, 4096, 320], [24, 4096, 960], [24, 64, 2560]) and at the
+   VAE encoder's shapes at batch 8 and 512^2 ([8, 262144, 128], [8, 65536,
+   128], [8, 65536, 256], [8, 16384, 256], [8, 16384, 512], [8, 4096,
+   512]), bfloat16: every sum within 1e-5 of the f64 sum of magnitudes of
+   its (sample, channel); K3a (csrc/groupnorm_apply.cu) against
+   `group_norm_apply_plain` and K5a (csrc/groupnorm_bwd_dx.cu) against
+   `group_norm_bwd_dx_plain` on the same sums, and the fused op
+   `group_norm_act` (forward K3 + K3a, backward K5 + K5a) against the
+   plain op (the plain versions): in bfloat16 within one ulp on all but
+   1e-4 of the outputs, in float32 within 1e-5 of the largest output;
+   times, bounds (bytes over 3.35 TB/s: the op's forward reads x twice and
+   writes y once, its backward reads x and dz twice and writes dx once)
+   and, as the library yardstick, `F.group_norm` + `F.silu` and its
+   autograd backward (on the same channels_last tensors, and the backward
+   also on contiguous channels-first copies);
 10. holds K4 (csrc/attention_fwd.cu) against its plain version at the
    UNet's self-attention shapes ((120, 4096, 64), (240, 1024, 64),
    (480, 256, 64) as (batch x heads, tokens, head dim), bfloat16) and at
@@ -93,23 +98,30 @@ source, started together), writes the assets, then:
    Gaussian parameters (K2): loss and gradients finite on every row (the
    dead slots the PLY loader pads with included), image gradients
    non-zero, the loss equal to the norms of `grad`; one step launches K1
-   and K2 once, K3 and K3a 77 times each and K4 20 times (one UNet
-   forward: 54 resnet norms, 21 transformer norms, 2 heads; 10
-   self-attention sites at 4096 tokens, 5 at 1024, 5 at 256). Times 3 steps end to end and staged
-   (render, encodes, UNet, loss + backward), prints peak memory and one
-   profile, and times a VAE encode in both memory formats;
+   and K2 once, K4 20 times (10 self-attention sites at 4096 tokens, 5 at
+   1024, 5 at 256), and, counted from the module trees, K3 and K3a once
+   per norm of one UNet forward (77) and of five VAE encoder passes (rgb,
+   depth, pose, and the rgb and depth encoders recomputed in the backward
+   under `remat_encode`: 5 x 22), K5 and K5a once per norm of the two
+   differentiated encoders (2 x 22). Times 3 steps end to end and staged
+   (render, encodes, UNet, loss + backward) beside those of the VAE on
+   the library GroupNorm, prints
+   peak memory and one profile (the top kernels by name, and by the
+   operator and input shapes that launched them), and times a VAE encode
+   with channels_last and with contiguous weights;
 12. runs `sample_joint` at batch 2 for 4 DDIM steps: 512^2 images and
-   depths finite and in [0, 1], K3, K3a and K4 launched 4 x 77, 4 x 77 and
-   4 x 20 times;
+   depths finite and in [0, 1], K3 and K3a launched once per norm of 4
+   UNet forwards, one encode and two decodes, K4 4 x 20 times, K5 and K5a
+   never;
 13. differentiates the full-width UNet with respect to its input latents
-   (batch 2, 64^2, bfloat16): K3a and K5 launch once per K3 launch (77);
-   then a
-   float32 full-width UNet at 16^2 latents: the input gradient through K3 /
-   K5 within 1e-3 of max-|grad| of the gradient through their plain
-   versions;
-and prints the `kernels` JSON line (all six kernels, each with the launches
-of its own path: K1 and K2 phases 4 to 6, K3, K3a and K4 phase 11, K5
-phase 13; K1's and K2's rows also carry `ms_guidance_batch`,
+   (batch 2, 64^2, bfloat16): K3, K3a, K5 and K5a launch once per norm
+   (77); then a float32 full-width UNet at 16^2 latents and a float32
+   full-width VAE at 64^2 images: the input gradient through K3 / K3a /
+   K5 / K5a within 1e-3 of max-|grad| of the gradient through their
+   plain versions;
+and prints the `kernels` JSON line (all seven kernels, each with the
+launches of its own path: K1 and K2 phases 4 to 6, K3, K3a, K5, K5a and K4
+phase 11; K1's and K2's rows also carry `ms_guidance_batch`,
 `bound_ms_guidance_batch` and `bound_ms_guidance_batch_visits`, shape c)
 and, last, the device JSON line. `--only GROUP[,GROUP]` runs some phase
 groups alone and prints no result lines.
@@ -442,15 +454,17 @@ def write_blender_dataset(root, avatar, orbit, black, seed=0):
             json.dump({"camera_angle_x": fovy, "frames": frames}, f)
 
 
-def profile_device_time(label, fn, top=8):
+def profile_device_time(label, fn, top=8, by_shape=0):
     """Run fn under torch.profiler; print the device-busy share of the
-    wall time and the kernels that took the most device time."""
+    wall time and the kernels that took the most device time. With
+    `by_shape`, also the `by_shape` largest groups of (kernel, the operator
+    that launched it, that operator's input shapes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=by_shape > 0) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -471,6 +485,22 @@ def profile_device_time(label, fn, top=8):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  "
               f"{name[:90]}")
+    if not by_shape:
+        return
+    # each device kernel hangs off the innermost operator that launched it
+    groups = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        for k in e.kernels:
+            key = (k.name, e.name, str(e.input_shapes))
+            us, calls = groups.get(key, (0.0, 0))
+            groups[key] = (us + k.duration, calls + 1)
+    print(f"  {label}, by launching operator and input shapes:")
+    for (kname, op, shapes), (us, calls) in sorted(
+            groups.items(), key=lambda kv: -kv[1][0])[:by_shape]:
+        print(f"    {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}% x{calls:<4d} "
+              f"{op} {shapes[:110]}\n{'':22}{kname[:100]}")
 
 
 def random_scene(n, seed, device, spread=0.5):
@@ -577,7 +607,11 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate, H100 SXM data sheet
 # the main path's extremes for K3 / K3a / K5: [samples, rows, channels] at
 # batch 24 (3 x 8 latents): the first level's 64^2 rows at 320 and at the
 # widest concatenated input (960), and the 8^2 mid block's input at 2560
-GN_SHAPES = ((2, 37, 48), (24, 4096, 320), (24, 4096, 960), (24, 64, 2560))
+GN_SHAPES = ((2, 37, 48), (24, 4096, 320), (24, 4096, 960), (24, 64, 2560),
+             # the VAE encoder's norms at batch 8 and 512^2: 512^2 x 128,
+             # 256^2 x 128 and 256, 128^2 x 256 and 512, 64^2 x 512
+             (8, 262144, 128), (8, 65536, 128), (8, 65536, 256),
+             (8, 16384, 256), (8, 16384, 512), (8, 4096, 512))
 GN_MAIN = (24, 4096, 320)
 GN_GROUPS = {48: 8}  # 32 groups everywhere at full width
 GN_STATS_TOL = 1e-5  # of the f64 sum of magnitudes per (sample, channel)
@@ -591,9 +625,23 @@ ATTN_TOL = 2.0 ** -7  # K4 vs plain, of max |out|: one bf16 ulp of the peak
 UNET_PARAMS = 899_696_008 + 2 * 4 * 320 * 9
 GUIDANCE_BATCH = 8  # configs/avatar.yaml's camera batch
 GUIDANCE_T = (50, 150, 300, 450, 600, 750, 900, 980)  # both sides of 200
-NORMS_PER_UNET_FORWARD = 77  # 54 resnet norms, 21 transformer norms, 2 heads
 ATTN_PER_UNET_FORWARD = 20  # 10 sites at 4096 tokens, 5 at 1024, 5 at 256
 UNET_GRAD_TOL = 1e-3  # f32 UNet input gradient, kernels vs plain versions
+VAE_GRAD_TOL = 1e-3  # f32 VAE input gradient, kernels vs plain versions
+# this phase's numbers with the VAE on the library GroupNorm in contiguous
+# NCHW, the layout before its norms became GroupNormAct (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md §5)
+LIBRARY_NORM_VAE_MS = {"step": 576.291, "three encodes": 157.893,
+                       "encode forward": 51.908,
+                       "encode forward + backward": 100.117}
+
+
+def norms_in(module) -> int:
+    """GroupNormAct modules in a module tree: each launches K3 and K3a once
+    a forward, K5 and K5a once a backward."""
+    from humangaussian_torch.ops.groupnorm import GroupNormAct
+
+    return sum(isinstance(m, GroupNormAct) for m in module.modules())
 
 
 @contextlib.contextmanager
@@ -604,16 +652,19 @@ def plain_versions():
     from humangaussian_torch.ops import attention, groupnorm
 
     saved = (groupnorm.group_norm_stats, groupnorm.group_norm_apply,
-             groupnorm.group_norm_bwd_stats, attention._attention_forward)
+             groupnorm.group_norm_bwd_stats, groupnorm.group_norm_bwd_dx,
+             attention._attention_forward)
     groupnorm.group_norm_stats = groupnorm.group_norm_stats_plain
     groupnorm.group_norm_apply = groupnorm.group_norm_apply_plain
     groupnorm.group_norm_bwd_stats = groupnorm.group_norm_bwd_stats_plain
+    groupnorm.group_norm_bwd_dx = groupnorm.group_norm_bwd_dx_plain
     attention._attention_forward = attention.self_attention_plain
     try:
         yield
     finally:
         (groupnorm.group_norm_stats, groupnorm.group_norm_apply,
-         groupnorm.group_norm_bwd_stats, attention._attention_forward) = saved
+         groupnorm.group_norm_bwd_stats, groupnorm.group_norm_bwd_dx,
+         attention._attention_forward) = saved
 
 
 def bf16_ulp(x):
@@ -628,9 +679,91 @@ def sums_error(got, want64, scale64):
                   / scale64.clamp_min(1e-30)).max())
 
 
+def device_ms_per_call(fn, calls: int = 5) -> float:
+    """Device time per call of fn after a warm-up: the durations of the
+    kernels and memsets the profiler sees, summed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / calls / 1e3
+
+
+def backward_host_cost(dev, shape=(24, 64, 2560), calls=100):
+    """Host time per call (wall time of `calls` calls, then a sync) of one
+    backward through autograd at a shape the device finishes early: an
+    identity torch.autograd.Function, the op's, the library's, and the
+    op's backward called on the main thread."""
+    import torch.nn.functional as F
+
+    from humangaussian_torch.ops import groupnorm
+
+    class Identity(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g
+
+    class Ctx:
+        pass
+
+    n, rows, c = shape
+    g = torch.Generator(device="cpu").manual_seed(19)
+    x = torch.randn((n, rows, 1, c), generator=g).to(dev, torch.bfloat16)
+    dz = torch.randn((n, rows, 1, c), generator=g).to(dev, torch.bfloat16)
+    gamma, beta = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+    xg = x.requires_grad_(True)
+    y_op = groupnorm.group_norm_act(xg, gamma, beta, 32, 1e-5, True)
+    y_id = Identity.apply(xg)
+    xl = x.detach().permute(0, 3, 1, 2).requires_grad_(True)
+    y_lib = F.silu(F.group_norm(xl, 32, gamma.bfloat16(), beta.bfloat16(),
+                                1e-5))
+    ctx = Ctx()
+    x3 = x.detach().reshape(n, rows, c)
+    ctx.saved_tensors = (x3, gamma, beta, groupnorm.group_norm_stats(x3))
+    ctx.cfg = (32, 1e-5, True, x.shape)
+    ctx.needs_input_grad = (True, False, False)
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    items = (
+        ("identity Function", lambda: torch.autograd.grad(
+            y_id, xg, dz, retain_graph=True)),
+        ("group_norm_act", lambda: torch.autograd.grad(
+            y_op, xg, dz, retain_graph=True)),
+        ("F.group_norm + F.silu", lambda: torch.autograd.grad(
+            y_lib, xl, dz.permute(0, 3, 1, 2), retain_graph=True)),
+        ("group_norm_act's backward on the main thread",
+         lambda: groupnorm._GroupNormAct.backward(ctx, dz)),
+    )
+    print(f"  host time of one backward at {list(shape)} bfloat16 (wall "
+          f"over {calls} calls): " + ", ".join(
+              f"{name} {host_us(fn):.1f} us" for name, fn in items))
+
+
 def norm_phase(dev) -> dict:
-    """Phase 9: K3 and K5 against their plain versions and f64 sums, the
-    whole op against plain, times, bounds and the library yardstick."""
+    """Phase 9: K3 and K5 against their plain versions and f64 sums, K3a
+    and K5a against theirs, the whole op (forward and backward) against
+    the plain op, times, bounds and the library yardstick, at the UNet's
+    and the VAE's shapes."""
     import torch.nn.functional as F
 
     from humangaussian_torch import kernels
@@ -638,6 +771,8 @@ def norm_phase(dev) -> dict:
         group_norm_act,
         group_norm_apply,
         group_norm_apply_plain,
+        group_norm_bwd_dx,
+        group_norm_bwd_dx_plain,
         group_norm_bwd_stats,
         group_norm_bwd_stats_plain,
         group_norm_stats,
@@ -646,11 +781,12 @@ def norm_phase(dev) -> dict:
         rows_per_block,
     )
 
-    print("phase 9: K3, K3a and K5 (GroupNorm) vs plain")
+    print("phase 9: K3, K3a, K5 and K5a (GroupNorm) vs plain")
     g = torch.Generator(device="cpu").manual_seed(9)
     fwd = {"err": 0.0, "by_shape": {}}
     app = {"err": 0.0, "by_shape": {}}
     bwd = {"err": 0.0, "by_shape": {}}
+    bdx = {"err": 0.0, "by_shape": {}}
     for n, rows, c in GN_SHAPES:
         groups = GN_GROUPS.get(c, 32)
         dtype = torch.float32 if c == 48 else torch.bfloat16
@@ -678,31 +814,6 @@ def norm_phase(dev) -> dict:
         check(e_p <= GN_STATS_TOL, f"K3 plain {label}: {e_p}")
         fwd["err"] = max(fwd["err"], float((got - plain).abs().max()))
 
-        # K5 against plain and against f64 sums, with and without SiLU
-        mu_c, rstd_c = group_stats(plain, rows, groups, 1e-5)
-        for silu in (True, False):
-            got5 = group_norm_bwd_stats(x, dz, mu_c, rstd_c, gamma, beta, silu)
-            torch.cuda.synchronize()
-            plain5 = group_norm_bwd_stats_plain(x, dz, mu_c, rstd_c, gamma,
-                                                beta, silu)
-            xh = (x64 - mu_c.double()[:, None]) * rstd_c.double()[:, None]
-            dy = dz.double()
-            if silu:
-                y = xh * gamma.double() + beta.double()
-                sig = torch.sigmoid(y)
-                dy = dy * sig * (1 + y * (1 - sig))
-            want5 = torch.stack([dy.sum(1), (dy * xh).sum(1)], 1)
-            scale5 = torch.stack([dy.abs().sum(1), (dy * xh).abs().sum(1)], 1)
-            e_k = sums_error(got5, want5, scale5)
-            e_p = sums_error(plain5, want5, scale5)
-            print(f"  K5 {label} silu={silu}: kernel vs f64 {e_k:.3e}, plain "
-                  f"vs f64 {e_p:.3e}")
-            check(e_k <= GN_STATS_TOL, f"K5 {label}: {e_k} off the f64 sums")
-            check(e_p <= GN_STATS_TOL, f"K5 plain {label}: {e_p}")
-            bwd["err"] = max(bwd["err"], float((got5 - plain5).abs().max()))
-            del xh, dy, want5, scale5
-        del x64, want, scale
-
         def off_plain(got, want):
             """Share of outputs past the limit and the largest difference:
             one bfloat16 ulp, or 1e-5 of max |y| in float32."""
@@ -713,9 +824,57 @@ def norm_phase(dev) -> dict:
             rel = float(err.max()) / float(want.abs().max())
             return rel, rel <= GN_F32_TOL, float(err.max())
 
-        # K3a alone on the kernel's sums, and the whole fused forward (K3 +
-        # K3a) against the plain op (both plain versions)
+        limit = GN_BAD_FRACTION if dtype == torch.bfloat16 else GN_F32_TOL
+        how_name = ("share over one ulp" if dtype == torch.bfloat16
+                    else "of max |out|")
+
+        # K5 against plain and against f64 sums, K5a against plain on K5's
+        # sums, with and without SiLU
+        # the f64 reference normalizes with the plain group statistics
+        mu_c, rstd_c = group_stats(plain, rows, groups, 1e-5)
+        for silu in (True, False):
+            got5 = group_norm_bwd_stats(x, dz, plain, gamma, beta, groups,
+                                        1e-5, silu)
+            torch.cuda.synchronize()
+            plain5 = group_norm_bwd_stats_plain(x, dz, plain, gamma, beta,
+                                                groups, 1e-5, silu)
+            xh = (x64 - mu_c.double()[:, None]) * rstd_c.double()[:, None]
+            dy = dz.double()
+            if silu:
+                y = xh * gamma.double() + beta.double()
+                sig = torch.sigmoid(y)
+                dy = dy * sig * (1 + y * (1 - sig))
+                del y, sig
+            want5 = torch.stack([dy.sum(1), (dy * xh).sum(1)], 1)
+            scale5 = torch.stack([dy.abs().sum(1), (dy * xh).abs().sum(1)], 1)
+            del xh, dy
+            e_k = sums_error(got5, want5, scale5)
+            e_p = sums_error(plain5, want5, scale5)
+            print(f"  K5 {label} silu={silu}: kernel vs f64 {e_k:.3e}, plain "
+                  f"vs f64 {e_p:.3e}")
+            check(e_k <= GN_STATS_TOL, f"K5 {label}: {e_k} off the f64 sums")
+            check(e_p <= GN_STATS_TOL, f"K5 plain {label}: {e_p}")
+            bwd["err"] = max(bwd["err"], float((got5 - plain5).abs().max()))
+            del want5, scale5
+
+            dx_k = group_norm_bwd_dx(x, dz, plain, gamma, beta, got5, groups,
+                                     1e-5, silu)
+            torch.cuda.synchronize()
+            dx_p = group_norm_bwd_dx_plain(x, dz, plain, gamma, beta, got5,
+                                           groups, 1e-5, silu)
+            how, ok, worst = off_plain(dx_k, dx_p)
+            bdx["err"] = max(bdx["err"], worst)
+            print(f"  K5a {label} silu={silu}: {how_name} {how:.2e} (limit "
+                  f"{limit:g}), max difference {worst:.3e}")
+            check(ok and bool(torch.isfinite(dx_k).all()), f"K5a {label}")
+            del dx_k, dx_p
+        del x64, want, scale
+
+        # K3a alone on the kernel's sums, and the whole fused op (K3 + K3a
+        # forward, K5 + K5a backward) against the plain op (the plain
+        # versions)
         x4 = x.reshape(n, rows, 1, c)
+        dz4 = dz.reshape(n, rows, 1, c)
         for silu in (True, False):
             y_a = group_norm_apply(x, got, gamma, beta, groups, 1e-5, silu)
             torch.cuda.synchronize()
@@ -723,22 +882,28 @@ def norm_phase(dev) -> dict:
                                           silu)
             how, ok, worst = off_plain(y_a, y_ap)
             app["err"] = max(app["err"], worst)
-            print(f"  K3a {label} silu={silu}: "
-                  f"{'share over one ulp' if dtype == torch.bfloat16 else 'of max |y|'}"
-                  f" {how:.2e}, max difference {worst:.3e}")
+            print(f"  K3a {label} silu={silu}: {how_name} {how:.2e}, max "
+                  f"difference {worst:.3e}")
             check(ok and bool(torch.isfinite(y_a).all()), f"K3a {label}")
-            y_k = group_norm_act(x4, gamma, beta, groups, 1e-5, silu)
-            with plain_versions():
-                y_p = group_norm_act(x4, gamma, beta, groups, 1e-5, silu)
-            how, ok, worst = off_plain(y_k, y_p)
-            print(f"  group_norm_act {label} silu={silu} (K3 + K3a vs the "
-                  f"plain op): {how:.2e} (limit "
-                  f"{GN_BAD_FRACTION if dtype == torch.bfloat16 else GN_F32_TOL:g}),"
-                  f" max difference {worst:.3e}")
-            check(ok and bool(torch.isfinite(y_k).all()),
-                  f"group_norm_act {label}")
+            del y_a, y_ap
+            outs = []
+            for plain_op in (False, True):
+                with plain_versions() if plain_op else contextlib.nullcontext():
+                    xg = x4.detach().requires_grad_(True)
+                    y = group_norm_act(xg, gamma, beta, groups, 1e-5, silu)
+                    (dx,) = torch.autograd.grad(y, xg, dz4)
+                outs.append((y.detach(), dx))
+            for what, k, p_ in (("forward", outs[0][0], outs[1][0]),
+                                ("backward", outs[0][1], outs[1][1])):
+                how, ok, worst = off_plain(k, p_)
+                print(f"  group_norm_act {what} {label} silu={silu} (the "
+                      f"kernels vs the plain op): {how:.2e} (limit "
+                      f"{limit:g}), max difference {worst:.3e}")
+                check(ok and bool(torch.isfinite(k).all()),
+                      f"group_norm_act {what} {label}")
+            del outs, y, dx, xg
 
-        # times (each over runs of back-to-back calls): the three kernels,
+        # times (each over runs of back-to-back calls): the four kernels,
         # their plain versions, the whole op, and the library's GroupNorm +
         # SiLU (forward, and its autograd backward)
         spin(lambda: group_norm_stats(x))
@@ -750,9 +915,16 @@ def norm_phase(dev) -> dict:
         k3a_plain_ms = cuda_ms(lambda: group_norm_apply_plain(
             x, got, gamma, beta, groups, 1e-5, True), reps=3, inner=5)
         k5_ms = cuda_ms(lambda: group_norm_bwd_stats(
-            x, dz, mu_c, rstd_c, gamma, beta, True), reps=10, inner=10)
+            x, dz, got, gamma, beta, groups, 1e-5, True), reps=10, inner=10)
         k5_plain_ms = cuda_ms(lambda: group_norm_bwd_stats_plain(
-            x, dz, mu_c, rstd_c, gamma, beta, True), reps=3, inner=5)
+            x, dz, got, gamma, beta, groups, 1e-5, True), reps=3, inner=5)
+        s5 = group_norm_bwd_stats(x, dz, got, gamma, beta, groups, 1e-5, True)
+        k5a_ms = cuda_ms(lambda: group_norm_bwd_dx(
+            x, dz, got, gamma, beta, s5, groups, 1e-5, True), reps=10,
+            inner=10)
+        k5a_plain_ms = cuda_ms(lambda: group_norm_bwd_dx_plain(
+            x, dz, got, gamma, beta, s5, groups, 1e-5, True), reps=3,
+            inner=5)
         op_ms = cuda_ms(lambda: group_norm_act(x4, gamma, beta, groups, 1e-5,
                                                True), reps=5, inner=10)
         x_cf = x4.permute(0, 3, 1, 2)  # channels-first view, channels_last
@@ -762,13 +934,25 @@ def norm_phase(dev) -> dict:
         xg = x4.detach().requires_grad_(True)
         y_op = group_norm_act(xg, gamma, beta, groups, 1e-5, True)
         op_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-            y_op, xg, dz.reshape(y_op.shape), retain_graph=True), reps=5,
-            inner=10)
-        xl = x_cf.detach().requires_grad_(True)
-        y_lib = F.silu(F.group_norm(xl, groups, gd, bd, 1e-5))
-        dz_cf = dz.reshape(n, rows, 1, c).permute(0, 3, 1, 2)
-        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-            y_lib, xl, dz_cf, retain_graph=True), reps=5, inner=10)
+            y_op, xg, dz4, retain_graph=True), reps=5, inner=10)
+        dz_cf = dz4.permute(0, 3, 1, 2)
+        lib_bwd = {}
+        # the library on the same channels_last tensors (the yardstick, as
+        # in earlier PRs), and on contiguous channels-first copies
+        for fmt, xin, dzin in (
+                ("channels_last", x_cf, dz_cf),
+                ("contiguous", x_cf.contiguous(), dz_cf.contiguous())):
+            xl = xin.detach().requires_grad_(True)
+            y_lib = F.silu(F.group_norm(xl, groups, gd, bd, 1e-5))
+            lib_bwd[fmt] = cuda_ms(lambda: torch.autograd.grad(
+                y_lib, xl, dzin, retain_graph=True), reps=5, inner=10)
+            if fmt == "channels_last":
+                lib_bwd_dev = device_ms_per_call(lambda: torch.autograd.grad(
+                    y_lib, xl, dzin, retain_graph=True))
+            del xl, y_lib
+        lib_bwd_ms = lib_bwd["channels_last"]
+        op_bwd_dev = device_ms_per_call(lambda: torch.autograd.grad(
+            y_op, xg, dz4, retain_graph=True))
         item = x.element_size()
         xbytes = x.numel() * item
         sums_bytes = n * 2 * c * 4
@@ -779,16 +963,28 @@ def norm_phase(dev) -> dict:
         # the op: x read by both passes (it does not fit in L2 at the large
         # shapes), y written once
         op_bound = (3 * xbytes + 2 * c * 4) / H100_BYTES_PER_S * 1e3
-        k5_bound = ((2 * x.numel() * item + (2 * n * c + 2 * c) * 4
-                     + n * 2 * c * 4) / H100_BYTES_PER_S * 1e3)
+        # K5: x, dz, the forward's sums, gamma, beta read, the sums written
+        k5_bound = ((2 * xbytes + 2 * sums_bytes + 2 * c * 4)
+                    / H100_BYTES_PER_S * 1e3)
+        # K5a: x, dz, both sums, gamma, beta read, dx written
+        k5a_bound = ((3 * xbytes + 2 * sums_bytes + 2 * c * 4)
+                     / H100_BYTES_PER_S * 1e3)
+        # the op's backward: both kernels' bytes (x and dz do not stay in
+        # L2 between them at the large shapes)
+        op_bwd_bound = k5_bound + k5a_bound
         print(f"  {label}: K3 {k3_ms:.4f} ms (plain {k3_plain_ms:.4f}, bound "
-              f"{k3_bound:.5f} by bytes), K3a {k3a_ms:.4f} ms (plain "
-              f"{k3a_plain_ms:.4f}, bound {k3a_bound:.5f} by bytes), K5 "
-              f"{k5_ms:.4f} ms (plain {k5_plain_ms:.4f}, bound "
-              f"{k5_bound:.5f} by bytes); group_norm_act forward "
-              f"{op_ms:.4f} ms (bound {op_bound:.5f}) vs F.group_norm + "
-              f"F.silu {lib_ms:.4f} ms, backward {op_bwd_ms:.4f} ms vs the "
-              f"library's autograd {lib_bwd_ms:.4f} ms")
+              f"{k3_bound:.5f}), K3a {k3a_ms:.4f} ms (plain "
+              f"{k3a_plain_ms:.4f}, bound {k3a_bound:.5f}), K5 {k5_ms:.4f} "
+              f"ms (plain {k5_plain_ms:.4f}, bound {k5_bound:.5f}), K5a "
+              f"{k5a_ms:.4f} ms (plain {k5a_plain_ms:.4f}, bound "
+              f"{k5a_bound:.5f}), all by bytes")
+        print(f"  {label}: group_norm_act forward {op_ms:.4f} ms (bound "
+              f"{op_bound:.5f}) vs F.group_norm + F.silu {lib_ms:.4f} ms; "
+              f"backward {op_bwd_ms:.4f} ms (bound {op_bwd_bound:.5f}) vs "
+              f"the library's autograd {lib_bwd_ms:.4f} ms on the same "
+              f"channels_last tensors, {lib_bwd['contiguous']:.4f} ms on "
+              f"contiguous ones; device time of a backward {op_bwd_dev:.4f} "
+              f"ms vs the library's {lib_bwd_dev:.4f}")
         fwd["by_shape"][label] = {
             "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
             "op_forward_ms": op_ms, "op_bound_ms": op_bound,
@@ -797,13 +993,23 @@ def norm_phase(dev) -> dict:
             "ms": k3a_ms, "plain_ms": k3a_plain_ms, "bound_ms": k3a_bound,
             "op_forward_ms": op_ms, "op_bound_ms": op_bound,
             "library_ms": None, "op_library_ms": lib_ms}
-        bwd["by_shape"][label] = {
-            "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound,
-            "op_backward_ms": op_bwd_ms, "library_ms": lib_bwd_ms}
-        del y_op, y_lib, xg, xl
+        for acc, ms, plain_ms, bound in ((bwd, k5_ms, k5_plain_ms, k5_bound),
+                                         (bdx, k5a_ms, k5a_plain_ms,
+                                          k5a_bound)):
+            acc["by_shape"][label] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "op_backward_ms": op_bwd_ms,
+                "op_backward_bound_ms": op_bwd_bound,
+                "op_backward_device_ms": op_bwd_dev,
+                "library_ms": lib_bwd_ms,
+                "library_contiguous_ms": lib_bwd["contiguous"],
+                "library_device_ms": lib_bwd_dev}
+        del y_op, xg, x, dz, x4, dz4, x_cf, dz_cf, got, again, plain, s5
+    backward_host_cost(dev)
 
     main = "[%d, %d, %d] bfloat16" % GN_MAIN
     out = {}
+    whole_bwd = "autograd backward of F.group_norm + F.silu (the whole backward)"
     for kernel, acc, source, replaces, lib_note in (
         (kernels.GROUPNORM_FWD_STATS, fwd, "groupnorm_stats.cu",
          "humangaussian_tpu/ops/groupnorm.py:70",
@@ -813,8 +1019,9 @@ def norm_phase(dev) -> dict:
          "none: no one call normalizes from given sums (the whole op vs "
          "F.group_norm + F.silu is op_library_ms)"),
         (kernels.GROUPNORM_BWD_STATS, bwd, "groupnorm_stats.cu",
-         "humangaussian_tpu/ops/groupnorm.py:102",
-         "autograd backward of F.group_norm + F.silu (the whole backward)"),
+         "humangaussian_tpu/ops/groupnorm.py:102", whole_bwd),
+        (kernels.GROUPNORM_BWD_DX, bdx, "groupnorm_bwd_dx.cu",
+         "humangaussian_tpu/ops/groupnorm.py:251", whole_bwd),
     ):
         at = acc["by_shape"][main]
         out[kernel.name] = {
@@ -986,8 +1193,11 @@ def build_prior(dev, tmp):
           f"{n_vae}; files written in {t1 - t0:.1f} s, built in "
           f"{time.perf_counter() - t1:.1f} s")
     check(n_unet == UNET_PARAMS, f"UNet has {n_unet} parameters")
-    check(guidance.unet.conv_norm_out.weight.dtype == torch.float32,
-          "GroupNorm parameters are not float32")
+    check(guidance.unet.conv_norm_out.weight.dtype == torch.float32
+          and guidance.vae.encoder.conv_norm_out.weight.dtype
+          == torch.float32, "GroupNorm parameters are not float32")
+    check(guidance.vae.encoder.conv_in.weight.is_contiguous(
+        memory_format=torch.channels_last), "VAE weights not channels_last")
     pp = cfg["system"]["prompt_processor"]
     embeddings = PromptProcessor(
         PromptProcessorConfig(
@@ -1175,11 +1385,20 @@ def guidance_phase(dev, guidance, embeddings, assets):
         reached = reached or peak > 0
         print(f"  d loss / d {name}: max {peak:.3e}")
     check(reached, "no gradient reached the Gaussians")
+    # from the module trees: one UNet forward; encoder passes for rgb,
+    # depth and pose, plus the recomputation of the two differentiated
+    # ones in the backward under remat_encode; two encoder backwards
+    unet_norms = norms_in(guidance.unet)
+    enc_norms = norms_in(guidance.vae.encoder)
+    passes = 3 + (2 if cfg.remat_encode else 0)
+    forward = unet_norms + passes * enc_norms
     want = {"rasterize_fwd": 1, "rasterize_bwd": 1,
-            "groupnorm_fwd_stats": NORMS_PER_UNET_FORWARD,
-            "groupnorm_fwd_apply": NORMS_PER_UNET_FORWARD,
-            "groupnorm_bwd_stats": 0,
+            "groupnorm_fwd_stats": forward, "groupnorm_fwd_apply": forward,
+            "groupnorm_bwd_stats": 2 * enc_norms,
+            "groupnorm_bwd_dx": 2 * enc_norms,
             "attention_fwd": ATTN_PER_UNET_FORWARD}
+    print(f"  expected launches: {unet_norms} UNet norms + {passes} encoder "
+          f"passes x {enc_norms} norms forward, 2 x {enc_norms} backward")
     check(counts == want, f"launches {counts}, want {want}")
     del out, rgb, depth3, leaves, grad
 
@@ -1221,19 +1440,24 @@ def guidance_phase(dev, guidance, embeddings, assets):
 
     stages = [statistics.median(x) for x in zip(*[staged() for _ in range(3)])]
     print(f"  guidance step end to end: {step_ms:.3f} ms (render + "
-          f"__call__ + backward, encodes recomputed in the backward); staged "
+          f"__call__ + backward, encodes recomputed in the backward; "
+          f"{LIBRARY_NORM_VAE_MS['step']} with the library-norm VAE); "
+          f"staged "
           f"without recomputation: render {stages[0]:.3f} ms, three "
-          f"encodes {stages[1]:.3f} ms, compute_grad (UNet on "
+          f"encodes {stages[1]:.3f} ms "
+          f"({LIBRARY_NORM_VAE_MS['three encodes']} with the library-norm "
+          f"VAE), compute_grad (UNet on "
           f"{3 * GUIDANCE_BATCH} latents) {stages[2]:.3f} ms, loss + "
           f"backward {stages[3]:.3f} ms")
-    profile_device_time("1 guidance step", step, top=14)
+    profile_device_time("1 guidance step", step, top=14, by_shape=16)
 
     # the VAE's layout: one encode forward, then forward + backward, with
-    # contiguous weights (as built) against channels_last weights, which
-    # turn every activation after the first convolution channels_last
+    # channels_last weights (as built) against contiguous ones (the
+    # activations stay channels_last: the input is a channels_last view
+    # and every GroupNormAct returns one)
     img = resize_bilinear(pose, cfg.image_size)
-    for fmt in (torch.contiguous_format, torch.channels_last,
-                torch.contiguous_format):
+    for fmt in (torch.channels_last, torch.contiguous_format,
+                torch.channels_last):
         guidance.vae.to(memory_format=fmt)
 
         def encode_backward():
@@ -1242,9 +1466,12 @@ def guidance_phase(dev, guidance, embeddings, assets):
 
         with torch.no_grad():
             fwd_ms = cuda_ms(lambda: guidance.encode_images(img, gen), reps=3)
-        print(f"  VAE encode of {GUIDANCE_BATCH} x 512^2, {fmt}: forward "
-              f"{fwd_ms:.3f} ms, forward + backward "
-              f"{cuda_ms(encode_backward, reps=3):.3f} ms")
+        print(f"  VAE encode of {GUIDANCE_BATCH} x 512^2, weights {fmt}: "
+              f"forward {fwd_ms:.3f} ms, forward + backward "
+              f"{cuda_ms(encode_backward, reps=3):.3f} ms (the "
+              f"library-norm VAE, contiguous: "
+              f"{LIBRARY_NORM_VAE_MS['encode forward']} and "
+              f"{LIBRARY_NORM_VAE_MS['encode forward + backward']})")
     return counts, batch_row
 
 
@@ -1271,20 +1498,24 @@ def sample_phase(dev, guidance, embeddings):
               f"{name} outside [0, 1]")
     print(f"  {start.elapsed_time(end):.3f} ms; images mean "
           f"{float(images.mean()):.4f}, depths mean {float(depths.mean()):.4f}"
-          f"; launches K3 {counts['groupnorm_fwd_stats']}, K3a "
-          f"{counts['groupnorm_fwd_apply']}, K4 {counts['attention_fwd']}")
-    check(counts["groupnorm_fwd_stats"] == 4 * NORMS_PER_UNET_FORWARD
-          and counts["groupnorm_fwd_apply"] == 4 * NORMS_PER_UNET_FORWARD
-          and counts["attention_fwd"] == 4 * ATTN_PER_UNET_FORWARD,
-          f"sample_joint launches {counts}")
+          f"; launches {counts}")
+    # 4 UNet forwards, one pose encode, two decodes, no backward
+    forward = (4 * norms_in(guidance.unet) + norms_in(guidance.vae.encoder)
+               + 2 * norms_in(guidance.vae.decoder))
+    want = {"rasterize_fwd": 0, "rasterize_bwd": 0,
+            "groupnorm_fwd_stats": forward, "groupnorm_fwd_apply": forward,
+            "groupnorm_bwd_stats": 0, "groupnorm_bwd_dx": 0,
+            "attention_fwd": 4 * ATTN_PER_UNET_FORWARD}
+    check(counts == want, f"sample_joint launches {counts}, want {want}")
 
 
 def unet_backward_phase(dev, unet) -> dict:
-    """Phase 13: K5 on a path. The full-width UNet differentiated with
-    respect to its input latents (batch 2, 64^2, bfloat16): K3a and K5 must
-    launch once per K3 launch. Then a float32 UNet at 16^2 latents,
-    matrix-product attention: the input gradient through K3 / K3a / K5
-    against the gradient through their plain versions. Returns the launch counts of the first."""
+    """Phase 13: the full-width UNet differentiated with respect to its
+    input latents (batch 2, 64^2, bfloat16): K3, K3a, K5 and K5a launch
+    once per norm. Then a float32 UNet at 16^2 latents, matrix-product
+    attention, and a float32 full-width VAE at 64^2 images: the input
+    gradient through K3 / K3a / K5 / K5a against the gradient through their
+    plain versions. Returns the launch counts of the first."""
     import dataclasses
 
     from humangaussian_torch import kernels
@@ -1292,8 +1523,13 @@ def unet_backward_phase(dev, unet) -> dict:
         SD2_BASE_CONFIG,
         DualBranchUNet,
     )
+    from humangaussian_torch.guidance.vae import (
+        AutoencoderKL,
+        VAEConfig,
+        sample_latent,
+    )
 
-    print("phase 13: the UNet differentiated (K5)")
+    print("phase 13: the UNet and the VAE differentiated (K5, K5a)")
     g = torch.Generator(device="cpu").manual_seed(15)
 
     def inputs(b, hw):
@@ -1331,11 +1567,12 @@ def unet_backward_phase(dev, unet) -> dict:
     check(all(bool(torch.isfinite(x).all()) for x in grads),
           "non-finite input gradient")
     check(all(float(x.abs().max()) > 0 for x in grads), "zero input gradient")
-    check(counts["groupnorm_fwd_stats"] == NORMS_PER_UNET_FORWARD
-          and counts["groupnorm_fwd_apply"] == NORMS_PER_UNET_FORWARD
-          and counts["groupnorm_bwd_stats"] == NORMS_PER_UNET_FORWARD
-          and counts["attention_fwd"] == ATTN_PER_UNET_FORWARD,
-          f"launches {counts}")
+    norms = norms_in(unet)
+    want = {"rasterize_fwd": 0, "rasterize_bwd": 0,
+            "groupnorm_fwd_stats": norms, "groupnorm_fwd_apply": norms,
+            "groupnorm_bwd_stats": norms, "groupnorm_bwd_dx": norms,
+            "attention_fwd": ATTN_PER_UNET_FORWARD}
+    check(counts == want, f"launches {counts}, want {want}")
     del unet, grads, args
 
     torch.manual_seed(1)
@@ -1348,16 +1585,53 @@ def unet_backward_phase(dev, unet) -> dict:
     got = input_grads(f32, *args)
     torch.cuda.synchronize()
     k5 = kernels.launch_counts()["groupnorm_bwd_stats"]
+    k5a = kernels.launch_counts()["groupnorm_bwd_dx"]
     with plain_versions():
         want = input_grads(f32, *args)
     worst = 0.0
     for a, b_ in zip(got, want):
         worst = max(worst, float((a - b_).abs().max() / b_.abs().max()))
-    print(f"  float32, batch 2, 16^2: input gradient through K3 / K3a / K5 vs "
-          f"through the plain versions {worst:.3e} of max |grad| (limit "
-          f"{UNET_GRAD_TOL:g}); K5 launches {k5}")
+    print(f"  float32, batch 2, 16^2: input gradient through K3 / K3a / K5 / "
+          f"K5a vs through the plain versions {worst:.3e} of max |grad| "
+          f"(limit {UNET_GRAD_TOL:g}); K5 launches {k5}, K5a {k5a}")
     check(worst <= UNET_GRAD_TOL, f"UNet input gradient off by {worst}")
-    check(k5 == NORMS_PER_UNET_FORWARD, f"K5 launched {k5} times")
+    check(k5 == k5a == norms_in(f32), f"K5 / K5a launched {k5} / {k5a} times")
+    del f32, got, want, args
+
+    # the VAE's counterpart: d(latents)/d(image) of a float32 full-width
+    # VAE (channels_last, as build_guidance lays it out) at 64^2
+    torch.manual_seed(2)
+    with torch.device(dev):
+        vae = AutoencoderKL(dataclasses.replace(VAEConfig(),
+                                                dtype=torch.float32))
+    vae.to(memory_format=torch.channels_last).requires_grad_(False)
+    img = (torch.rand((2, 64, 64, 3), generator=g) * 2 - 1).to(dev)
+    eps = torch.randn((2, 8, 8, 4), generator=g).to(dev)
+    cot = torch.randn((2, 8, 8, 4), generator=g).to(dev)
+
+    def image_grad():
+        x = img.clone().requires_grad_(True)
+        mean, logvar = vae.encode(x)
+        (sample_latent(mean, logvar, eps=eps) * cot).sum().backward()
+        return x.grad
+
+    kernels.reset_launch_counts()
+    got = image_grad()
+    torch.cuda.synchronize()
+    vae_counts = kernels.launch_counts()
+    with plain_versions():
+        want = image_grad()
+    worst = float((got - want).abs().max() / want.abs().max())
+    enc = norms_in(vae.encoder)
+    print(f"  float32 VAE, batch 2, 64^2: d latents / d image through K3 / "
+          f"K3a / K5 / K5a vs through the plain versions {worst:.3e} of max "
+          f"|grad| {float(want.abs().max()):.3e} (limit {VAE_GRAD_TOL:g}); "
+          f"launches {vae_counts}")
+    check(bool(torch.isfinite(got).all()), "non-finite VAE input gradient")
+    check(worst <= VAE_GRAD_TOL, f"VAE input gradient off by {worst}")
+    check(all(vae_counts[k] == enc for k in (
+        "groupnorm_fwd_stats", "groupnorm_fwd_apply", "groupnorm_bwd_stats",
+        "groupnorm_bwd_dx")), f"VAE launches {vae_counts}, want {enc} each")
     return counts
 
 
@@ -1437,6 +1711,7 @@ def run(dev, only=()) -> int:
             counts, batch = guidance_phase(dev, guidance, embeddings,
                                            assets)
             for name in ("groupnorm_fwd_stats", "groupnorm_fwd_apply",
+                         "groupnorm_bwd_stats", "groupnorm_bwd_dx",
                          "attention_fwd"):
                 if name in rows:
                     rows[name]["launches"] = counts[name]
@@ -1458,10 +1733,7 @@ def run(dev, only=()) -> int:
     else:
         unet = None
     if want("unet-backward"):
-        counts = unet_backward_phase(dev, unet)
-        if "groupnorm_bwd_stats" in rows:
-            rows["groupnorm_bwd_stats"]["launches"] = counts[
-                "groupnorm_bwd_stats"]
+        unet_backward_phase(dev, unet)
     tmp_dir.cleanup()
 
     if only:

@@ -168,8 +168,10 @@ def build_guidance(cfg: dict, device="cuda"):
             print(f"warning: {len(unexpected)} unmatched keys in {path}, "
                   f"e.g. {unexpected[:3]}")
         cast_weights(module, dtype, round_to_bf16=bf16_weights)
-    # the UNet's activations are channels_last (see guidance/unet.py)
+    # the UNet's and the VAE's activations are channels_last (see
+    # guidance/unet.py and guidance/vae.py)
     unet.to(memory_format=torch.channels_last)
+    vae.to(memory_format=torch.channels_last)
     return DualBranchGuidance(
         unet, vae, DiffusionSchedule.create(device=dev),
         _take(GuidanceConfig, g_raw))

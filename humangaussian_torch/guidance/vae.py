@@ -11,18 +11,34 @@ applied by the guidance, not here.
 
 Parameter names are diffusers' (`encoder.down_blocks.0.resnets.0.norm1
 .weight`, ...), so an `AutoencoderKL` state dict loads without a
-converter. As in the reference, the VAE's norms are the library GroupNorm
-(the encoder sits on the gradient path, where the fused op with its
-analytic backward was no gain) and its one attention is a plain matrix
-product: neither is a hand-written kernel in either package.
+converter. Its one attention is a plain matrix product, as in the
+reference.
+
+Norms: every GroupNorm, and the SiLU after it where there is one, is the
+port's `GroupNormAct` (ops/groupnorm.py: kernels K3 / K3a forward, K5 / K5a
+backward), with the parameter names `weight` and `bias` of diffusers'
+`nn.GroupNorm`. The reference keeps flax `nn.GroupNorm` + `nn.silu` here
+because of a measurement on a TPU; both compute GroupNorm with f32
+statistics followed by SiLU, so the output is the same function (in
+bfloat16 it is rounded once, after the SiLU, instead of also before it).
+On the card the fused op with its kernel backward is what lets the VAE
+keep the `channels_last` layout: the library GroupNorm copies every
+`channels_last` activation to contiguous and back.
 
 Layout: `encode` and `decode` take and return channel-minor arrays
 (`[B, H, W, 3]` images, `[B, h, w, 4]` latents), the reference's public
-layout; inside, activations are contiguous channels-first tensors (with
-`channels_last` weights the library GroupNorm copies every activation to
-contiguous and back on a card, which costs more than cuDNN gains from the
-layout; PERF.md has both times). The computation runs in the dtype of the
-weights (bfloat16 under `half_precision_weights`), outputs are float32.
+layout. Inside, activations are `channels_last` `[B, C, H, W]` tensors,
+which is what cuDNN's bf16 convolutions want and makes the `[B, H, W, C]`
+view `GroupNormAct` normalizes free of copies; `apps.launch.build_guidance`
+puts the weights in `channels_last` too. The computation runs in the dtype
+of the weights (bfloat16 under `half_precision_weights`; the norms'
+parameters stay float32 under `cast_weights`), outputs are float32.
+
+With rows split across blocks, K3's and K5's f32 atomics add in no fixed
+order, so the encoder's forward recomputed under `torch.utils.checkpoint`
+(the guidance's `remat_encode`) may differ from the first forward in the
+last bits of its statistics; the gradient it feeds is that of the
+recomputed forward, which is harmless.
 """
 from __future__ import annotations
 
@@ -32,6 +48,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from humangaussian_torch.ops.groupnorm import GroupNormAct
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,17 +74,17 @@ def tiny_vae_config() -> VAEConfig:
 class ResnetBlock(nn.Module):
     def __init__(self, in_ch, out_ch, groups):
         super().__init__()
-        self.norm1 = nn.GroupNorm(groups, in_ch, eps=1e-6)
+        self.norm1 = GroupNormAct(groups, in_ch, eps=1e-6, silu=True)
         self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-        self.norm2 = nn.GroupNorm(groups, out_ch, eps=1e-6)
+        self.norm2 = GroupNormAct(groups, out_ch, eps=1e-6, silu=True)
         self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
         self.conv_shortcut = (
             nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
         )
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x))
+        h = self.conv2(self.norm2(h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -78,7 +96,7 @@ class AttnBlock(nn.Module):
 
     def __init__(self, ch, groups):
         super().__init__()
-        self.group_norm = nn.GroupNorm(groups, ch, eps=1e-6)
+        self.group_norm = GroupNormAct(groups, ch, eps=1e-6)
         self.to_q = nn.Linear(ch, ch)
         self.to_k = nn.Linear(ch, ch)
         self.to_v = nn.Linear(ch, ch)
@@ -170,7 +188,7 @@ class Encoder(nn.Module):
              for i, ch in enumerate(chs)]
         )
         self.mid_block = _Mid(chs[-1], g)
-        self.conv_norm_out = nn.GroupNorm(g, chs[-1], eps=1e-6)
+        self.conv_norm_out = GroupNormAct(g, chs[-1], eps=1e-6, silu=True)
         self.conv_out = nn.Conv2d(chs[-1], 2 * cfg.latent_channels, 3,
                                   padding=1)
 
@@ -179,7 +197,7 @@ class Encoder(nn.Module):
         for blk in self.down_blocks:
             h = blk(h)
         h = self.mid_block(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h))
 
 
 class Decoder(nn.Module):
@@ -194,14 +212,14 @@ class Decoder(nn.Module):
                  add_upsample=i < len(rev) - 1)
              for i, ch in enumerate(rev)]
         )
-        self.conv_norm_out = nn.GroupNorm(g, rev[-1], eps=1e-6)
+        self.conv_norm_out = GroupNormAct(g, rev[-1], eps=1e-6, silu=True)
         self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z):
         h = self.mid_block(self.conv_in(z))
         for blk in self.up_blocks:
             h = blk(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h))
 
 
 class AutoencoderKL(nn.Module):
@@ -223,8 +241,10 @@ class AutoencoderKL(nn.Module):
         return self.quant_conv.weight.dtype
 
     def _channels_first(self, x):
-        """[B, H, W, C] -> contiguous [B, C, H, W] in the model's type."""
-        return x.to(self.dtype).permute(0, 3, 1, 2).contiguous()
+        """[B, H, W, C] -> `channels_last` [B, C, H, W] in the model's type
+        (a view of the channel-minor input when it is contiguous)."""
+        return x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
 
     def encode(self, x):
         """[B, H, W, 3] in [-1, 1] -> (mean, logvar) [B, h, w, latent] f32,

@@ -132,9 +132,16 @@ GROUPNORM_FWD_STATS = Kernel(
 
 GROUPNORM_BWD_STATS = Kernel(
     "groupnorm_bwd_stats", "groupnorm_stats.cu", "hg_groupnorm_bwd_stats",
-    # x, dz, mu, rstd, gamma, beta, samples, rows, channels, rows_per_block,
+    # x, dz, fwd_sums, gamma, beta, samples, rows, channels, groups, eps,
     # is_bf16, silu, out, stream
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P],
+)
+
+GROUPNORM_BWD_DX = Kernel(
+    "groupnorm_bwd_dx", "groupnorm_bwd_dx.cu", "hg_groupnorm_bwd_dx",
+    # x, dz, fwd_sums, gamma, beta, sums, samples, rows, channels, groups,
+    # eps, is_bf16, silu, dx, stream
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P],
 )
 
 GROUPNORM_FWD_APPLY = Kernel(
@@ -151,7 +158,8 @@ ATTENTION_FWD = Kernel(
 )
 
 KERNELS = (RASTERIZE_FWD, RASTERIZE_BWD, GROUPNORM_FWD_STATS,
-           GROUPNORM_FWD_APPLY, GROUPNORM_BWD_STATS, ATTENTION_FWD)
+           GROUPNORM_FWD_APPLY, GROUPNORM_BWD_STATS, GROUPNORM_BWD_DX,
+           ATTENTION_FWD)
 
 
 def build_all() -> None:

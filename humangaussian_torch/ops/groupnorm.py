@@ -16,20 +16,28 @@ kernels:
       shared memory, then writes y = act(x * a + b) 16 bytes a thread.
 
 So the forward of a CUDA tensor is K3, one zero-fill and K3a. Under
-autograd the op saves the sums; the backward derives the per-channel mean
-and rstd from them (`group_stats`, tiny torch code). Kernel K5 re-reads
-(x, dz) and gives per (sample, channel) S1 = sum(dy) and S2 = sum(dy *
-xhat), with xhat and the SiLU derivative recomputed in registers; the group
-means, dgamma and dbeta come from S1 and S2, and
+autograd the op saves the sums, and the backward is two kernels, each of
+which forms the group mean and rstd from the saved sums as K3a did (so no
+torch code runs for them):
 
-  dx = rstd * (gamma * dy - mean_g(gamma dy) - xhat * mean_g(gamma dy xhat))
+  backward sums (kernel K5, csrc/groupnorm_stats.cu): per (sample,
+      channel) S1 = sum(dy) and S2 = sum(dy * xhat) into [N, 2, C], which
+      its entry point zeroes first, with xhat and the SiLU derivative
+      recomputed from (x, dz) in registers;
+  input gradient (kernel K5a, csrc/groupnorm_bwd_dx.cu): each block forms
+      its sample's group means of gamma * S1 and gamma * S2, then writes
+      16 bytes a thread, recomputing xhat and dy from (x, dz),
 
-is one more elementwise torch pass.
+  dx = rstd * (gamma * dy - mean_g(gamma dy) - xhat * mean_g(gamma dy xhat)).
 
-Dispatch: a CUDA tensor launches K3 / K3a / K5, a CPU tensor takes the
-plain versions (`group_norm_stats_plain`, `group_norm_apply_plain`,
-`group_norm_bwd_stats_plain`); nothing else decides, and nothing falls
-back from a kernel to a plain version.
+So the backward of a CUDA tensor is K5 (after a memset) and K5a; dgamma
+and dbias (the sums of S2 and S1 over samples) are computed only when
+asked for.
+
+Dispatch: a CUDA tensor launches K3 / K3a / K5 / K5a, a CPU tensor takes
+the plain versions (`group_norm_stats_plain`, `group_norm_apply_plain`,
+`group_norm_bwd_stats_plain`, `group_norm_bwd_dx_plain`); nothing else
+decides, and nothing falls back from a kernel to a plain version.
 
 Dropped from the reference: `_pick_block_rows` and the pure-XLA route for
 row counts no block divides (the CUDA kernels take any row count), the
@@ -44,6 +52,7 @@ import torch
 from torch import nn
 
 from humangaussian_torch.kernels import (
+    GROUPNORM_BWD_DX,
     GROUPNORM_BWD_STATS,
     GROUPNORM_FWD_APPLY,
     GROUPNORM_FWD_STATS,
@@ -58,10 +67,11 @@ _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def rows_per_block(samples: int, rows: int, channels: int) -> int:
-    """Rows each block of K3 / K5 (the statistics kernels) reduces: the whole of `rows` when samples
-    x channel blocks already fill the card, else split (in multiples of the
-    8 rows a block takes per step, at least 32) so that the launch reaches
-    about `_TARGET_BLOCKS` blocks."""
+    """Rows each block of K3 (the forward statistics) reduces: the whole of
+    `rows` when samples x channel blocks already fill the card, else split
+    (in multiples of the 8 rows a block takes per step, at least 32) so
+    that the launch reaches about `_TARGET_BLOCKS` blocks. (K5's entry
+    point sizes its own slices by its occupancy.)"""
     base = samples * math.ceil(channels / _CHANNELS_PER_BLOCK)
     splits = max(1, min(math.ceil(_TARGET_BLOCKS / max(base, 1)),
                         rows // (4 * _ROWS_PER_STEP)))
@@ -80,12 +90,29 @@ def _check_x3(name, x3):
 
 
 def _check_kernel_input(name, x3):
-    if x3.device.type != "cuda":
-        raise ValueError(f"no GroupNorm kernel for device {x3.device}")
     if x3.dtype not in _KERNEL_DTYPES:
         raise TypeError(
             f"the GroupNorm kernels take bfloat16 or float32, {name} is "
             f"{x3.dtype}")
+    if x3.device.type != "cuda":
+        raise ValueError(f"no GroupNorm kernel for device {x3.device}")
+
+
+def _check_f32_args(x3, *named):
+    """Each (name, tensor, shape) must be float32 of that shape on x3's
+    device."""
+    for name, t, shape in named:
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device != x3.device:
+            raise ValueError(
+                f"{name} must be float32 {shape} on {x3.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_groups(channels: int, groups: int):
+    if groups <= 0 or channels % groups:
+        raise ValueError(
+            f"{channels} channels do not divide into {groups} groups")
 
 
 def group_norm_stats_plain(x3: torch.Tensor) -> torch.Tensor:
@@ -146,15 +173,9 @@ def group_norm_apply(x3, sums, gamma, beta, groups: int, eps: float,
     tensor, the plain version for a CPU tensor."""
     _check_x3("x3", x3)
     n, rows, c = x3.shape
-    for name, t, shape in (("sums", sums, (n, 2, c)), ("gamma", gamma, (c,)),
-                           ("beta", beta, (c,))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape \
-                or t.device != x3.device:
-            raise ValueError(
-                f"{name} must be float32 {shape} on {x3.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if groups <= 0 or c % groups:
-        raise ValueError(f"{c} channels do not divide into {groups} groups")
+    _check_f32_args(x3, ("sums", sums, (n, 2, c)), ("gamma", gamma, (c,)),
+                    ("beta", beta, (c,)))
+    _check_groups(c, groups)
     if x3.device.type == "cpu":
         return group_norm_apply_plain(x3, sums, gamma, beta, groups, eps,
                                       silu)
@@ -183,49 +204,102 @@ def _dy_xhat(x3, dz3, mu_c, rstd_c, gamma, beta, silu):
     return dy, xhat
 
 
-def group_norm_bwd_stats_plain(x3, dz3, mu_c, rstd_c, gamma, beta,
-                               silu: bool) -> torch.Tensor:
-    """K5's function in plain torch: [N, 2, C] f32 (sum dy, sum dy*xhat)."""
-    dy, xhat = _dy_xhat(x3, dz3, mu_c, rstd_c, gamma, beta, silu)
-    return torch.stack([dy.sum(dim=1), (dy * xhat).sum(dim=1)], dim=1)
-
-
-def group_norm_bwd_stats(x3, dz3, mu_c, rstd_c, gamma, beta,
-                         silu: bool) -> torch.Tensor:
-    """Per (sample, channel) S1 = sum(dy), S2 = sum(dy * xhat) as f32
-    [N, 2, C] from x3, dz3 [N, R, C] (same dtype, contiguous), per-channel
-    mu_c, rstd_c [N, C] f32 and gamma, beta [C] f32: K5 for CUDA tensors,
-    the plain version for CPU tensors."""
+def _check_bwd_args(x3, dz3, fwd_sums, gamma, beta, groups):
     _check_x3("x3", x3)
     _check_x3("dz3", dz3)
-    n, rows, c = x3.shape
+    n, _, c = x3.shape
     if dz3.shape != x3.shape or dz3.dtype != x3.dtype \
             or dz3.device != x3.device:
         raise ValueError(
             f"dz3 must match x3 ({x3.dtype} {tuple(x3.shape)} on "
             f"{x3.device}), got {dz3.dtype} {tuple(dz3.shape)} on "
             f"{dz3.device}")
-    for name, t, shape in (("mu_c", mu_c, (n, c)), ("rstd_c", rstd_c, (n, c)),
-                           ("gamma", gamma, (c,)), ("beta", beta, (c,))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape \
-                or t.device != x3.device:
-            raise ValueError(
-                f"{name} must be float32 {shape} on {x3.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_f32_args(x3, ("fwd_sums", fwd_sums, (n, 2, c)),
+                    ("gamma", gamma, (c,)), ("beta", beta, (c,)))
+    _check_groups(c, groups)
+
+
+def group_norm_bwd_stats_plain(x3, dz3, fwd_sums, gamma, beta, groups: int,
+                               eps: float, silu: bool) -> torch.Tensor:
+    """K5's function in plain torch: [N, 2, C] f32 (sum dy, sum dy*xhat)."""
+    mu_c, rstd_c = group_stats(fwd_sums, x3.shape[1], groups, eps)
+    dy, xhat = _dy_xhat(x3, dz3, mu_c, rstd_c, gamma, beta, silu)
+    return torch.stack([dy.sum(dim=1), (dy * xhat).sum(dim=1)], dim=1)
+
+
+def group_norm_bwd_stats(x3, dz3, fwd_sums, gamma, beta, groups: int,
+                         eps: float, silu: bool) -> torch.Tensor:
+    """Per (sample, channel) S1 = sum(dy), S2 = sum(dy * xhat) as f32
+    [N, 2, C] from x3, dz3 [N, R, C] (same dtype, contiguous), the
+    forward's sums [N, 2, C] (K3's; the group mean and rstd come from them)
+    and gamma, beta [C], f32: K5 for CUDA tensors, the plain version for
+    CPU tensors."""
+    _check_bwd_args(x3, dz3, fwd_sums, gamma, beta, groups)
+    n, rows, c = x3.shape
     if x3.device.type == "cpu":
-        return group_norm_bwd_stats_plain(x3, dz3, mu_c, rstd_c, gamma, beta,
-                                          silu)
+        return group_norm_bwd_stats_plain(x3, dz3, fwd_sums, gamma, beta,
+                                          groups, eps, silu)
     _check_kernel_input("x3", x3)
-    out = torch.zeros((n, 2, c), dtype=torch.float32, device=x3.device)
+    # the entry point zeroes `out` and picks its own row slices
+    out = torch.empty((n, 2, c), dtype=torch.float32, device=x3.device)
     with torch.cuda.device(x3.device):
         GROUPNORM_BWD_STATS.launch(
-            x3.data_ptr(), dz3.data_ptr(), mu_c.contiguous().data_ptr(),
-            rstd_c.contiguous().data_ptr(), gamma.contiguous().data_ptr(),
-            beta.contiguous().data_ptr(), n, rows, c,
-            rows_per_block(n, rows, c), int(x3.dtype == torch.bfloat16),
-            int(silu), out.data_ptr(),
-            torch.cuda.current_stream(x3.device).cuda_stream)
+            x3.data_ptr(), dz3.data_ptr(), fwd_sums.contiguous().data_ptr(),
+            gamma.contiguous().data_ptr(), beta.contiguous().data_ptr(), n,
+            rows, c, groups, eps, int(x3.dtype == torch.bfloat16), int(silu),
+            out.data_ptr(), torch.cuda.current_stream(x3.device).cuda_stream)
     return out
+
+
+def _group_means(sums, gamma, rows: int, groups: int):
+    """Per-channel [N, 1, C] group means of gamma * S1 and gamma * S2 over
+    the (sample, group)'s rows x channels elements."""
+    n, _, c = sums.shape
+    cg = c // groups
+    m = rows * cg
+    means = (gamma * sums).reshape(n, 2, groups, cg).sum(dim=3) / m
+    means = means.repeat_interleave(cg, dim=2)
+    return means[:, 0, None, :], means[:, 1, None, :]
+
+
+def group_norm_bwd_dx_plain(x3, dz3, fwd_sums, gamma, beta, sums,
+                            groups: int, eps: float,
+                            silu: bool) -> torch.Tensor:
+    """K5a's function in plain torch: dx [N, R, C] in x3's dtype from
+    (x3, dz3), the forward's sums and K5's sums [N, 2, C], the reference's
+    dx arithmetic."""
+    rows = x3.shape[1]
+    mu_c, rstd_c = group_stats(fwd_sums, rows, groups, eps)
+    mean1_c, mean2_c = _group_means(sums, gamma, rows, groups)
+    dy, xhat = _dy_xhat(x3, dz3, mu_c, rstd_c, gamma, beta, silu)
+    dx = rstd_c[:, None, :] * (gamma * dy - mean1_c - xhat * mean2_c)
+    return dx.to(x3.dtype)
+
+
+def group_norm_bwd_dx(x3, dz3, fwd_sums, gamma, beta, sums, groups: int,
+                      eps: float, silu: bool) -> torch.Tensor:
+    """The input gradient of GroupNorm(+SiLU) as [N, R, C] in x3's dtype,
+    from x3, dz3 [N, R, C] (same dtype, contiguous), the forward's sums,
+    gamma, beta [C] and K5's sums [N, 2, C] (all f32): K5a for CUDA
+    tensors, the plain version for CPU tensors."""
+    _check_bwd_args(x3, dz3, fwd_sums, gamma, beta, groups)
+    n, rows, c = x3.shape
+    _check_f32_args(x3, ("sums", sums, (n, 2, c)))
+    if x3.device.type == "cpu":
+        return group_norm_bwd_dx_plain(x3, dz3, fwd_sums, gamma, beta, sums,
+                                       groups, eps, silu)
+    _check_kernel_input("x3", x3)
+    if rows * c >= 2**31:
+        raise ValueError(f"{rows} x {c} elements per sample exceed 2^31")
+    dx = torch.empty_like(x3)
+    with torch.cuda.device(x3.device):
+        GROUPNORM_BWD_DX.launch(
+            x3.data_ptr(), dz3.data_ptr(), fwd_sums.contiguous().data_ptr(),
+            gamma.contiguous().data_ptr(), beta.contiguous().data_ptr(),
+            sums.contiguous().data_ptr(), n, rows, c, groups, eps,
+            int(x3.dtype == torch.bfloat16), int(silu), dx.data_ptr(),
+            torch.cuda.current_stream(x3.device).cuda_stream)
+    return dx
 
 
 def _as_rows(x):
@@ -249,27 +323,17 @@ class _GroupNormAct(torch.autograd.Function):
     def backward(ctx, dz):
         x3, scale, bias, fwd_sums = ctx.saved_tensors
         groups, eps, silu, shape = ctx.cfg
-        n, rows, c = x3.shape
-        mu_c, rstd_c = group_stats(fwd_sums, rows, groups, eps)
         dz3 = _as_rows(dz.contiguous())
         gamma = scale.to(torch.float32)
         beta = bias.to(torch.float32)
-        sums = group_norm_bwd_stats(x3, dz3, mu_c, rstd_c, gamma, beta, silu)
-        s1, s2 = sums[:, 0], sums[:, 1]  # [N, C]
-
-        cg = c // groups
-        m = rows * cg
-        # group means of gamma*dy and gamma*dy*xhat from the channel sums
-        mean1 = (gamma * s1).reshape(n, groups, cg).sum(dim=2) / m
-        mean2 = (gamma * s2).reshape(n, groups, cg).sum(dim=2) / m
-        mean1_c = mean1.repeat_interleave(cg, dim=1)[:, None, :]
-        mean2_c = mean2.repeat_interleave(cg, dim=1)[:, None, :]
-
-        dy, xhat = _dy_xhat(x3, dz3, mu_c, rstd_c, gamma, beta, silu)
-        dx = rstd_c[:, None, :] * (gamma * dy - mean1_c - xhat * mean2_c)
-        dx = dx.to(x3.dtype).reshape(shape)
-        dscale = s2.sum(dim=0).to(scale.dtype)
-        dbias = s1.sum(dim=0).to(bias.dtype)
+        sums = group_norm_bwd_stats(x3, dz3, fwd_sums, gamma, beta, groups,
+                                    eps, silu)
+        dx = group_norm_bwd_dx(x3, dz3, fwd_sums, gamma, beta, sums, groups,
+                               eps, silu).reshape(shape)
+        # the frozen priors ask for dx alone
+        want_scale, want_bias = ctx.needs_input_grad[1:3]
+        dscale = sums[:, 1].sum(dim=0).to(scale.dtype) if want_scale else None
+        dbias = sums[:, 0].sum(dim=0).to(bias.dtype) if want_bias else None
         return dx, dscale, dbias, None, None, None
 
 
@@ -285,8 +349,7 @@ def group_norm_act(x, scale, bias, groups: int, eps: float,
     if x.dim() < 2:
         raise ValueError(f"x must be [N, ..., C], got {tuple(x.shape)}")
     c = x.shape[-1]
-    if groups <= 0 or c % groups:
-        raise ValueError(f"{c} channels do not divide into {groups} groups")
+    _check_groups(c, groups)
     if tuple(scale.shape) != (c,) or tuple(bias.shape) != (c,):
         raise ValueError(
             f"scale and bias must be [{c}], got {tuple(scale.shape)} and "
@@ -301,8 +364,8 @@ class GroupNormAct(nn.Module):
     Parameters are `weight` and `bias` [C], the names `nn.GroupNorm` and the
     diffusers checkpoints use. The op itself is channel-minor, so the module
     permutes to `[N, H, W, C]` and back; for a `channels_last` activation,
-    which is what the UNet keeps, both permutes are views and cost
-    nothing."""
+    which is what the UNet and the VAE keep, both permutes are views and
+    cost nothing."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  silu: bool = False):

@@ -99,6 +99,27 @@ def test_explicit_scale_matches_pallas_kernel():
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
+def test_query_rows_past_the_last_full_block():
+    """S = 384 (a 16 x 24 latent; the UNet's gate admits any multiple of
+    128). The JAX kernel's grid has S // 256 query blocks of 256 rows, so
+    rows 256-383 of its output are never written; the port computes every
+    row and matches the JAX package's `_xla_attention` on all of them."""
+    q, k, v = _qkv(1, 384, 2, 64, seed=7)
+
+    def fold(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(2, 384, 64)
+
+    want = np.asarray(jax_attn._xla_attention(fold(q), fold(k), fold(v),
+                                              0.125))
+    want = want.reshape(1, 2, 384, 64).transpose(0, 2, 1, 3)
+    got = port_attn.self_attention(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    jax_out = np.asarray(jax_attn.self_attention(*map(jnp.asarray,
+                                                      (q, k, v))))
+    np.testing.assert_allclose(jax_out[:, :256], want[:, :256], atol=2e-5)
+    assert not np.allclose(jax_out[:, 256:], want[:, 256:], atol=2e-5)
+
+
 def test_more_keys_than_queries():
     """k, v longer than q. The JAX kernel's K/V block is sized by the query
     length, so with M != S it attends to the first S keys only (no UNet

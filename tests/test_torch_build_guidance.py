@@ -69,6 +69,11 @@ def test_build_guidance_loads_the_tiny_prior(tmp_path, half):
         rgb.grad.abs().max()) > 0
     assert built.unet.dtype == built.vae.dtype == torch.float32
     assert built.unet.conv_norm_out.weight.dtype == torch.float32
+    # the VAE's norms are GroupNormAct (float32 parameters) and its
+    # convolutions' weights channels_last, as the UNet's
+    assert built.vae.encoder.conv_norm_out.weight.dtype == torch.float32
+    assert built.vae.encoder.conv_in.weight.is_contiguous(
+        memory_format=torch.channels_last)
     if half:
         assert all(_bf16_exact(p) for p in built.unet.parameters())
         assert all(_bf16_exact(p) for p in built.vae.parameters())

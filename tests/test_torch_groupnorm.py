@@ -158,10 +158,65 @@ def test_backward_stats_plain_matches_pallas_kernel(pallas):
             jnp.stack([jnp.asarray(scale), jnp.asarray(bias)])[None],
             jax_gn._pick_block_rows(x3.shape[1], c), silu))
         got = port_gn.group_norm_bwd_stats(
-            torch.from_numpy(x3), torch.from_numpy(dz3), mu_c, rstd_c,
-            torch.from_numpy(scale), torch.from_numpy(bias), silu).numpy()
+            torch.from_numpy(x3), torch.from_numpy(dz3), sums,
+            torch.from_numpy(scale), torch.from_numpy(bias), groups, 1e-5,
+            silu).numpy()
         np.testing.assert_allclose(got, want,
                                    atol=F32_TOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_dx_plain_matches_jax_backward(pallas, dtype, silu):
+    """K5a's plain version, fed K3's and K5's plain sums, is the dx of the
+    JAX `_gn_bwd` (its Pallas backward statistics in interpret mode):
+    float32 2e-5 of max |dx|, bfloat16 activations 0.05."""
+    shape, groups = (2, 16, 16, 32), 8
+    x, scale, bias, dz = _inputs(shape, seed=6)
+    n, c = shape[0], shape[-1]
+    jdt = jnp.dtype(dtype)
+    jx, jdz = jnp.asarray(x).astype(jdt), jnp.asarray(dz).astype(jdt)
+    _, res = jax_gn._gn_fwd(jx, jnp.asarray(scale), jnp.asarray(bias),
+                            groups, 1e-5, silu)
+    want, _, _ = jax_gn._gn_bwd(groups, 1e-5, silu, res, jdz)
+    want = np.asarray(want.astype(jnp.float32)).reshape(n, -1, c)
+
+    tdt = getattr(torch, dtype)
+    x3 = torch.from_numpy(x).to(tdt).reshape(n, -1, c)
+    dz3 = torch.from_numpy(dz).to(tdt).reshape(n, -1, c)
+    gamma, beta = torch.from_numpy(scale), torch.from_numpy(bias)
+    fwd = port_gn.group_norm_stats_plain(x3)
+    sums = port_gn.group_norm_bwd_stats_plain(x3, dz3, fwd, gamma, beta,
+                                              groups, 1e-5, silu)
+    got = port_gn.group_norm_bwd_dx_plain(x3, dz3, fwd, gamma, beta, sums,
+                                          groups, 1e-5, silu)
+    assert got.dtype == tdt and got.shape == x3.shape
+    atol = F32_TOL * max(1.0, np.abs(want).max()) if dtype == "float32" \
+        else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol)
+    # the wrapper's CPU path is the plain version
+    assert torch.equal(port_gn.group_norm_bwd_dx(
+        x3, dz3, fwd, gamma, beta, sums, groups, 1e-5, silu), got)
+
+
+@pytest.mark.parametrize("silu", [True, False])
+def test_backward_with_frozen_parameters_gives_dx_alone(silu):
+    """With scale and bias frozen (the VAE's and the UNet's), the backward
+    computes no dscale / dbias and gives the same dx as with them."""
+    shape, groups = (2, 8, 8, 16), 4
+    x, scale, bias, cot = _inputs(shape, seed=7)
+    cot = torch.from_numpy(cot)
+    dxs = []
+    for trainable in (True, False):
+        tx = torch.tensor(x, requires_grad=True)
+        ts, tb = (torch.tensor(a, requires_grad=trainable)
+                  for a in (scale, bias))
+        y = port_gn.group_norm_act(tx, ts, tb, groups, 1e-5, silu)
+        (y * cot).sum().backward()
+        assert (ts.grad is None) == (not trainable)
+        assert (tb.grad is None) == (not trainable)
+        dxs.append(tx.grad)
+    assert torch.equal(dxs[0], dxs[1])
 
 
 @pytest.mark.parametrize("silu", [True, False])
@@ -210,12 +265,13 @@ def test_rows_per_block_fills_the_card(n, rows, c, want_blocks):
 
 @pytest.mark.parametrize("bad", ["groups", "scale", "ndim", "rank3",
                                  "noncontig", "dz", "mu", "apply_sums",
-                                 "apply_groups", "apply_gamma"])
+                                 "apply_groups", "apply_gamma", "dx_sums",
+                                 "dx_groups", "dx_dz"])
 def test_wrappers_reject_bad_arguments(bad):
     x = torch.zeros(2, 4, 4, 8)
     scale, bias = torch.ones(8), torch.zeros(8)
     x3 = torch.zeros(2, 16, 8)
-    mu = torch.zeros(2, 8)
+    sums = torch.zeros(2, 2, 8)
     with pytest.raises((TypeError, ValueError)):
         if bad == "groups":
             port_gn.group_norm_act(x, scale, bias, 3, 1e-5, True)
@@ -229,11 +285,11 @@ def test_wrappers_reject_bad_arguments(bad):
         elif bad == "noncontig":
             port_gn.group_norm_stats(x3.transpose(1, 2))
         elif bad == "dz":
-            port_gn.group_norm_bwd_stats(x3, x3[:, :8].contiguous(), mu, mu,
-                                         scale, bias, True)
-        elif bad == "mu":
-            port_gn.group_norm_bwd_stats(x3, x3, mu[:1], mu, scale, bias,
-                                         True)
+            port_gn.group_norm_bwd_stats(x3, x3[:, :8].contiguous(), sums,
+                                         scale, bias, 4, 1e-5, True)
+        elif bad == "mu":  # the forward statistics the backward reads
+            port_gn.group_norm_bwd_stats(x3, x3, sums[:1], scale, bias, 4,
+                                         1e-5, True)
         elif bad == "apply_sums":
             port_gn.group_norm_apply(x3, torch.zeros(2, 8), scale, bias, 4,
                                      1e-5, True)
@@ -243,3 +299,12 @@ def test_wrappers_reject_bad_arguments(bad):
         elif bad == "apply_gamma":
             port_gn.group_norm_apply(x3, torch.zeros(2, 2, 8), scale.double(),
                                      bias, 4, 1e-5, True)
+        elif bad == "dx_sums":
+            port_gn.group_norm_bwd_dx(x3, x3, sums, scale, bias,
+                                      torch.zeros(2, 8), 4, 1e-5, True)
+        elif bad == "dx_groups":
+            port_gn.group_norm_bwd_dx(x3, x3, sums, scale, bias, sums, 3,
+                                      1e-5, True)
+        elif bad == "dx_dz":
+            port_gn.group_norm_bwd_dx(x3, x3.double(), sums, scale, bias,
+                                      sums, 4, 1e-5, True)

@@ -1,5 +1,5 @@
 """The port's kernel plumbing: import isolation, wrapper checks, and the
-six kernels against their plain versions on a card.
+seven kernels against their plain versions on a card.
 
 The kernel-vs-plain tests need an NVIDIA GPU (marker `cuda`) and skip
 without one; on the card they hold K1 to `composite_plain` at 1e-4 absolute
@@ -9,9 +9,11 @@ K2 to `composite_backward_plain` at 1e-4 of each column's max-|grad|, with
 at most 1e-3 of the rows past that (a pair flipped at the knife-edge moves
 a row by its whole contribution; atomics sum in no fixed order); K3 and K5
 to `group_norm_stats_plain` / `group_norm_bwd_stats_plain` at 1e-5 of the
-largest sum; K3a to `group_norm_apply_plain` within one bfloat16 ulp on all
-but 1e-4 of the outputs (bfloat16) or 1e-5 of max |y| (float32); K4 to `self_attention_plain` at 2^-7 of the largest output
-(one bfloat16 ulp at the peak).
+largest sum; K3a to `group_norm_apply_plain` and K5a to
+`group_norm_bwd_dx_plain` within one bfloat16 ulp on all but 1e-4 of the
+outputs (bfloat16) or 1e-5 of the largest output (float32); K4 to
+`self_attention_plain` at 2^-7 of the largest output (one bfloat16 ulp at
+the peak).
 """
 import os
 import subprocess
@@ -150,12 +152,11 @@ def test_guidance_wrappers_take_plain_on_the_cpu_and_do_not_count():
     kernels.reset_launch_counts()
     sums = groupnorm.group_norm_stats(x3)
     assert torch.equal(sums, groupnorm.group_norm_stats_plain(x3))
-    mu_c, rstd_c = groupnorm.group_stats(sums, x3.shape[1], 8, 1e-5)
     assert torch.equal(
-        groupnorm.group_norm_bwd_stats(x3, dz3, mu_c, rstd_c, gamma, beta,
+        groupnorm.group_norm_bwd_stats(x3, dz3, sums, gamma, beta, 8, 1e-5,
                                        True),
-        groupnorm.group_norm_bwd_stats_plain(x3, dz3, mu_c, rstd_c, gamma,
-                                             beta, True))
+        groupnorm.group_norm_bwd_stats_plain(x3, dz3, sums, gamma, beta, 8,
+                                             1e-5, True))
     assert torch.equal(
         groupnorm.group_norm_apply(x3, sums, gamma, beta, 8, 1e-5, True),
         groupnorm.group_norm_apply_plain(x3, sums, gamma, beta, 8, 1e-5,
@@ -165,21 +166,66 @@ def test_guidance_wrappers_take_plain_on_the_cpu_and_do_not_count():
     assert set(kernels.launch_counts().values()) == {0}
     assert set(kernels.launch_counts()) == {
         "rasterize_fwd", "rasterize_bwd", "groupnorm_fwd_stats",
-        "groupnorm_fwd_apply", "groupnorm_bwd_stats", "attention_fwd"}
+        "groupnorm_fwd_apply", "groupnorm_bwd_stats", "groupnorm_bwd_dx",
+        "attention_fwd"}
+
+
+def test_group_norm_bwd_dx_takes_plain_on_the_cpu_and_does_not_count():
+    """K5a's wrapper on CPU tensors is its plain version, and the op's
+    backward on CPU tensors launches nothing."""
+    x3, dz3, gamma, beta = random_groupnorm_args()
+    sums = groupnorm.group_norm_stats(x3)
+    kernels.reset_launch_counts()
+    for silu in (True, False):
+        s5 = groupnorm.group_norm_bwd_stats(x3, dz3, sums, gamma, beta, 8,
+                                            1e-5, silu)
+        assert torch.equal(
+            groupnorm.group_norm_bwd_dx(x3, dz3, sums, gamma, beta, s5, 8,
+                                        1e-5, silu),
+            groupnorm.group_norm_bwd_dx_plain(x3, dz3, sums, gamma, beta, s5,
+                                              8, 1e-5, silu))
+    x = x3.reshape(2, 37, 1, 48).requires_grad_(True)
+    y = groupnorm.group_norm_act(x, gamma, beta, 8, 1e-5, True)
+    (dx,) = torch.autograd.grad(y, x, dz3.reshape(y.shape))
+    assert torch.isfinite(dx).all()
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_group_norm_bwd_dx_never_falls_back_off_the_cpu():
+    """Tensors on any device but the CPU launch K5a or raise, and the
+    wrapper checks the arguments before the device: the meta device has no
+    kernel."""
+    x3, dz3, gamma, beta = random_groupnorm_args(device="meta")
+    sums = torch.empty((2, 2, 48), device="meta")
+    with pytest.raises(ValueError, match="no GroupNorm kernel"):
+        groupnorm.group_norm_bwd_dx(x3, dz3, sums, gamma, beta, sums, 8,
+                                    1e-5, True)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        groupnorm.group_norm_bwd_dx(x3.double(), dz3.double(), sums, gamma,
+                                    beta, sums, 8, 1e-5, True)
+    for args, what in (
+            ((x3, dz3, sums, gamma, beta, sums[:, :1], 8), "sums"),
+            ((x3, dz3, sums[:1], gamma, beta, sums, 8), "fwd_sums"),
+            ((x3, dz3, sums, gamma, beta, sums, 7), "groups"),
+            ((x3, dz3[:1], sums, gamma, beta, sums, 8), "dz3"),
+            ((x3, dz3, sums, gamma, beta, torch.zeros(2, 2, 48), 8),
+             "sums")):
+        with pytest.raises(ValueError, match=what):
+            groupnorm.group_norm_bwd_dx(*args, 1e-5, True)
 
 
 def test_guidance_wrappers_never_fall_back_off_the_cpu():
     """A tensor on any device but the CPU launches the kernel or raises
     (the meta device has no kernel)."""
     x3, dz3, gamma, beta = random_groupnorm_args(device="meta")
-    mu = torch.empty((2, 48), device="meta")
+    sums = torch.empty((2, 2, 48), device="meta")
     with pytest.raises(ValueError, match="no GroupNorm kernel"):
         groupnorm.group_norm_stats(x3)
     with pytest.raises(ValueError, match="no GroupNorm kernel"):
-        groupnorm.group_norm_bwd_stats(x3, dz3, mu, mu, gamma, beta, True)
+        groupnorm.group_norm_bwd_stats(x3, dz3, sums, gamma, beta, 8, 1e-5,
+                                       True)
     with pytest.raises(ValueError, match="no GroupNorm kernel"):
         groupnorm.group_norm_act(x3, gamma, beta, 8, 1e-5, True)
-    sums = torch.empty((2, 2, 48), device="meta")
     with pytest.raises(ValueError, match="no GroupNorm kernel"):
         groupnorm.group_norm_apply(x3, sums, gamma, beta, 8, 1e-5, True)
     q, k, v = random_qkv(device="meta", dtype=torch.bfloat16)
@@ -193,6 +239,7 @@ def test_guidance_wrappers_never_fall_back_off_the_cpu():
     (kernels.GROUPNORM_FWD_STATS, "groupnorm_stats"),
     (kernels.GROUPNORM_FWD_APPLY, "groupnorm_apply"),
     (kernels.GROUPNORM_BWD_STATS, "groupnorm_stats"),
+    (kernels.GROUPNORM_BWD_DX, "groupnorm_bwd_dx"),
     (kernels.ATTENTION_FWD, "attention_fwd"),
 ])
 def test_kernel_build_naming(kernel, stem):
@@ -296,6 +343,8 @@ def test_kernels_match_plain_on_a_2x2_rect_batch_of_8(cuda_device):
     (3, 50, 33, torch.float32),  # odd channel count: the scalar loads
     (4, 1024, 320, torch.bfloat16),
     (2, 64, 2560, torch.bfloat16),
+    (1, 65536, 128, torch.bfloat16),  # the VAE's 256^2 level
+    (2, 300, 96, torch.float32),  # 4-channel float32 vectors
 ])
 def test_groupnorm_kernels_match_plain(cuda_device, n, rows, c, dtype):
     x3, dz3, gamma, beta = random_groupnorm_args(cuda_device, 1, n, rows, c,
@@ -304,13 +353,12 @@ def test_groupnorm_kernels_match_plain(cuda_device, n, rows, c, dtype):
     got = groupnorm.group_norm_stats(x3)
     want = groupnorm.group_norm_stats_plain(x3)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    mu_c = want[:, 0] / rows
-    rstd_c = torch.rsqrt((want[:, 1] / rows - mu_c**2).clamp_min(0) + 1e-5)
+    # one group a channel: every channel normalized on its own
     for silu in (True, False):
-        got5 = groupnorm.group_norm_bwd_stats(x3, dz3, mu_c, rstd_c, gamma,
-                                              beta, silu)
-        want5 = groupnorm.group_norm_bwd_stats_plain(x3, dz3, mu_c, rstd_c,
-                                                     gamma, beta, silu)
+        got5 = groupnorm.group_norm_bwd_stats(x3, dz3, want, gamma, beta, c,
+                                              1e-5, silu)
+        want5 = groupnorm.group_norm_bwd_stats_plain(x3, dz3, want, gamma,
+                                                     beta, c, 1e-5, silu)
         assert float((got5 - want5).abs().max()) <= 1e-5 * float(
             want5.abs().max())
     torch.cuda.synchronize()
@@ -347,6 +395,38 @@ def test_groupnorm_apply_kernel_matches_plain(cuda_device, n, rows, c,
         else:
             assert float(err.max()) <= 1e-5 * float(want.abs().max())
     assert kernels.launch_counts()["groupnorm_fwd_apply"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,c,groups,dtype", [
+    (2, 37, 48, 8, torch.float32),  # odd rows
+    (3, 50, 33, 3, torch.float32),  # no 16-byte vectors: the scalar loop
+    (4, 1024, 320, 32, torch.bfloat16),  # a UNet shape
+    (1, 65536, 128, 32, torch.bfloat16),  # the VAE's 256^2 level
+])
+def test_groupnorm_bwd_dx_kernel_matches_plain(cuda_device, n, rows, c,
+                                               groups, dtype):
+    x3, dz3, gamma, beta = random_groupnorm_args(cuda_device, 4, n, rows, c,
+                                                 dtype)
+    fwd = groupnorm.group_norm_stats_plain(x3)
+    kernels.reset_launch_counts()
+    for silu in (True, False):
+        sums = groupnorm.group_norm_bwd_stats_plain(x3, dz3, fwd, gamma, beta,
+                                                    groups, 1e-5, silu)
+        got = groupnorm.group_norm_bwd_dx(x3, dz3, fwd, gamma, beta, sums,
+                                          groups, 1e-5, silu)
+        torch.cuda.synchronize()
+        want = groupnorm.group_norm_bwd_dx_plain(x3, dz3, fwd, gamma, beta,
+                                                 sums, groups, 1e-5, silu)
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            _, e = torch.frexp(want.float().abs().clamp_min(2.0 ** -126))
+            ulp = torch.ldexp(torch.ones_like(err), e - 8)
+            assert float((err > ulp).float().mean()) <= 1e-4
+        else:
+            assert float(err.max()) <= 1e-5 * float(want.abs().max())
+    assert kernels.launch_counts()["groupnorm_bwd_dx"] == 2
 
 
 @pytest.mark.cuda

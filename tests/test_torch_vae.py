@@ -69,6 +69,42 @@ def test_encoder_gradient_matches(pair):
     _close(x.grad, want, "d latents / d image")
 
 
+def test_norms_are_group_norm_act_and_convolutions_see_channels_last():
+    """No library GroupNorm is left: the encoder's and the decoder's norms
+    are GroupNormAct (SiLU fused but in the attention block's), and with
+    the weights in `channels_last`, as `build_guidance` puts them, every
+    convolution's input is `channels_last` in an encode, its backward and
+    a decode."""
+    from humangaussian_torch.ops.groupnorm import GroupNormAct
+
+    vae = port_vae.AutoencoderKL(port_vae.tiny_vae_config())
+    vae.to(memory_format=torch.channels_last)
+    assert not any(type(m) is torch.nn.GroupNorm for m in vae.modules())
+    # tiny widths: per resnet 2 norms; encoder 2 down resnets + mid 2
+    # resnets + attention + conv_norm_out, decoder 2 x 2 up resnets + mid
+    # + conv_norm_out
+    norms = [m for m in vae.modules() if isinstance(m, GroupNormAct)]
+    assert len(norms) == (2 * 2 + 2 * 2 + 1 + 1) + (4 * 2 + 2 * 2 + 1 + 1)
+    assert [m.silu for m in norms].count(False) == 2  # the attention blocks
+
+    seen = []
+
+    def hook(module, inputs, output):
+        seen.append(inputs[0].is_contiguous(memory_format=torch.channels_last))
+
+    for m in vae.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.register_forward_hook(hook)
+    convs = sum(isinstance(m, torch.nn.Conv2d) for m in vae.modules())
+    x = torch.rand(2, 16, 16, 3, requires_grad=True)
+    mean, logvar = vae.encode(x)
+    (mean.sum() + logvar.sum()).backward()
+    assert torch.isfinite(x.grad).all()
+    with torch.no_grad():
+        vae.decode(torch.randn(2, 8, 8, 4))
+    assert len(seen) == convs and all(seen)
+
+
 def test_logvar_is_clipped():
     vae = port_vae.AutoencoderKL(port_vae.tiny_vae_config())
     with torch.no_grad():
