@@ -85,33 +85,39 @@ source, started together), writes the assets, then:
    of the two products over 989 TFLOP/s, bytes over 3.35 TB/s),
    `F.scaled_dot_product_attention` as the library yardstick;
 11. writes seeded `unet_ema` and VAE state dicts in diffusers layout
-   (bfloat16, `torch.save`), builds the prior from them with
-   `apps.launch.build_guidance` on configs/avatar.yaml (899,719,048 UNet
-   parameters) and the prompt embeddings with `dummy_encode_fn(77, 1024)`,
-   holds K1 and K2 against their plain versions (phase 2's limits) on the
-   step's own batch (shape c: 8 orbit views of the avatar at 1024^2 with
-   configs/avatar.yaml's `system.rasterizer`, tile 32 and a 2x2 tile
-   rect) and times them there beside their bounds, then renders that
-   batch with `render_batch` (K1),
-   min-maxes the depth per image, calls `DualBranchGuidance.__call__` with
-   timesteps on both sides of 200 and backpropagates `loss_sds` to the
-   Gaussian parameters (K2): loss and gradients finite on every row (the
-   dead slots the PLY loader pads with included), image gradients
-   non-zero, the loss equal to the norms of `grad`; one step launches K1
-   and K2 once, K4 20 times (10 self-attention sites at 4096 tokens, 5 at
-   1024, 5 at 256), and, counted from the module trees, K3 and K3a once
-   per norm of one UNet forward (77) and of five VAE encoder passes (rgb,
-   depth, pose, and the rgb and depth encoders recomputed in the backward
-   under `remat_encode`: 5 x 22), K5 and K5a once per norm of the two
-   differentiated encoders (2 x 22). Times 3 steps end to end and staged
-   (render, encodes, UNet, loss + backward) beside those of the VAE on
-   the library GroupNorm, prints
-   peak memory and one profile (the top kernels by name, and by the
-   operator and input shapes that launched them), and times a VAE encode
-   with channels_last and with contiguous weights;
-12. runs `sample_joint` at batch 2 for 4 DDIM steps: 512^2 images and
-   depths finite and in [0, 1], K3 and K3a launched once per norm of 4
-   UNet forwards, one encode and two decodes, K4 4 x 20 times, K5 and K5a
+   (bfloat16, `torch.save`) and fills the prompt processor's cache with
+   `dummy_encode_fn(77, 1024)` (the card has no text encoder), then builds
+   the avatar system with `apps.launch.build_system` from
+   configs/avatar.yaml at full width, pointed at those files, the cache
+   and phase 4's SMPL-X stand-in (899,719,048 UNet parameters, capacity
+   524,288, 100,000 initial points); holds K1 and K2 against their plain
+   versions (phase 2's limits) on the step's own batch shape (shape c: 8
+   orbit views of the avatar PLY at 1024^2 with the training rasterizer,
+   tile 32 and a 2x2 tile rect) and times them there beside their bounds;
+   then drives `GaussianDreamerSystem.train_step` from `init_state`: one
+   checked step (cameras, pose images, timesteps and text drawn from the
+   state's generator; the metrics and every gradient row finite, the dead
+   slots included; Adam moved alive rows and left every dead slot as it
+   was; launches exactly K1 1, K2 1, K4 20 (10 self-attention sites at
+   4096 tokens, 5 at 1024, 5 at 256) and, counted from the module trees,
+   K3 and K3a once per norm of one UNet forward (77) and of five VAE
+   encoder passes (rgb, depth, pose, and the rgb and depth encoders
+   recomputed in the backward under `remat_encode`: 5 x 22), K5 and K5a
+   once per norm of the two differentiated encoders (2 x 22)); ms per
+   `train_step` over STEP_REPS steps after 2 warm-up steps (median, min,
+   max, CUDA events); the step staged by CUDA events recorded from the
+   system's and the guidance's own methods, wrapped on the instances
+   (inputs, render, three encodes, `compute_grad`, loss + backward, Adam +
+   statistics); one profiled step (device busy, idle share, top kernels by
+   name and by launching operator and input shapes, K1's and K2's device
+   ms); peak memory; the densify statistic's quantiles; the pose images
+   of 8 views timed with `_fma` and with plain float32 products (and the
+   pixels where they differ); and a VAE encode with channels_last and with
+   contiguous weights;
+12. runs `sample_joint` at batch 2 for 4 DDIM steps, conditioned on the
+   skeleton drawn from two validation views: 512^2 images and depths
+   finite and in [0, 1], K3 and K3a launched once per norm of 4 UNet
+   forwards, one encode and two decodes, K4 4 x 20 times, K5 and K5a
    never;
 13. differentiates the full-width UNet with respect to its input latents
    (batch 2, 64^2, bfloat16): K3, K3a, K5 and K5a launch once per norm
@@ -119,12 +125,27 @@ source, started together), writes the assets, then:
    full-width VAE at 64^2 images: the input gradient through K3 / K3a /
    K5 / K5a within 1e-3 of max-|grad| of the gradient through their
    plain versions;
+14. runs the avatar CLI in-process, `apps.launch.main` with
+   configs/avatar.yaml, `--train` and TRAINER_OVERRIDES at full width: 12
+   steps, validation renders at 6 and 12, clone + split at steps 4 and 8
+   and prune-only at 10 (the thresholds set as TRAINER_OVERRIDES
+   says); every density-control pass must change the alive count, both
+   clone and split act at 4 and 8, `it6-val.png`, `it12-val.png`, the
+   orbit video (120 views, 15 K1 launches), `metrics.csv` and `ckpts/last`
+   exist, `last.ply` reads back through `load_ply` with the run's alive
+   count, K1 launches once a step and once per chunk of a render_eval and
+   K2 once a step; then `--resume <save>/ckpts/last trainer.max_steps=13`
+   takes exactly one step. Prints the phase's wall seconds, the seconds
+   a step inside the loop and `finalize`'s seconds;
 and prints the `kernels` JSON line (all seven kernels, each with the
-launches of its own path: K1 and K2 phases 4 to 6, K3, K3a, K5, K5a and K4
-phase 11; K1's and K2's rows also carry `ms_guidance_batch`,
-`bound_ms_guidance_batch` and `bound_ms_guidance_batch_visits`, shape c)
-and, last, the device JSON line. `--only GROUP[,GROUP]` runs some phase
-groups alone and prints no result lines.
+launches of one `train_step` of phase 11, the main path; K1's row also
+carries `launches_serving_and_photo` (phases 4 to 6) and K2's
+`launches_photo` (phase 6); K1's and K2's rows also carry
+`ms_guidance_batch`, `bound_ms_guidance_batch` and
+`bound_ms_guidance_batch_visits`, shape c) and, last, the device JSON
+line. `--only GROUP[,GROUP]` (render, norm, attention, guidance, sample,
+unet-backward, trainer) runs some phase groups alone and prints no result
+lines.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Weights and data are random, made from fixed seeds.
@@ -133,6 +154,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import io
 import json
 import math
@@ -486,7 +508,7 @@ def profile_device_time(label, fn, top=8, by_shape=0):
         print(f"    {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  "
               f"{name[:90]}")
     if not by_shape:
-        return
+        return by_name
     # each device kernel hangs off the innermost operator that launched it
     groups = {}
     for e in prof.events():
@@ -501,6 +523,7 @@ def profile_device_time(label, fn, top=8, by_shape=0):
             groups.items(), key=lambda kv: -kv[1][0])[:by_shape]:
         print(f"    {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}% x{calls:<4d} "
               f"{op} {shapes[:110]}\n{'':22}{kname[:100]}")
+    return by_name
 
 
 def random_scene(n, seed, device, spread=0.5):
@@ -602,7 +625,33 @@ def write_assets(tmp: str, seed: int = 0):
 
 
 PHASE_GROUPS = ("render", "norm", "attention", "guidance", "sample",
-                "unet-backward")
+                "unet-backward", "trainer")
+AVATAR_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "avatar.yaml")
+PROMPT = "a person in a blue jacket"
+STEP_REPS = 10  # timed train_steps of phase 11, after 2 warm-up steps
+# phase 14: the avatar CLI. Density control fires clone + split at steps 4
+# and 8 and prune-only at 10. The SMPL-X stand-in's initial splats are
+# 0.8-3.7 mm, far below 1% of the shipped cameras_extent of 4.0 (the split
+# threshold), so the extent is lowered to 0.2 (a 2 mm threshold) for split
+# to act, and prune_size_threshold to 2.5 mm for prune-only to. The
+# densify statistic at full width sits above the shipped max_grad of 2e-4
+# (median 2.9e-4, 90% 4.0e-4 after 17 steps of phase 11, NVIDIA H100 80GB
+# HBM3, 700.00 W), so the threshold is raised to about its upper quartile:
+# each pass then grows the scene by about a quarter instead of doubling it
+TRAINER_STEPS = 12
+TRAINER_VAL = 6
+TRAINER_DENSIFY_STEPS = (4, 8, 10)
+TRAINER_MAX_GRAD = 3.5e-4
+TRAINER_OVERRIDES = (
+    f"trainer.max_steps={TRAINER_STEPS}",
+    f"trainer.val_check_interval={TRAINER_VAL}", "trainer.log_every=1",
+    "system.densify_prune_start_step=3", "system.densify_prune_interval=4",
+    "system.densify_prune_end_step=9", "system.prune_only_start_step=9",
+    "system.prune_only_interval=5", "system.prune_only_end_step=13",
+    f"system.max_grad={TRAINER_MAX_GRAD:.1e}",  # a YAML float
+    "system.cameras_extent=0.2", "system.prune_size_threshold=2.5e-3",
+)
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate, H100 SXM data sheet
 # the main path's extremes for K3 / K3a / K5: [samples, rows, channels] at
 # batch 24 (3 x 8 latents): the first level's 64^2 rows at 320 and at the
@@ -623,16 +672,13 @@ ATTN_TOL = 2.0 ** -7  # K4 vs plain, of max |out|: one bf16 ulp of the peak
 # the dual-branch SD2 unet_ema with its two 8-channel conv_in (899,696,008
 # when both are built for 4 input channels)
 UNET_PARAMS = 899_696_008 + 2 * 4 * 320 * 9
-GUIDANCE_BATCH = 8  # configs/avatar.yaml's camera batch
-GUIDANCE_T = (50, 150, 300, 450, 600, 750, 900, 980)  # both sides of 200
 ATTN_PER_UNET_FORWARD = 20  # 10 sites at 4096 tokens, 5 at 1024, 5 at 256
 UNET_GRAD_TOL = 1e-3  # f32 UNet input gradient, kernels vs plain versions
 VAE_GRAD_TOL = 1e-3  # f32 VAE input gradient, kernels vs plain versions
 # this phase's numbers with the VAE on the library GroupNorm in contiguous
 # NCHW, the layout before its norms became GroupNormAct (NVIDIA H100 80GB
 # HBM3, 700.00 W; PERF.md §5)
-LIBRARY_NORM_VAE_MS = {"step": 576.291, "three encodes": 157.893,
-                       "encode forward": 51.908,
+LIBRARY_NORM_VAE_MS = {"encode forward": 51.908,
                        "encode forward + backward": 100.117}
 
 
@@ -1149,10 +1195,11 @@ def seeded_state_dict(module_fn, seed, dev):
             for k, v in module.state_dict().items()}
 
 
-def build_prior(dev, tmp):
-    """Seeded unet_ema and VAE weight files in diffusers layout, the prior
-    built from them by the launcher, and the prompt embeddings."""
-    from humangaussian_torch.apps import launch
+def write_prior_files(dev, tmp) -> list:
+    """Seeded unet_ema and VAE weight files in diffusers layout and the
+    prompt cache filled by `dummy_encode_fn(77, 1024)` (the card has no
+    text encoder); returns the configs/avatar.yaml overrides that point the
+    launcher at them."""
     from humangaussian_torch.config import load_config
     from humangaussian_torch.guidance.prompt import (
         PromptProcessor,
@@ -1165,7 +1212,7 @@ def build_prior(dev, tmp):
     )
     from humangaussian_torch.guidance.vae import AutoencoderKL, VAEConfig
 
-    print("building the prior: seeded weights -> files -> build_guidance")
+    print("writing the prior: seeded weights -> diffusers files")
     t0 = time.perf_counter()
     model_key = os.path.join(tmp, "joint_model")
     vae_key = os.path.join(tmp, "vae")
@@ -1177,52 +1224,47 @@ def build_prior(dev, tmp):
                             "diffusion_pytorch_model.bin"))
     torch.save(seeded_state_dict(lambda: AutoencoderKL(VAEConfig()), 1, dev),
                os.path.join(vae_key, "diffusion_pytorch_model.bin"))
-    t1 = time.perf_counter()
-    # the shipped avatar configuration, pointed at the seeded files
-    repo = os.path.dirname(os.path.abspath(__file__))
-    cfg = load_config(
-        os.path.join(repo, "configs", "avatar.yaml"),
-        [f"system.guidance.model_key={model_key}",
-         f"system.guidance.vae_key={vae_key}",
-         "system.prompt_processor.prompt=a person in a blue jacket"])
-    guidance = launch.build_guidance(cfg, dev)
+    cache = os.path.join(tmp, "text_embeddings")
+    overrides = [f"system.guidance.model_key={model_key}",
+                 f"system.guidance.vae_key={vae_key}",
+                 f"system.prompt_processor.prompt={PROMPT}",
+                 f"system.prompt_processor.cache_dir={cache}"]
+    pp = load_config(AVATAR_YAML, overrides)["system"]["prompt_processor"]
+    PromptProcessor(
+        PromptProcessorConfig(
+            prompt=pp["prompt"], negative_prompt=pp["negative_prompt"],
+            model_path=pp["pretrained_model_name_or_path"], cache_dir=cache),
+        dummy_encode_fn(77, 1024), device=dev)()
+    print(f"  files and prompt cache written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return overrides
+
+
+def build_avatar_system(dev, overrides):
+    """`apps.launch.build_system` on configs/avatar.yaml (full width),
+    pointed at the seeded files, the prompt cache and the SMPL-X stand-in."""
+    from humangaussian_torch.apps import launch
+    from humangaussian_torch.config import load_config
+
+    t0 = time.perf_counter()
+    system = launch.build_system(load_config(AVATAR_YAML, overrides), dev)
     torch.cuda.synchronize()
+    guidance = system.guidance
     n_unet = sum(p.numel() for p in guidance.unet.parameters())
     n_vae = sum(p.numel() for p in guidance.vae.parameters())
-    print(f"  unet_ema {n_unet} parameters ({guidance.unet.dtype}), VAE "
-          f"{n_vae}; files written in {t1 - t0:.1f} s, built in "
-          f"{time.perf_counter() - t1:.1f} s")
+    print(f"  build_system: unet_ema {n_unet} parameters "
+          f"({guidance.unet.dtype}), VAE {n_vae}, skeleton "
+          f"{system.skeleton.vertices.shape[0]} vertices, capacity "
+          f"{system.cfg.capacity}, built in {time.perf_counter() - t0:.1f} s")
     check(n_unet == UNET_PARAMS, f"UNet has {n_unet} parameters")
     check(guidance.unet.conv_norm_out.weight.dtype == torch.float32
           and guidance.vae.encoder.conv_norm_out.weight.dtype
           == torch.float32, "GroupNorm parameters are not float32")
     check(guidance.vae.encoder.conv_in.weight.is_contiguous(
         memory_format=torch.channels_last), "VAE weights not channels_last")
-    pp = cfg["system"]["prompt_processor"]
-    embeddings = PromptProcessor(
-        PromptProcessorConfig(
-            prompt=pp["prompt"], negative_prompt=pp["negative_prompt"],
-            model_path=pp["pretrained_model_name_or_path"],
-            cache_dir=os.path.join(tmp, "text_embeddings")),
-        dummy_encode_fn(77, 1024), device=dev)()
-    check(embeddings.text_vd.shape == (4, 77, 1024), "embedding shape")
-    return guidance, embeddings
-
-
-def pose_stand_in(batch, size, dev, seed=11):
-    """A seeded stand-in for the skeleton pose render (coloured bars on
-    black): the pose image is conditioning only and takes no gradient."""
-    rng = np.random.default_rng(seed)
-    img = np.zeros((batch, size, size, 3), np.float32)
-    for i in range(batch):
-        for _ in range(18):
-            x0, y0 = rng.integers(0, size - size // 16, 2)
-            w = rng.integers(size // 128 + 1, size // 40 + 2)
-            h = rng.integers(size // 16, size // 4)
-            if rng.random() < 0.5:
-                w, h = h, w
-            img[i, y0:y0 + h, x0:x0 + w] = rng.random(3)
-    return torch.from_numpy(img).to(dev)
+    check(system.prompt_embeddings.text_vd.shape == (4, 77, 1024),
+          "embedding shape")
+    return system
 
 
 def guidance_batch_kernels(avatar, cams, rcfg, bg) -> dict:
@@ -1278,106 +1320,79 @@ def guidance_batch_kernels(avatar, cams, rcfg, bg) -> dict:
             "k2_bound": n2[0], "k2_bound_visits": b2[0]}
 
 
-def guidance_phase(dev, guidance, embeddings, assets):
-    """Phase 11: the avatar trainer's guidance step at full width, joined
-    to the batched render: 8 orbit views at 1024^2 (K1), per-image min-max
-    depth, `DualBranchGuidance.__call__` (K3, K3a, K4 in the UNet), and
-    `loss_sds` backpropagated to the Gaussian parameters (K2), rendered
-    with configs/avatar.yaml's training rasterizer. Returns the launch
-    counts of one step and K1's and K2's numbers on its batch."""
+def train_step_phase(dev, system, assets):
+    """Phase 11: `GaussianDreamerSystem.train_step` of configs/avatar.yaml
+    at full width. Returns the launch counts of one step, K1's and K2's
+    numbers on the guidance batch (shape c) and the densify statistic's
+    quantiles."""
     from humangaussian_torch import kernels
-    from humangaussian_torch.apps.launch import _take
-    from humangaussian_torch.config import load_config
     from humangaussian_torch.core.camera import camera_from_c2w
-    from humangaussian_torch.data.cameras import (
-        RandomCameraConfig,
-        eval_camera_batch,
-    )
-    from humangaussian_torch.guidance.dual_branch import (
-        DEPTH_MEAN,
-        DEPTH_STD,
-        RGB_MEAN,
-        RGB_STD,
-        WHOLE_MEAN,
-        WHOLE_STD,
-        resize_bilinear,
-    )
+    from humangaussian_torch.data.cameras import eval_camera_batch
+    from humangaussian_torch.guidance.dual_branch import resize_bilinear
     from humangaussian_torch.io.ply import load_ply
-    from humangaussian_torch.ops.projection import RasterizeConfig
-    from humangaussian_torch.render import render_batch
 
-    print(f"phase 11: the guidance step (batch {GUIDANCE_BATCH}, {SIZE}^2 "
-          f"renders, 512^2 encodes, 3 x {GUIDANCE_BATCH} x 64^2 latents)")
-    avatar = load_ply(assets[1], device=dev)
-    guidance_cfg = load_config(os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "configs", "avatar.yaml"))
-    orbit = eval_camera_batch(RandomCameraConfig(), "test", device=dev)
-    pick = torch.arange(GUIDANCE_BATCH, device=dev) * (
-        orbit.c2w.shape[0] // GUIDANCE_BATCH)
-    cams = camera_from_c2w(orbit.c2w[pick], orbit.fovy[pick], SIZE, SIZE)
-    # the training rasterizer of the shipped configuration (2x2 tile rect)
-    rcfg = _take(RasterizeConfig, guidance_cfg["system"]["rasterizer"])
+    cc = system.camera_cfg
+    print(f"phase 11: GaussianDreamerSystem.train_step (batch "
+          f"{cc.batch_size}, {cc.height}^2 renders, capacity "
+          f"{system.cfg.capacity}, {system.cfg.pts_num} initial points, "
+          f"pose images {system.cfg.pose_image_size}^2)")
+    rcfg = system.raster_cfg
     print(f"  rasterizer: tile {rcfg.tile}, max_tiles_per_gaussian "
           f"{rcfg.max_tiles_per_gaussian}")
-    white = torch.ones(3, device=dev)
-    batch_row = guidance_batch_kernels(avatar, cams, rcfg, white)
-    pose = pose_stand_in(GUIDANCE_BATCH, SIZE, dev)
-    text = embeddings.get_text_embeddings(orbit.elevation[pick],
-                                          orbit.azimuth[pick])
-    check(text.shape == (3 * GUIDANCE_BATCH, 77, 1024), "text batch shape")
-    t = torch.tensor(GUIDANCE_T, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(12)
-    cfg = guidance.cfg
+    # shape (c): K1 and K2 vs plain on the avatar PLY's 8 orbit views
+    avatar = load_ply(assets[1], device=dev)
+    orbit = eval_camera_batch(cc, "test", device=dev)
+    pick = torch.arange(cc.batch_size, device=dev) * (
+        orbit.c2w.shape[0] // cc.batch_size)
+    cams = camera_from_c2w(orbit.c2w[pick], orbit.fovy[pick], SIZE, SIZE)
+    batch_row = guidance_batch_kernels(avatar, cams, rcfg,
+                                       torch.ones(3, device=dev))
+    del avatar
 
-    def render_views(leaves):
-        out = render_batch(avatar.replace_params(leaves), cams, white,
-                           cfg=rcfg)
-        depth = out["depth"][..., None]
-        dmin = depth.amin(dim=(1, 2, 3), keepdim=True)
-        dmax = depth.amax(dim=(1, 2, 3), keepdim=True)
-        depth3 = ((depth - dmin) / (dmax - dmin + 1e-10)).expand(-1, -1, -1, 3)
-        return out["image"], depth3
+    t0 = time.perf_counter()
+    state = system.init_state(seed=0)
+    torch.cuda.synchronize()
+    print(f"  init_state: {int(state.scene.alive.sum())} alive of "
+          f"{state.scene.capacity} slots in {time.perf_counter() - t0:.1f} s")
 
-    def fresh_leaves():
-        return {k: v.detach().requires_grad_(True)
-                for k, v in avatar.params().items()}
+    # -- one step, checked -------------------------------------------------
+    captured = {}
+    own = system.loss_and_grads
 
-    # -- one step, checked ------------------------------------------------
+    def capture(st, inputs):
+        captured["inputs"] = inputs
+        captured["out"] = own(st, inputs)
+        return captured["out"]
+
+    system.loss_and_grads = capture
+    before = {k: v.clone() for k, v in state.scene.params().items()}
+    alive = state.scene.alive.clone()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    leaves = fresh_leaves()
-    rgb, depth3 = render_views(leaves)
-    rgb.retain_grad()
-    depth3.retain_grad()
-    out = guidance(pose, rgb, depth3, text, t, gen)
-    out["loss_sds"].backward()
+    state, metrics = system.train_step(state)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    del system.loss_and_grads
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    loss = float(out["loss_sds"].detach())
-    grad = out["grad"]
-    print(f"  loss_sds {loss:.6f}, grad_norm {float(out['grad_norm']):.6f}, "
-          f"launches {counts}, peak memory {peak_gb:.2f} GiB")
-    check(math.isfinite(loss) and bool(torch.isfinite(grad).all()),
-          "non-finite loss or grad")
-    check(grad.shape == (GUIDANCE_BATCH, 64, 64, 8), f"grad {grad.shape}")
-    # latents - target is grad by construction, so the loss is its norms
-    rebuilt = float((0.5 * (grad[..., :4] ** 2).sum()
-                     + cfg.lw_depth * (grad[..., 4:] ** 2).sum())
-                    / GUIDANCE_BATCH)
-    print(f"  loss rebuilt from grad {rebuilt:.6f}")
-    check(abs(rebuilt - loss) <= 1e-4 * abs(loss), "loss is not grad's norm")
-    for name, g in (("rgb", rgb.grad), ("depth", depth3.grad)):
-        check(g is not None and bool(torch.isfinite(g).all()),
-              f"d loss / d {name}: non-finite")
-        check(float(g.abs().max()) > 0, f"d loss / d {name} is zero")
-        print(f"  d loss / d {name}: max {float(g.abs().max()):.3e}")
-    # every row, the dead slots the PLY loader pads with zero quaternions
-    # included
+    loss, _aux, pgrads, mgrad = captured.pop("out")
+    inputs = captured.pop("inputs")
+    row = {k: float(v) for k, v in metrics.items()}
+    print(f"  step 1: " + ", ".join(f"{k} {v:.6g}" for k, v in row.items())
+          + f"; peak memory {peak_gb:.2f} GiB")
+    print(f"  inputs: t {inputs.t.tolist()}, azimuth "
+          f"{[round(a, 1) for a in inputs.cameras.azimuth.tolist()]}, "
+          f"head {bool(inputs.cameras.is_head)}, back "
+          f"{bool(inputs.cameras.is_back)}, pose images "
+          f"{tuple(inputs.pose.shape)} covering "
+          f"{float((inputs.pose.amax(-1) > 0).float().mean()):.4f}")
+    check(all(math.isfinite(v) for v in row.values()), "non-finite metric")
+    check(inputs.pose.shape == (cc.batch_size, system.cfg.pose_image_size,
+                                system.cfg.pose_image_size, 3),
+          "pose image shape")
+    check(float(inputs.pose.amax()) > 0, "empty pose images")
     reached = False
-    for name, leaf in leaves.items():
-        check(leaf.grad is not None, f"d loss / d {name}: no gradient")
-        g = leaf.grad
+    for name, g in [*pgrads.items(), ("means2d", mgrad)]:
         check(bool(torch.isfinite(g).all()),
               f"d loss / d {name}: {int((~torch.isfinite(g)).sum())} "
               f"non-finite values")
@@ -1385,77 +1400,148 @@ def guidance_phase(dev, guidance, embeddings, assets):
         reached = reached or peak > 0
         print(f"  d loss / d {name}: max {peak:.3e}")
     check(reached, "no gradient reached the Gaussians")
+    moved = 0
+    for name, v in state.scene.params().items():
+        if not v.numel():
+            continue
+        delta = (v - before[name]).abs().flatten(1).amax(dim=1)
+        check(float(delta[~alive].max()) == 0.0,
+              f"Adam moved dead slots of {name}")
+        moved = max(moved, int((delta[alive] > 0).sum()))
+    print(f"  Adam moved {moved} of {int(alive.sum())} alive rows; dead "
+          f"slots unchanged")
+    check(moved > 0, "Adam moved no alive row")
+    del before, pgrads, mgrad, loss, inputs
     # from the module trees: one UNet forward; encoder passes for rgb,
     # depth and pose, plus the recomputation of the two differentiated
     # ones in the backward under remat_encode; two encoder backwards
+    guidance = system.guidance
     unet_norms = norms_in(guidance.unet)
     enc_norms = norms_in(guidance.vae.encoder)
-    passes = 3 + (2 if cfg.remat_encode else 0)
+    passes = 3 + (2 if guidance.cfg.remat_encode else 0)
     forward = unet_norms + passes * enc_norms
     want = {"rasterize_fwd": 1, "rasterize_bwd": 1,
             "groupnorm_fwd_stats": forward, "groupnorm_fwd_apply": forward,
             "groupnorm_bwd_stats": 2 * enc_norms,
             "groupnorm_bwd_dx": 2 * enc_norms,
             "attention_fwd": ATTN_PER_UNET_FORWARD}
-    print(f"  expected launches: {unet_norms} UNet norms + {passes} encoder "
-          f"passes x {enc_norms} norms forward, 2 x {enc_norms} backward")
+    print(f"  launches {counts}; expected: {unet_norms} UNet norms + "
+          f"{passes} encoder passes x {enc_norms} norms forward, 2 x "
+          f"{enc_norms} backward")
     check(counts == want, f"launches {counts}, want {want}")
-    del out, rgb, depth3, leaves, grad
 
-    # -- 3 steps end to end, then 3 staged by CUDA events -----------------
+    # -- ms per train_step: 2 warm-up steps, then STEP_REPS timed ----------
     def step():
-        leaves = fresh_leaves()
-        rgb, depth3 = render_views(leaves)
-        guidance(pose, rgb, depth3, text, t, gen)["loss_sds"].backward()
+        nonlocal state
+        state, _ = system.train_step(state)
 
-    step_ms = cuda_ms(step, reps=3, warmup=0)
+    for _ in range(2):
+        step()
+    times = []
+    for _ in range(STEP_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    step_ms = statistics.median(times)
+    print(f"  ms per train_step over {STEP_REPS} steps: median "
+          f"{step_ms:.3f}, min {min(times):.3f}, max {max(times):.3f}")
 
-    def staged():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        leaves = fresh_leaves()
-        rgb, depth3 = render_views(leaves)
-        ev[1].record()
-        lat = guidance.encode_images(resize_bilinear(rgb, cfg.image_size), gen)
-        dlat = (guidance.encode_images(
-            resize_bilinear(depth3, cfg.image_size), gen)
-            - DEPTH_MEAN) / DEPTH_STD * RGB_STD + RGB_MEAN
-        with torch.no_grad():
-            whole = (guidance.encode_images(
-                resize_bilinear(pose, cfg.image_size), gen)
-                - WHOLE_MEAN) / WHOLE_STD * RGB_STD + RGB_MEAN
-        ev[2].record()
-        with torch.no_grad():
-            grad = guidance.compute_grad(lat.detach(), dlat.detach(), whole,
-                                         t, text, gen)
-        ev[3].record()
-        loss = (0.5 * ((lat - (lat - grad[..., :4]).detach()) ** 2).sum()
-                + cfg.lw_depth
-                * ((dlat - (dlat - grad[..., 4:]).detach()) ** 2).sum()
-                ) / GUIDANCE_BATCH
-        loss.backward()
-        ev[4].record()
-        ev[4].synchronize()
-        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    # -- staged by CUDA events: the system's and the guidance's own
+    # methods, wrapped on the instances ------------------------------------
+    marks = []
 
-    stages = [statistics.median(x) for x in zip(*[staged() for _ in range(3)])]
-    print(f"  guidance step end to end: {step_ms:.3f} ms (render + "
-          f"__call__ + backward, encodes recomputed in the backward; "
-          f"{LIBRARY_NORM_VAE_MS['step']} with the library-norm VAE); "
-          f"staged "
-          f"without recomputation: render {stages[0]:.3f} ms, three "
-          f"encodes {stages[1]:.3f} ms "
-          f"({LIBRARY_NORM_VAE_MS['three encodes']} with the library-norm "
-          f"VAE), compute_grad (UNet on "
-          f"{3 * GUIDANCE_BATCH} latents) {stages[2]:.3f} ms, loss + "
-          f"backward {stages[3]:.3f} ms")
-    profile_device_time("1 guidance step", step, top=14, by_shape=16)
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    def wrap(obj, name, before_too=False):
+        fn = getattr(obj, name)
+
+        def wrapped(*a, **k):
+            if before_too:
+                mark()
+            out = fn(*a, **k)
+            mark()
+            return out
+
+        setattr(obj, name, wrapped)
+
+    stage_names = ("inputs", "render", "three encodes", "compute_grad",
+                   "loss + backward", "Adam + statistics")
+    wrap(system, "sample_step_inputs")
+    wrap(system, "render_batch")
+    wrap(guidance, "compute_grad", before_too=True)
+    wrap(system, "loss_and_grads")
+    staged = []
+    for _ in range(3):
+        marks.clear()
+        mark()
+        step()
+        mark()
+        marks[-1].synchronize()
+        check(len(marks) == 7, f"{len(marks)} stage marks")
+        staged.append([marks[i].elapsed_time(marks[i + 1])
+                       for i in range(6)])
+    for obj, name in ((system, "sample_step_inputs"),
+                      (system, "render_batch"), (guidance, "compute_grad"),
+                      (system, "loss_and_grads")):
+        delattr(obj, name)
+    stages = [statistics.median(x) for x in zip(*staged)]
+    print("  staged (medians of 3, CUDA events): " + ", ".join(
+        f"{n} {v:.3f} ms" for n, v in zip(stage_names, stages))
+        + f"; sum {sum(stages):.3f}")
+
+    by_name = profile_device_time("1 train_step", step, top=16,
+                                  by_shape=16) or {}
+    for label, key in (("K1", "rasterize_fwd"), ("K2", "rasterize_bwd")):
+        ms = sum(us for n, us in by_name.items() if key in n) / 1e3
+        print(f"  {label} device time in the profiled step: {ms:.4f} ms")
+
+    # the densify statistic after these steps, for the trainer phase's
+    # threshold
+    ds = state.densify
+    vis = ds.denom > 0
+    stat = (ds.grad_accum[vis] / ds.denom[vis]).float()
+    qs = torch.quantile(stat[:1 << 24].cpu(),
+                        torch.tensor([0.5, 0.9, 0.99])).tolist()
+    scales = state.scene.scales.amax(-1)[state.scene.alive]
+    print(f"  densify statistic over {int(vis.sum())} visible Gaussians "
+          f"after {state.step} steps: median {qs[0]:.3e}, 90% {qs[1]:.3e}, "
+          f"99% {qs[2]:.3e} (max_grad {system.cfg.max_grad}); max scale "
+          f"median {float(scales.median()):.3e}")
+
+    # the pose images' rounding: `_fma` (float64 products, the reference's
+    # contracted rounding) against plain float32 products, on 8 orbit views
+    from humangaussian_torch.smplx import pose_image
+
+    views = orbit._replace(c2w=orbit.c2w[pick], mvp_mtx=orbit.mvp_mtx[pick],
+                           azimuth=orbit.azimuth[pick])
+    pose = system.pose_images(views)
+    fma_ms = cuda_ms(lambda: system.pose_images(views), reps=10, inner=3)
+    own_fma = pose_image._fma
+    pose_image._fma = lambda a, b, c: a * b + c
+    try:
+        plain_pose = system.pose_images(views)
+        f32_ms = cuda_ms(lambda: system.pose_images(views), reps=10, inner=3)
+    finally:
+        pose_image._fma = own_fma
+    differ = int((plain_pose != pose).any(-1).sum())
+    print(f"  pose images of {cc.batch_size} views at "
+          f"{system.cfg.pose_image_size}^2: {fma_ms:.3f} ms with _fma, "
+          f"{f32_ms:.3f} ms with float32 products ({differ} of "
+          f"{plain_pose[..., 0].numel()} pixels differ)")
+    del plain_pose
 
     # the VAE's layout: one encode forward, then forward + backward, with
     # channels_last weights (as built) against contiguous ones (the
-    # activations stay channels_last: the input is a channels_last view
-    # and every GroupNormAct returns one)
-    img = resize_bilinear(pose, cfg.image_size)
+    # activations stay channels_last)
+    img = resize_bilinear(pose, guidance.cfg.image_size)
+    gen = torch.Generator(device=dev).manual_seed(12)
     for fmt in (torch.channels_last, torch.contiguous_format,
                 torch.channels_last):
         guidance.vae.to(memory_format=fmt)
@@ -1466,7 +1552,7 @@ def guidance_phase(dev, guidance, embeddings, assets):
 
         with torch.no_grad():
             fwd_ms = cuda_ms(lambda: guidance.encode_images(img, gen), reps=3)
-        print(f"  VAE encode of {GUIDANCE_BATCH} x 512^2, weights {fmt}: "
+        print(f"  VAE encode of {cc.batch_size} x 512^2, weights {fmt}: "
               f"forward {fwd_ms:.3f} ms, forward + backward "
               f"{cuda_ms(encode_backward, reps=3):.3f} ms (the "
               f"library-norm VAE, contiguous: "
@@ -1475,12 +1561,139 @@ def guidance_phase(dev, guidance, embeddings, assets):
     return counts, batch_row
 
 
-def sample_phase(dev, guidance, embeddings):
-    """Phase 12: `sample_joint`, batch 2, 4 DDIM steps, 512^2 outputs."""
+def trainer_phase(dev, tmp, overrides):
+    """Phase 14: the avatar CLI at full width, `apps.launch.main` on
+    configs/avatar.yaml with --train for TRAINER_STEPS steps, then
+    --resume for one more."""
     from humangaussian_torch import kernels
+    from humangaussian_torch.apps import launch
+    from humangaussian_torch.config import load_config
+    from humangaussian_torch.data.cameras import RandomCameraConfig
+    from humangaussian_torch.io.ply import load_ply
+    from humangaussian_torch.train import loop
+
+    print(f"phase 14: apps.launch --train (gaussiandreamer-system), "
+          f"{TRAINER_STEPS} steps")
+    args = ["--config", AVATAR_YAML, "--train", "--device", dev.type,
+            f"exp_root_dir={tmp}/avatar_runs", *overrides,
+            *TRAINER_OVERRIDES]
+    seconds = {}
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t
+            return out
+        return wrapped
+
+    own = (loop.run_training, loop.finalize)
+    loop.run_training = timed("run_training", own[0])
+    loop.finalize = timed("finalize", own[1])
+    kernels.reset_launch_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            trial = launch.main(args)
+        torch.cuda.synchronize()
+    finally:
+        loop.run_training, loop.finalize = own
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    text = log.getvalue()
+    print("  " + "\n  ".join(text.strip().splitlines()[-8:]))
+    save = os.path.join(trial, "save")
+    with open(os.path.join(save, "metrics.csv")) as f:
+        rows = {int(r["step"]): r for r in csv.DictReader(f)}
+    check(sorted(rows) == list(range(1, TRAINER_STEPS + 1)),
+          f"logged steps {sorted(rows)}")
+    alive = {s: int(float(r["n_alive"])) for s, r in rows.items()}
+    per_step = [float(r["steps_per_s"]) for s, r in sorted(rows.items())
+                if s > 2]
+    print(f"  alive by step {alive}")
+    for s in TRAINER_DENSIFY_STEPS:
+        r = rows[s]
+        cloned, split = int(float(r["n_cloned"])), int(float(r["n_split"]))
+        pruned = int(float(r["n_pruned"]))
+        print(f"  step {s}: cloned {cloned}, split {split}, pruned "
+              f"{pruned}, dropped {int(float(r['n_dropped']))}")
+        check(alive[s + 1] != alive[s],
+              f"the density-control pass at step {s} changed nothing")
+        if s != TRAINER_DENSIFY_STEPS[-1]:
+            check(cloned > 0 and split > 0,
+                  f"step {s}: clone and split did not both act")
+        else:
+            check(pruned > 0 and cloned == split == 0,
+                  f"step {s}: prune-only did not prune")
+    files = set(os.listdir(save))
+    for name in ("last.ply", "metrics.csv", *(
+            f"it{s}-val.png" for s in range(TRAINER_VAL, TRAINER_STEPS + 1,
+                                            TRAINER_VAL))):
+        check(name in files, f"{name} missing")
+    video = [f for f in files if f.startswith("orbit.")]
+    check(len(video) == 1, f"orbit video {video}")
+    check(os.path.exists(os.path.join(save, "ckpts", "last", "state.pt")),
+          "ckpts/last missing")
+    # one K1 launch a step and one per chunk of batch_size views of each
+    # validation render and of the test orbit
+    cc = launch._take(RandomCameraConfig,
+                      load_config(AVATAR_YAML, overrides)["data"])
+    val_launches = (TRAINER_STEPS // TRAINER_VAL) * -(-cc.n_val_views
+                                                      // cc.batch_size)
+    orbit_launches = -(-cc.n_test_views // cc.batch_size)
+    want_fwd = TRAINER_STEPS + val_launches + orbit_launches
+    print(f"  launches {launches} (K1: {TRAINER_STEPS} steps + "
+          f"{val_launches} for the validation renders + {orbit_launches} "
+          f"orbit batches of {cc.batch_size})")
+    check(launches["rasterize_fwd"] == want_fwd
+          and launches["rasterize_bwd"] == TRAINER_STEPS,
+          f"trainer launches {launches}")
+    final = load_ply(os.path.join(save, "last.ply"), device=dev)
+    last_alive = alive[TRAINER_STEPS]
+    check(final.num_alive == last_alive,
+          f"last.ply holds {final.num_alive} Gaussians, the run "
+          f"{last_alive}")
+    check(all(bool(torch.isfinite(v[final.alive]).all())
+              for v in final.params().values()), "last.ply: non-finite")
+    print(f"  {video[0]}, last.ply {final.num_alive} Gaussians; phase wall "
+          f"{wall:.1f} s (run_training {seconds['run_training']:.1f} s, "
+          f"finalize {seconds['finalize']:.1f} s); inside the loop "
+          f"{statistics.median(per_step):.3f} steps/s (median over logged "
+          f"steps 3-{TRAINER_STEPS}: "
+          f"{1e3 / statistics.median(per_step):.1f} ms a step), "
+          f"{seconds['run_training'] / TRAINER_STEPS:.3f} s a step over the "
+          f"whole loop (validation renders and density control included)")
+    del final
+
+    # --resume: exactly one more step
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        trial2 = launch.main(["--resume",
+                              os.path.join(save, "ckpts", "last"), *args,
+                              f"trainer.max_steps={TRAINER_STEPS + 1}"])
+    torch.cuda.synchronize()
+    check(f"at step {TRAINER_STEPS}" in log.getvalue(), "resume message")
+    with open(os.path.join(trial2, "save", "metrics.csv")) as f:
+        steps2 = [int(r["step"]) for r in csv.DictReader(f)]
+    check(steps2 == [TRAINER_STEPS + 1], f"resumed run logged {steps2}")
+    print(f"  --resume took exactly step {steps2[0]} "
+          f"({time.perf_counter() - t0:.1f} s with build and finalize)")
+
+
+def sample_phase(dev, system):
+    """Phase 12: `sample_joint`, batch 2, 4 DDIM steps, 512^2 outputs,
+    conditioned on the skeleton drawn from two validation views."""
+    from humangaussian_torch import kernels
+    from humangaussian_torch.data.cameras import eval_camera_batch
 
     print("phase 12: sample_joint (batch 2, 4 DDIM steps)")
-    pose = pose_stand_in(2, 512, dev, seed=13)
+    guidance, embeddings = system.guidance, system.prompt_embeddings
+    val = eval_camera_batch(system.camera_cfg, "val", device=dev)
+    pose = system.pose_images(val._replace(
+        mvp_mtx=val.mvp_mtx[:2], azimuth=val.azimuth[:2]))
     text2 = torch.cat([embeddings.text_vd[1:3], embeddings.uncond_vd[1:3]])
     gen = torch.Generator(device=dev).manual_seed(14)
     kernels.reset_launch_counts()
@@ -1668,6 +1881,8 @@ def run(dev, only=()) -> int:
     def want(group):
         return not only or group in only
 
+    t_run = time.perf_counter()
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1705,16 +1920,17 @@ def run(dev, only=()) -> int:
         rows.update(norm_phase(dev))
     if want("attention"):
         rows.update(attention_phase(dev))
+    if want("guidance") or want("sample") or want("trainer"):
+        overrides = write_prior_files(dev, tmp) + [
+            f"system.smplx_path={assets[0]}"]
+    unet = None
     if want("guidance") or want("sample"):
-        guidance, embeddings = build_prior(dev, tmp)
+        system = build_avatar_system(dev, overrides)
         if want("guidance"):
-            counts, batch = guidance_phase(dev, guidance, embeddings,
-                                           assets)
-            for name in ("groupnorm_fwd_stats", "groupnorm_fwd_apply",
-                         "groupnorm_bwd_stats", "groupnorm_bwd_dx",
-                         "attention_fwd"):
-                if name in rows:
-                    rows[name]["launches"] = counts[name]
+            counts, batch = train_step_phase(dev, system, assets)
+            # every row's `launches` is the count of one train_step
+            for name, row in rows.items():
+                row["launches"] = counts[name]
             for name, key, err in (("rasterize_fwd", "k1", batch["k1_err"]),
                                    ("rasterize_bwd", "k2",
                                     batch["k2_err"][0])):
@@ -1727,13 +1943,15 @@ def run(dev, only=()) -> int:
                     rows[name]["bound_ms_guidance_batch_visits"] = batch[
                         key + "_bound_visits"]
         if want("sample"):
-            sample_phase(dev, guidance, embeddings)
-        unet = guidance.unet
-        del guidance
-    else:
-        unet = None
+            sample_phase(dev, system)
+        unet = system.guidance.unet
+        del system
     if want("unet-backward"):
         unet_backward_phase(dev, unet)
+    del unet
+    if want("trainer"):
+        torch.cuda.empty_cache()
+        trainer_phase(dev, tmp, overrides)
     tmp_dir.cleanup()
 
     if only:
@@ -1742,6 +1960,8 @@ def run(dev, only=()) -> int:
     for row in rows.values():
         check(row["launches"] > 0,
               f"{row['name']} was never launched on its path")
+    print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s after the "
+          f"script's imports")
     print(card)
     print(json.dumps({"kernels": [rows[k.name] for k in kernels.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
@@ -2189,8 +2409,10 @@ def render_phases(dev, tmp, assets) -> dict:
             "route": "cuda",
             "source": "humangaussian_torch/csrc/rasterize_fwd.cu",
             "replaces": "humangaussian_tpu/ops/rasterize_tiled.py:311",
-            "launches": (anim_launches + orbit_launches
-                         + train_launches["rasterize_fwd"]),
+            "launches": 0,  # phase 11's train_step sets it
+            "launches_serving_and_photo": (
+                anim_launches + orbit_launches
+                + train_launches["rasterize_fwd"]),
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": plain_ms,
@@ -2205,7 +2427,8 @@ def render_phases(dev, tmp, assets) -> dict:
             "route": "cuda",
             "source": "humangaussian_torch/csrc/rasterize_bwd.cu",
             "replaces": "humangaussian_tpu/ops/rasterize_tiled.py:405",
-            "launches": train_launches["rasterize_bwd"],
+            "launches": 0,  # phase 11's train_step sets it
+            "launches_photo": train_launches["rasterize_bwd"],
             "max_abs_err": k2_err[0],
             "max_err_over_max_grad": k2_err[1],
             "ms": k2_ms,

@@ -1,19 +1,26 @@
 """CLI launcher: train from a YAML config plus dotlist overrides.
 
-Port of humangaussian_tpu/apps/launch.py: `--config`, `--train`, the
-`key.sub=value` overrides, plus `--device` (default cuda; raises when
-there is none):
+Port of humangaussian_tpu/apps/launch.py: `--config`, `--train`, `--test`,
+`--resume <ckpt dir>`, the `key.sub=value` overrides, plus `--device`
+(default cuda; raises when there is none):
 
-  python -m humangaussian_torch.apps.launch --config configs/photo.yaml \\
-      --train data.dataroot=/path/to/scene
+  python -m humangaussian_torch.apps.launch --config configs/avatar.yaml \\
+      --train system.prompt_processor.prompt="a man in a suit"
 
-Ported so far: `system.type: photo-3dgs-system`, the photometric 3DGS
-trainer (train/photo.py) on a Blender-layout or COLMAP dataset; it writes
-`save/last.ply` under the trial directory. Of the text-to-avatar system the
-guidance half is ported: `build_guidance(cfg, device)` builds the dual-branch
-prior (UNet, VAE, schedule) from diffusers-layout weight files as the
-reference's `build_system` does. The avatar system itself and the
-dreamfusion system are not ported yet and raise NotImplementedError.
+`system.type: gaussiandreamer-system` (the shipped text-to-avatar path)
+builds the SMPL-X skeleton from `system.smplx_path`, the prompt embeddings
+(the processor's md5 cache, else a host CLIP from
+`system.prompt_processor.pretrained_model_name_or_path`), the dual-branch
+prior from diffusers-layout weight files (`build_guidance`) and the
+camera, trainer, optimizer and rasterizer configurations; `main` then runs
+`init_state` with the seed, `--resume`, `train/loop.run_training` and
+`finalize` (orbit video, `last.ply`, `ckpts/last`) and prints `artifacts in
+<save dir>`. The TensorBoard logger is built only when an event writer
+imports (the line printed otherwise says so), the CSV logger always, wandb
+with `trainer.wandb`. `system.type: photo-3dgs-system` is the photometric
+3DGS trainer (train/photo.py). Not ported yet, and raising
+NotImplementedError: `system.guidance.type: deep-floyd` (ROADMAP item 19)
+and `dreamfusion-system` (item 21).
 """
 from __future__ import annotations
 
@@ -35,11 +42,7 @@ def build_system(cfg: dict, device="cuda"):
     if stype == "photo-3dgs-system":
         return _build_photo_trainer(cfg, device)
     if stype == "gaussiandreamer-system":
-        raise NotImplementedError(
-            "gaussiandreamer-system is not ported yet: its guidance is "
-            "(build_guidance); the camera sampler, the skeleton / pose "
-            "images and train/system are not (ROADMAP.md queue 1 items 11, "
-            "12, 14; train/system is item 14)")
+        return _build_avatar_system(cfg, device)
     if stype == "dreamfusion-system":
         raise NotImplementedError(
             "dreamfusion-system is not ported yet (ROADMAP.md queue 1 item "
@@ -47,6 +50,54 @@ def build_system(cfg: dict, device="cuda"):
     raise ValueError(
         f"unknown system.type {stype!r}; expected gaussiandreamer-"
         "system, dreamfusion-system or photo-3dgs-system"
+    )
+
+
+def _build_avatar_system(cfg: dict, device="cuda"):
+    """system.type: gaussiandreamer-system with the dual-branch prior."""
+    from humangaussian_torch import resolve_device
+    from humangaussian_torch.data.cameras import RandomCameraConfig
+    from humangaussian_torch.guidance.prompt import (
+        PromptProcessor,
+        PromptProcessorConfig,
+    )
+    from humangaussian_torch.ops.projection import RasterizeConfig
+    from humangaussian_torch.smplx.model import load_smplx_npz
+    from humangaussian_torch.smplx.skeleton import Skeleton
+    from humangaussian_torch.train.optim import GaussianOptimConfig
+    from humangaussian_torch.train.system import (
+        GaussianDreamerConfig,
+        GaussianDreamerSystem,
+    )
+
+    dev = resolve_device(device)
+    sys_cfg = cfg.get("system", {})
+    gtype = sys_cfg.get("guidance", {}).get("type", "dual-branch")
+    if gtype == "deep-floyd":
+        raise NotImplementedError(
+            "system.guidance.type deep-floyd is not ported yet (ROADMAP.md "
+            "queue 1 item 19)")
+
+    model = load_smplx_npz(sys_cfg["smplx_path"],
+                           gender=sys_cfg.get("gender", "neutral"))
+    skel = Skeleton(
+        style="humansd" if sys_cfg.get("texture_structure_joint", True)
+        else "openpose",
+        apose=sys_cfg.get("apose", True),
+    ).load_smplx(model).scale(-10)
+
+    pp_raw = dict(sys_cfg.get("prompt_processor", {}))
+    pp_raw.setdefault("model_path",
+                      pp_raw.pop("pretrained_model_name_or_path", ""))
+    embeddings = PromptProcessor(_take(PromptProcessorConfig, pp_raw),
+                                 device=dev)()
+    guidance = build_guidance(cfg, dev)
+    return GaussianDreamerSystem(
+        _take(GaussianDreamerConfig, sys_cfg), skel, guidance, embeddings,
+        camera_cfg=_take(RandomCameraConfig, cfg.get("data", {})),
+        optim_cfg=_take(GaussianOptimConfig, sys_cfg.get("optimizer", {})),
+        raster_cfg=_take(RasterizeConfig, sys_cfg.get("rasterizer", {})),
+        device=dev,
     )
 
 
@@ -251,6 +302,48 @@ def _run_photo(bundle, cfg, dirs):
     return state
 
 
+def _run_avatar(system, cfg, dirs, exp, args):
+    from humangaussian_torch.train.checkpoint import restore_checkpoint
+    from humangaussian_torch.train.loop import finalize, run_training
+    from humangaussian_torch.utils.loggers import (
+        CSVLogger,
+        MultiLogger,
+        TensorBoardLogger,
+        WandbLogger,
+    )
+
+    state = system.init_state(seed=exp.seed)
+    if args.resume:
+        state = restore_checkpoint(args.resume, state)
+        print(f"resumed from {args.resume} at step {state.step}")
+    trainer_cfg = cfg.get("trainer", {})
+    if args.train:
+        loggers = [CSVLogger(os.path.join(dirs["trial"], "csv_logs",
+                                          "metrics.csv"))]
+        try:
+            loggers.append(TensorBoardLogger(os.path.join(dirs["trial"],
+                                                          "tb_logs")))
+        except ImportError as exc:
+            print(f"TensorBoard logger left out: no event writer ({exc})")
+        if trainer_cfg.get("wandb", False):
+            loggers.append(WandbLogger(
+                project=trainer_cfg.get("wandb_project", "humangaussian"),
+                name=exp.tag or exp.name, config=dict(cfg)))
+        state, _hist = run_training(
+            system, state,
+            max_steps=int(trainer_cfg.get("max_steps", 3600)),
+            val_interval=int(trainer_cfg.get("val_check_interval", 100)),
+            save_dir=dirs["save"],
+            log_every=int(trainer_cfg.get("log_every", 10)),
+            logger=MultiLogger(loggers),
+            progress_path=os.path.join(dirs["trial"], "progress"),
+        )
+    if args.test or args.train:
+        finalize(system, state, dirs["save"])
+        print(f"artifacts in {dirs['save']}")
+    return state
+
+
 def main(argv=None):
     """Run the CLI; returns the trial directory."""
     from humangaussian_torch import resolve_device
@@ -259,6 +352,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True)
     parser.add_argument("--train", action="store_true")
+    parser.add_argument("--test", action="store_true")
+    parser.add_argument("--resume", default=None, help="checkpoint dir")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
@@ -275,8 +370,11 @@ def main(argv=None):
     shutil.copy(args.config, os.path.join(dirs["configs"], "raw.yaml"))
 
     system = build_system(cfg, dev)
-    if args.train:
-        _run_photo(system, cfg, dirs)
+    if isinstance(system, tuple):  # the photo-3DGS trainer's bundle
+        if args.train:
+            _run_photo(system, cfg, dirs)
+        return dirs["trial"]
+    _run_avatar(system, cfg, dirs, exp, args)
     return dirs["trial"]
 
 

@@ -13,10 +13,14 @@ Port of humangaussian_tpu/guidance/prompt.py:
 - "lib:" prompts resolve through a JSON prompt library.
 
 The direction selection is torch code on the cameras' device. Encoding is
-host-side set-up. The CLIP text encoder (`hf_clip_encode_fn`), the T5
-encoder, Perp-Neg and prompt debiasing are not ported: without an
-`encode_fn` the processor raises an error that says so. `dummy_encode_fn`
-gives deterministic pseudo-embeddings for pipelines that need the plumbing
+host-side set-up. Without an `encode_fn` the processor encodes with
+`hf_clip_encode_fn(model_path)` (a `transformers` CLIP text model on the
+host CPU, as the JAX package runs it), built only when a prompt misses the
+cache: a run whose prompts are all cached needs no `transformers`. When
+one is missing and `transformers` is not installed, the error names the
+prompts and the cache directory. The T5 encoder, Perp-Neg and prompt
+debiasing are not ported (ROADMAP item 19). `dummy_encode_fn` gives
+deterministic pseudo-embeddings for pipelines that need the plumbing
 without a text encoder.
 """
 from __future__ import annotations
@@ -142,9 +146,40 @@ def resolve_library_prompt(prompt: str, library_path: str) -> str:
     return candidates[0]
 
 
+def hf_clip_encode_fn(model_path: str) -> Callable[[list[str]], np.ndarray]:
+    """A host CLIP text encoder from a local checkpoint (`tokenizer/` and
+    `text_encoder/` subfolders, or one flat directory): prompts -> [n, L, D]
+    float32 numpy, L the text model's position count. `transformers` is
+    imported when it encodes."""
+
+    def encode(prompts: list[str]) -> np.ndarray:
+        from transformers import AutoTokenizer, CLIPTextModel
+
+        tok_path = os.path.join(model_path, "tokenizer")
+        enc_path = os.path.join(model_path, "text_encoder")
+        tokenizer = AutoTokenizer.from_pretrained(
+            tok_path if os.path.isdir(tok_path) else model_path)
+        encoder = CLIPTextModel.from_pretrained(
+            enc_path if os.path.isdir(enc_path) else model_path)
+        encoder.eval()
+        # without a tokenizer_config the tokenizer's model_max_length is a
+        # ~1e30 sentinel; the text model's position count is the limit
+        max_len = min(int(tokenizer.model_max_length),
+                      int(encoder.config.max_position_embeddings))
+        with torch.no_grad():
+            tokens = tokenizer(prompts, padding="max_length",
+                               max_length=max_len, truncation=True,
+                               return_tensors="pt")
+            out = encoder(tokens.input_ids)[0]
+        return out.float().numpy()
+
+    return encode
+
+
 class PromptProcessor:
     """Host-side precompute; calling it gives a `PromptEmbeddings` on
-    `device`."""
+    `device`. Without `encode_fn`, prompts missing from the cache are
+    encoded by `hf_clip_encode_fn(cfg.model_path)`."""
 
     def __init__(
         self,
@@ -156,13 +191,6 @@ class PromptProcessor:
 
         self.cfg = cfg
         self.device = resolve_device(device)
-        if encode_fn is None:
-            raise NotImplementedError(
-                "no encode_fn was given and the CLIP text encoder is not "
-                "ported (it needs the `transformers` package and a "
-                "tokenizer/ + text_encoder/ checkpoint under "
-                f"model_path={cfg.model_path!r}); pass encode_fn, for "
-                "example dummy_encode_fn(77, 1024)")
         self.encode_fn = encode_fn
         prompt = cfg.prompt
         if prompt.startswith("lib:"):
@@ -176,9 +204,25 @@ class PromptProcessor:
             self.cfg.cache_dir,
             _hash_prompt(self.cfg.model_path, prompt) + ".npy")
 
+    def _encode(self, prompts: list[str]) -> np.ndarray:
+        """Encode prompts the cache lacks, building the CLIP encoder on
+        first need."""
+        if self.encode_fn is None:
+            try:
+                import transformers  # noqa: F401
+            except ImportError as exc:
+                raise ImportError(
+                    f"prompts {prompts!r} are not in the embedding cache "
+                    f"{os.path.abspath(self.cfg.cache_dir)!r}, and encoding "
+                    "them needs the `transformers` package, which is not "
+                    "installed; fill the cache where it is (or pass an "
+                    "encode_fn)") from exc
+            self.encode_fn = hf_clip_encode_fn(self.cfg.model_path)
+        return np.asarray(self.encode_fn(prompts))
+
     def _encode_cached(self, prompts: list[str]) -> np.ndarray:
         if not self.cfg.use_cache:
-            return np.asarray(self.encode_fn(prompts))
+            return self._encode(prompts)
         os.makedirs(self.cfg.cache_dir, exist_ok=True)
         out: dict[int, np.ndarray] = {}
         missing = []
@@ -188,7 +232,7 @@ class PromptProcessor:
             else:
                 missing.append((i, p))
         if missing:
-            fresh = self.encode_fn([p for _, p in missing])
+            fresh = self._encode([p for _, p in missing])
             for (i, p), emb in zip(missing, fresh):
                 np.save(self._cache_path(p), emb)
                 out[i] = emb

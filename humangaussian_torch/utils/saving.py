@@ -1,4 +1,4 @@
-"""Artifact saving: images, image grids, gif/mp4 export.
+"""Artifact saving: images, captioned image grids, gif/mp4 export, metrics.
 
 Port (a numpy/PIL copy) of humangaussian_tpu/utils/saving.py; images may
 also be torch tensors on any device. mp4 goes through imageio when an
@@ -30,8 +30,24 @@ def save_image(path: str, img) -> str:
     return path
 
 
-def save_image_grid(path: str, images, cols: int | None = None) -> str:
-    """List of [H,W,3] (or [H,W]) images -> one grid image."""
+def _draw_banner(img: np.ndarray, text: str) -> np.ndarray:
+    """A text banner over the top-left corner (white on a black shadow)."""
+    from PIL import Image, ImageDraw
+
+    pil = Image.fromarray(img)
+    draw = ImageDraw.Draw(pil)
+    x, y = 4, 2
+    for line in str(text).split("\n"):
+        draw.text((x + 1, y + 1), line, fill=(0, 0, 0))
+        draw.text((x, y), line, fill=(255, 255, 255))
+        y += 12
+    return np.asarray(pil)
+
+
+def save_image_grid(path: str, images, cols: int | None = None,
+                    texts=None) -> str:
+    """List of [H,W,3] (or [H,W]) images -> one grid image; `texts` (one
+    per image, optional) draws caption banners."""
     images = [to_uint8(i) for i in images]
     n = len(images)
     cols = cols or n
@@ -41,9 +57,24 @@ def save_image_grid(path: str, images, cols: int | None = None) -> str:
     for i, img in enumerate(images):
         if img.ndim == 2:
             img = np.stack([img] * 3, axis=-1)
+        if texts is not None and i < len(texts) and texts[i]:
+            img = _draw_banner(np.ascontiguousarray(img), texts[i])
         r, c = divmod(i, cols)
         grid[r * h : (r + 1) * h, c * w : (c + 1) * w] = img
     return save_image(path, grid.astype(np.float32) / 255.0)
+
+
+def save_gif(path: str, frames, fps: int = 30) -> str:
+    """[T,H,W,3] float frames -> gif."""
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    imgs = [Image.fromarray(to_uint8(f)) for f in frames]
+    imgs[0].save(
+        path, save_all=True, append_images=imgs[1:],
+        duration=int(1000 / fps), loop=0,
+    )
+    return path
 
 
 def save_video(path: str, frames, fps: int = 30) -> str:
@@ -60,11 +91,19 @@ def save_video(path: str, frames, fps: int = 30) -> str:
         except (ImportError, ValueError, RuntimeError, OSError):
             # no imageio or no ffmpeg backend: fall back to GIF
             path = path[:-4] + ".gif"
-    from PIL import Image
+    return save_gif(path, frames, fps)
 
-    imgs = [Image.fromarray(f) for f in frames8]
-    imgs[0].save(
-        path, save_all=True, append_images=imgs[1:],
-        duration=int(1000 / fps), loop=0,
-    )
+
+def save_metrics_csv(path: str, rows: list[dict]) -> str:
+    """Rows of scalars -> one CSV with the union of their keys (sorted)."""
+    import csv
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if not rows:
+        return path
+    keys = sorted({k for r in rows for k in r})
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=keys)
+        writer.writeheader()
+        writer.writerows(rows)
     return path

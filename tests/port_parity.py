@@ -226,3 +226,116 @@ def jax_guidance_draws(jg, rng, b, latent=8):
             for name, k in (("rgb", k_rgb), ("depth", k_depth),
                             ("pose", k_pose), ("noise", k_noise),
                             ("dnoise", k_dnoise))}
+
+
+# ---- the avatar trainer --------------------------------------------------
+
+
+def jax_camera_draws(key, b) -> dict:
+    """The unit draws `humangaussian_tpu.data.cameras.sample_camera_batch`
+    makes from `key` (its 12 split keys), named as
+    `humangaussian_torch.data.cameras.camera_draws` returns them, as CPU
+    tensors: JAX's uniform(minval, maxval) scales the same unit draw."""
+    keys = jax.random.split(key, 12)
+
+    def u(i, shape):
+        return np.array(jax.random.uniform(keys[i], shape), np.float32)
+
+    def n(i, shape):
+        return np.array(jax.random.normal(keys[i], shape), np.float32)
+
+    draws = dict(choice=u(0, (4,)), elevation_uniform=u(1, (b,)),
+                 elevation_sphere=u(2, (b,)), azimuth=u(3, (b,)),
+                 distance=u(4, (b,)), camera_perturb=u(5, (b, 3)),
+                 center_perturb=n(6, (b, 3)), up_perturb=n(7, (b, 3)),
+                 fovy=u(8, (b,)), light_distance=u(9, (b,)),
+                 light_dir=n(10, (b, 3)))
+    return {k: torch.from_numpy(v) for k, v in draws.items()}
+
+
+def tiny_prompt_arrays(seed=0, n=7, d=32) -> dict:
+    """numpy PromptEmbeddings fields at the tiny prior's widths."""
+    rs = np.random.RandomState(seed)
+    return {"text_vd": rs.randn(4, n, d).astype(np.float32),
+            "uncond_vd": rs.randn(4, n, d).astype(np.float32),
+            "text": (0.1 * rs.randn(n, d)).astype(np.float32),
+            "uncond": (0.1 * rs.randn(n, d)).astype(np.float32),
+            "null": np.zeros((n, d), np.float32)}
+
+
+def tiny_system_pair(seed=0, capacity=2048, batch=2, tile_capacity=256,
+                     max_tiles=16, **cfg):
+    """(JAX GaussianDreamerSystem, port GaussianDreamerSystem) at the sizes
+    of `humangaussian_tpu.testing.tiny_system` (64^2 renders, capacity
+    2048, 500 points, batch 2, the tiny prior) built from one seed: the
+    prior through `tiny_guidance_pair`, the prompt embeddings from numpy,
+    each package's skeleton from its own toy SMPL-X model."""
+    from humangaussian_torch.convert import prompt_embeddings_from_numpy
+    from humangaussian_torch.data.cameras import (
+        RandomCameraConfig as PortCameraConfig,
+    )
+    from humangaussian_torch.ops.projection import (
+        RasterizeConfig as PortRasterizeConfig,
+    )
+    from humangaussian_torch.smplx.model import toy_model as port_toy_model
+    from humangaussian_torch.smplx.skeleton import Skeleton as PortSkeleton
+    from humangaussian_torch.train import system as port_system
+    from humangaussian_tpu.data.cameras import RandomCameraConfig
+    from humangaussian_tpu.guidance.prompt import PromptEmbeddings
+    from humangaussian_tpu.ops.projection import RasterizeConfig
+    from humangaussian_tpu.smplx.model import toy_model
+    from humangaussian_tpu.smplx.skeleton import Skeleton
+    from humangaussian_tpu.train import system as jax_system
+
+    jg, pg = tiny_guidance_pair(seed, remat_encode=True)
+    sys_cfg = dict(
+        capacity=capacity, pts_num=500, pose_image_size=64,
+        tile_capacity=tile_capacity, densify_prune_start_step=2,
+        densify_prune_interval=3, densify_prune_end_step=100,
+        prune_only_start_step=100, prune_only_end_step=200,
+        prune_only_interval=3)
+    sys_cfg.update(cfg)
+    cam_cfg = dict(batch_size=batch, height=64, width=64, eval_height=64,
+                   eval_width=64, n_val_views=2, n_test_views=3)
+    prompts = tiny_prompt_arrays(seed)
+    js = jax_system.GaussianDreamerSystem(
+        jax_system.GaussianDreamerConfig(**sys_cfg),
+        Skeleton(style="humansd", apose=True).load_smplx(
+            toy_model()).scale(-10),
+        jg, PromptEmbeddings(**{k: jnp.asarray(v)
+                                for k, v in prompts.items()}),
+        camera_cfg=RandomCameraConfig(**cam_cfg),
+        raster_cfg=RasterizeConfig(tile=32,
+                                   max_tiles_per_gaussian=max_tiles))
+    ps = port_system.GaussianDreamerSystem(
+        port_system.GaussianDreamerConfig(**sys_cfg),
+        PortSkeleton(style="humansd", apose=True).load_smplx(
+            port_toy_model()).scale(-10),
+        pg, prompt_embeddings_from_numpy(prompts, device="cpu"),
+        camera_cfg=PortCameraConfig(**cam_cfg),
+        raster_cfg=PortRasterizeConfig(tile=32,
+                                       max_tiles_per_gaussian=max_tiles),
+        device="cpu")
+    return js, ps
+
+
+def dreamer_state_from_jax(state, seed=0, tile_cap=None):
+    """The port's TrainState holding a JAX TrainState's leaves (the JAX
+    PRNG key has no counterpart: the generator is seeded with `seed`;
+    `tile_cap` None renders with the config's `tile_capacity`, as the JAX
+    step does without its static `tile_cap`)."""
+    from humangaussian_torch.convert import (
+        adam_state_from_numpy,
+        densify_state_from_numpy,
+        scene_from_numpy,
+    )
+    from humangaussian_torch.train.system import TrainState
+
+    return TrainState(
+        scene=scene_from_numpy(scene_leaves(state.scene), "cpu"),
+        adam=adam_state_from_numpy(adam_leaves(state.adam), "cpu"),
+        densify=densify_state_from_numpy(densify_leaves(state.densify),
+                                         "cpu"),
+        step=int(state.step),
+        generator=torch.Generator().manual_seed(seed),
+        tile_cap=tile_cap)

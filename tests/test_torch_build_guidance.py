@@ -202,6 +202,9 @@ def test_build_guidance_reports_missing_tensors(tmp_path):
 
 
 def test_avatar_system_still_waits():
-    with pytest.raises(NotImplementedError, match="items 11, 12, 14"):
-        launch.build_system({"system": {"type": "gaussiandreamer-system"}},
+    """The avatar system is ported; with DeepFloyd guidance it still
+    waits (ROADMAP item 19)."""
+    with pytest.raises(NotImplementedError, match="item 19"):
+        launch.build_system({"system": {"type": "gaussiandreamer-system",
+                                        "guidance": {"type": "deep-floyd"}}},
                             "cpu")

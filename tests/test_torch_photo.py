@@ -260,7 +260,8 @@ def test_launcher_end_to_end_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("override,error,match", [
-    ("system.type=gaussiandreamer-system", NotImplementedError, "item 14"),
+    # the avatar system is ported: it asks for its SMPL-X file
+    ("system.type=gaussiandreamer-system", KeyError, "smplx_path"),
     ("system.type=dreamfusion-system", NotImplementedError, "item 21"),
     ("system.type=bogus", ValueError, "unknown system.type"),
     ("data.type=co3d", ValueError, "not ported yet"),

@@ -2,6 +2,7 @@
 index and the [cond | neg | null] batch exactly over a grid of angles, the
 dummy encoder, the md5 cache round trip."""
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -116,10 +117,24 @@ def test_cache_round_trip(tmp_path):
     np.testing.assert_array_equal(uncached.text.numpy(), first.text.numpy())
 
 
-def test_processor_without_an_encoder_says_what_is_missing():
-    with pytest.raises(NotImplementedError, match="encode_fn"):
-        port.PromptProcessor(port.PromptProcessorConfig(prompt="a man"),
-                             device="cpu")
+def test_processor_without_an_encoder_says_what_is_missing(tmp_path,
+                                                          monkeypatch):
+    """Without an encode_fn the CLIP encoder is built only on a cache miss;
+    without `transformers` that miss raises an error naming the prompts and
+    the cache directory, and a filled cache needs no encoder at all."""
+    cfg = port.PromptProcessorConfig(prompt="a man", model_path="m",
+                                     cache_dir=str(tmp_path / "cache"))
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    proc = port.PromptProcessor(cfg, device="cpu")
+    with pytest.raises(ImportError, match="transformers") as err:
+        proc()
+    assert "a man" in str(err.value) and str(tmp_path / "cache") in str(
+        err.value)
+    filled = port.PromptProcessor(cfg, port.dummy_encode_fn(3, 4),
+                                  device="cpu")()
+    again = port.PromptProcessor(cfg, device="cpu")()
+    np.testing.assert_array_equal(again.text_vd.numpy(),
+                                  filled.text_vd.numpy())
 
 
 def test_library_prompt(tmp_path):
