@@ -137,15 +137,52 @@ source, started together), writes the assets, then:
    K2 once a step; then `--resume <save>/ckpts/last trainer.max_steps=13`
    takes exactly one step. Prints the phase's wall seconds, the seconds
    a step inside the loop and `finalize`'s seconds;
+15. (with phase 11, on its system) one `train_step` with the guidance in
+   mode `sjc` (finite metrics and gradients, Adam on alive rows only, the
+   launches of phase 11's step), then `guidance_eval_snapshot` at 20 DDIM
+   steps: its four decoded strips finite in [0, 1] at 512^2, the strip
+   PNG written, K1 once, K3 and K3a once per norm of 21 UNet forwards,
+   three encodes and four decodes, K4 21 x 20;
+16. the avatar trainer with DeepFloyd IF guidance through
+   `apps.launch.build_system` (configs/avatar.yaml with
+   `system.guidance.type=deep-floyd`, `arch=if-xl`,
+   `texture_structure_joint=false`): first K3 and K3a against their plain
+   versions at the IF UNet's shapes ([16, 4096, 704], 22 channels a
+   group; [16, 4096, 2112]; [16, 64, 5632]), then a seeded IF-I-XL
+   `unet/` weight file in bfloat16 (6,831,512,518 parameters), written
+   and read back through the launcher (mmap), and a prompt cache of
+   `dummy_encode_fn(77, 4096)` T5 stand-ins; one checked step (as phase
+   11 checks, launches exactly K1 1, K2 1, K3 and K3a once per norm of one
+   IF UNet forward (90), K4, K5 and K5a never), ms per step over 3 steps
+   after a warm-up, the staged step, a profiled step; then Perp-Neg on:
+   one checked step (the same launches: the four segments in one UNet
+   batch of 32) and 2 timed; the weight write and load seconds and the
+   peak memory of each checked step; then the same path through the CLI,
+   `apps.launch.main --train` for 2 steps with a validation render and
+   `finalize` (metrics.csv, the validation PNG, the orbit and last.ply
+   written; K1 once a step and once per chunk of 8 views of the
+   validation and orbit renders, K2 once a step, K3 and K3a 90 a step);
+17. the sampling CLI, `apps.sample.main` on configs/avatar.yaml with
+   phase 11's prior files at 50 DDIM steps: a 1536x512 PNG, finite
+   image and depth, K3 and K3a once per norm of 50 UNet forwards (the CFG
+   pair in one batch), the pose encode and two decodes, K4 50 x 20;
+18. `StableDiffusionGuidance` at SD2_SINGLE_CONFIG width with VAEConfig()
+   (seeded weights), batch 8 at 512^2: one SDS and one Perp-Neg call,
+   each differentiated through the VAE encode (under checkpoint): finite
+   loss and render gradient, K3 and K3a once per norm of two encoder
+   passes and one UNet forward, K5 and K5a once per encoder norm, K4 once
+   per UNet site that passes its gate (15);
 and prints the `kernels` JSON line (all seven kernels, each with the
-launches of one `train_step` of phase 11, the main path; K1's row also
+launches of one `train_step` of phase 11, the main path, and
+`launches_deep_floyd_step` (phase 16, Perp-Neg off) and
+`launches_sample_cli` (phase 17); K1's row also
 carries `launches_serving_and_photo` (phases 4 to 6) and K2's
 `launches_photo` (phase 6); K1's and K2's rows also carry
 `ms_guidance_batch`, `bound_ms_guidance_batch` and
 `bound_ms_guidance_batch_visits`, shape c) and, last, the device JSON
-line. `--only GROUP[,GROUP]` (render, norm, attention, guidance, sample,
-unet-backward, trainer) runs some phase groups alone and prints no result
-lines.
+line. `--only GROUP[,GROUP]` (render, norm, attention, guidance (phases
+11 and 15), sample, unet-backward, trainer, deep-floyd, sample-cli,
+sd-guidance) runs some phase groups alone and prints no result lines.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Weights and data are random, made from fixed seeds.
@@ -155,6 +192,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import math
@@ -625,7 +663,8 @@ def write_assets(tmp: str, seed: int = 0):
 
 
 PHASE_GROUPS = ("render", "norm", "attention", "guidance", "sample",
-                "unet-backward", "trainer")
+                "unet-backward", "trainer", "deep-floyd", "sample-cli",
+                "sd-guidance")
 AVATAR_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "avatar.yaml")
 PROMPT = "a person in a blue jacket"
@@ -652,6 +691,23 @@ TRAINER_OVERRIDES = (
     f"system.max_grad={TRAINER_MAX_GRAD:.1e}",  # a YAML float
     "system.cameras_extent=0.2", "system.prune_size_threshold=2.5e-3",
 )
+# phase 16: the avatar trainer with DeepFloyd IF guidance (IF-I-XL,
+# 6,831,512,518 parameters, 90 GroupNorms) through apps.launch
+IF_OVERRIDES = ("system.guidance.type=deep-floyd",
+                "system.guidance.arch=if-xl",
+                "system.texture_structure_joint=false")
+IF_UNET_PARAMS = 6_831_512_518
+IF_STEP_REPS = 3  # timed IF steps with Perp-Neg off, after 1 warm-up
+IF_PERP_NEG_STEPS = 2  # timed IF steps with Perp-Neg on, after a checked one
+IF_CLI_STEPS = 2  # steps of the IF path through apps.launch.main
+# K3 / K3a at the IF UNet's shapes at batch 16 (the CFG pair of 8 views):
+# the first level's 64^2 rows at 704 channels (22 a group: K3a's 16-byte
+# vectors straddle groups), the 704 + 1408 concatenation at 2112 (66 a
+# group) and the 8^2 mid level's 2816 + 2816 concatenation at 5632
+IF_GN_SHAPES = ((16, 4096, 704), (16, 4096, 2112), (16, 64, 5632))
+SAMPLE_CLI_STEPS = 50  # phase 17: apps.sample's default
+SD_BATCH = 8  # phase 18: the SD guidance at 512^2 renders
+SNAPSHOT_STEPS = 20  # phase 15: guidance_eval_snapshot's DDIM steps
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate, H100 SXM data sheet
 # the main path's extremes for K3 / K3a / K5: [samples, rows, channels] at
 # batch 24 (3 x 8 latents): the first level's 64^2 rows at 320 and at the
@@ -1320,12 +1376,137 @@ def guidance_batch_kernels(avatar, cams, rcfg, bg) -> dict:
             "k2_bound": n2[0], "k2_bound_visits": b2[0]}
 
 
+def launches(**counts) -> dict:
+    """A full launch-count dict: the kernels named, the rest 0."""
+    out = dict.fromkeys(("rasterize_fwd", "rasterize_bwd",
+                         "groupnorm_fwd_stats", "groupnorm_fwd_apply",
+                         "groupnorm_bwd_stats", "groupnorm_bwd_dx",
+                         "attention_fwd"), 0)
+    out.update(counts)
+    return out
+
+
+def dual_branch_step_launches(guidance) -> dict:
+    """One dual-branch train_step's launches, from the module trees: one
+    UNet forward; encoder passes for rgb, depth and pose, plus the
+    recomputation of the two differentiated ones in the backward under
+    remat_encode; two encoder backwards."""
+    enc_norms = norms_in(guidance.vae.encoder)
+    passes = 3 + (2 if guidance.cfg.remat_encode else 0)
+    forward = norms_in(guidance.unet) + passes * enc_norms
+    return launches(rasterize_fwd=1, rasterize_bwd=1,
+                    groupnorm_fwd_stats=forward, groupnorm_fwd_apply=forward,
+                    groupnorm_bwd_stats=2 * enc_norms,
+                    groupnorm_bwd_dx=2 * enc_norms,
+                    attention_fwd=ATTN_PER_UNET_FORWARD)
+
+
+def flash_sites(unet, latent: int) -> int:
+    """Self-attention sites of one UNet forward at `latent`^2 that pass
+    K4's gate (flash_attention on, a multiple of 128 tokens), walked from
+    the module tree: down block i runs at latent / 2^i, up block i at
+    latent / 2^(n - 1 - i) (the branch blocks at their levels too)."""
+    n = len(unet.cfg.block_out_channels)
+
+    def sites(blocks, sizes):
+        count = 0
+        for blk, size in zip(blocks, sizes):
+            for m in blk.modules():
+                if (getattr(m, "use_flash", False)
+                        and (size * size) % 128 == 0):
+                    count += 1
+        return count
+
+    down = [latent >> i for i in range(n)]
+    up = [latent >> (n - 1 - i) for i in range(n)]
+    total = sites(unet.down_blocks, down) + sites(unet.up_blocks, up)
+    total += sites([unet.mid_block], [latent >> (n - 1)])
+    for blocks in getattr(unet, "down_blocks_branch", []):
+        total += sites(blocks, down)
+    for blocks in getattr(unet, "up_blocks_branch", []):
+        total += sites(blocks, up[n - len(blocks):])
+    return total
+
+
+def finite_step(state, metrics, pgrads, mgrad, before, alive, label):
+    """Checks of one train_step: finite metrics and gradients, some
+    gradient reached the Gaussians, Adam moved alive rows only."""
+    row = {k: float(v) for k, v in metrics.items()}
+    check(all(math.isfinite(v) for v in row.values()),
+          f"{label}: non-finite metric {row}")
+    reached = False
+    for name, g in [*pgrads.items(), ("means2d", mgrad)]:
+        check(bool(torch.isfinite(g).all()),
+              f"{label}: d loss / d {name} not finite")
+        reached = reached or (g.numel() and float(g.abs().max()) > 0)
+    check(reached, f"{label}: no gradient reached the Gaussians")
+    moved = 0
+    for name, v in state.scene.params().items():
+        if not v.numel():
+            continue
+        delta = (v - before[name]).abs().flatten(1).amax(dim=1)
+        check(float(delta[~alive].max()) == 0.0,
+              f"{label}: Adam moved dead slots of {name}")
+        moved = max(moved, int((delta[alive] > 0).sum()))
+    check(moved > 0, f"{label}: Adam moved no alive row")
+    return row, moved
+
+
+def checked_step(system, state, label):
+    """One train_step with its launches counted and checked by
+    `finite_step`; returns (state, metrics row, launches, peak GiB, the
+    step's inputs and `loss_and_grads` output)."""
+    from humangaussian_torch import kernels
+
+    captured = {}
+    own = system.loss_and_grads
+
+    def capture(st, inputs):
+        captured["inputs"] = inputs
+        captured["out"] = own(st, inputs)
+        return captured["out"]
+
+    system.loss_and_grads = capture
+    before = {k: v.clone() for k, v in state.scene.params().items()}
+    alive = state.scene.alive.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    try:
+        state, metrics = system.train_step(state)
+        torch.cuda.synchronize()
+    finally:
+        del system.loss_and_grads
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _loss, _aux, pgrads, mgrad = captured["out"]
+    row, moved = finite_step(state, metrics, pgrads, mgrad, before, alive,
+                             label)
+    print(f"  {label}: " + ", ".join(f"{k} {v:.6g}" for k, v in row.items())
+          + f"; Adam moved {moved} of {int(alive.sum())} alive rows (dead "
+          f"slots unchanged); peak memory {peak:.2f} GiB")
+    return state, row, counts, peak, captured
+
+
+def step_times(system, state, reps):
+    """(state, [ms]) of `reps` train_steps timed by CUDA events."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = system.train_step(state)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return state, times
+
+
 def train_step_phase(dev, system, assets):
     """Phase 11: `GaussianDreamerSystem.train_step` of configs/avatar.yaml
     at full width. Returns the launch counts of one step, K1's and K2's
     numbers on the guidance batch (shape c) and the densify statistic's
     quantiles."""
-    from humangaussian_torch import kernels
     from humangaussian_torch.core.camera import camera_from_c2w
     from humangaussian_torch.data.cameras import eval_camera_batch
     from humangaussian_torch.guidance.dual_branch import resize_bilinear
@@ -1356,78 +1537,28 @@ def train_step_phase(dev, system, assets):
           f"{state.scene.capacity} slots in {time.perf_counter() - t0:.1f} s")
 
     # -- one step, checked -------------------------------------------------
-    captured = {}
-    own = system.loss_and_grads
-
-    def capture(st, inputs):
-        captured["inputs"] = inputs
-        captured["out"] = own(st, inputs)
-        return captured["out"]
-
-    system.loss_and_grads = capture
-    before = {k: v.clone() for k, v in state.scene.params().items()}
-    alive = state.scene.alive.clone()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    state, metrics = system.train_step(state)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    del system.loss_and_grads
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    loss, _aux, pgrads, mgrad = captured.pop("out")
-    inputs = captured.pop("inputs")
-    row = {k: float(v) for k, v in metrics.items()}
-    print(f"  step 1: " + ", ".join(f"{k} {v:.6g}" for k, v in row.items())
-          + f"; peak memory {peak_gb:.2f} GiB")
+    state, _row, counts, _peak, seen = checked_step(system, state, "step 1")
+    inputs = seen["inputs"]
     print(f"  inputs: t {inputs.t.tolist()}, azimuth "
           f"{[round(a, 1) for a in inputs.cameras.azimuth.tolist()]}, "
           f"head {bool(inputs.cameras.is_head)}, back "
           f"{bool(inputs.cameras.is_back)}, pose images "
           f"{tuple(inputs.pose.shape)} covering "
           f"{float((inputs.pose.amax(-1) > 0).float().mean()):.4f}")
-    check(all(math.isfinite(v) for v in row.values()), "non-finite metric")
     check(inputs.pose.shape == (cc.batch_size, system.cfg.pose_image_size,
                                 system.cfg.pose_image_size, 3),
           "pose image shape")
     check(float(inputs.pose.amax()) > 0, "empty pose images")
-    reached = False
+    _loss, _aux, pgrads, mgrad = seen["out"]
     for name, g in [*pgrads.items(), ("means2d", mgrad)]:
-        check(bool(torch.isfinite(g).all()),
-              f"d loss / d {name}: {int((~torch.isfinite(g)).sum())} "
-              f"non-finite values")
-        peak = float(g.abs().max()) if g.numel() else 0.0
-        reached = reached or peak > 0
-        print(f"  d loss / d {name}: max {peak:.3e}")
-    check(reached, "no gradient reached the Gaussians")
-    moved = 0
-    for name, v in state.scene.params().items():
-        if not v.numel():
-            continue
-        delta = (v - before[name]).abs().flatten(1).amax(dim=1)
-        check(float(delta[~alive].max()) == 0.0,
-              f"Adam moved dead slots of {name}")
-        moved = max(moved, int((delta[alive] > 0).sum()))
-    print(f"  Adam moved {moved} of {int(alive.sum())} alive rows; dead "
-          f"slots unchanged")
-    check(moved > 0, "Adam moved no alive row")
-    del before, pgrads, mgrad, loss, inputs
-    # from the module trees: one UNet forward; encoder passes for rgb,
-    # depth and pose, plus the recomputation of the two differentiated
-    # ones in the backward under remat_encode; two encoder backwards
+        print(f"  d loss / d {name}: max "
+              f"{float(g.abs().max()) if g.numel() else 0.0:.3e}")
+    del seen, inputs, pgrads, mgrad
     guidance = system.guidance
-    unet_norms = norms_in(guidance.unet)
-    enc_norms = norms_in(guidance.vae.encoder)
-    passes = 3 + (2 if guidance.cfg.remat_encode else 0)
-    forward = unet_norms + passes * enc_norms
-    want = {"rasterize_fwd": 1, "rasterize_bwd": 1,
-            "groupnorm_fwd_stats": forward, "groupnorm_fwd_apply": forward,
-            "groupnorm_bwd_stats": 2 * enc_norms,
-            "groupnorm_bwd_dx": 2 * enc_norms,
-            "attention_fwd": ATTN_PER_UNET_FORWARD}
-    print(f"  launches {counts}; expected: {unet_norms} UNet norms + "
-          f"{passes} encoder passes x {enc_norms} norms forward, 2 x "
-          f"{enc_norms} backward")
+    want = dual_branch_step_launches(guidance)
+    print(f"  launches {counts}; expected: {norms_in(guidance.unet)} UNet "
+          f"norms + encoder passes x {norms_in(guidance.vae.encoder)} norms "
+          f"forward, 2 x {norms_in(guidance.vae.encoder)} backward")
     check(counts == want, f"launches {counts}, want {want}")
 
     # -- ms per train_step: 2 warm-up steps, then STEP_REPS timed ----------
@@ -1437,15 +1568,7 @@ def train_step_phase(dev, system, assets):
 
     for _ in range(2):
         step()
-    times = []
-    for _ in range(STEP_REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        step()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    state, times = step_times(system, state, STEP_REPS)
     step_ms = statistics.median(times)
     print(f"  ms per train_step over {STEP_REPS} steps: median "
           f"{step_ms:.3f}, min {min(times):.3f}, max {max(times):.3f}")
@@ -1848,6 +1971,434 @@ def unet_backward_phase(dev, unet) -> dict:
     return counts
 
 
+def sjc_snapshot_phase(dev, system, tmp):
+    """Phase 15: on phase 11's system, one train_step with the guidance in
+    mode sjc, then one guidance_eval_snapshot of SNAPSHOT_STEPS DDIM steps
+    and its strip."""
+    from humangaussian_torch import kernels
+    from humangaussian_torch.train.loop import save_guidance_strip
+
+    g = system.guidance
+    print("phase 15: a train_step with mode sjc; guidance_eval_snapshot "
+          f"({SNAPSHOT_STEPS} DDIM steps)")
+    own = g.cfg
+    g.cfg = dataclasses.replace(own, mode="sjc")
+    try:
+        state = system.init_state(seed=1)
+        start = time.perf_counter()
+        state, _row, counts, _peak, _ = checked_step(system, state,
+                                                     "sjc step")
+        ms = (time.perf_counter() - start) * 1e3
+    finally:
+        g.cfg = own
+    want = dual_branch_step_launches(g)
+    print(f"  sjc step {ms:.1f} ms (host clock, first call); launches "
+          f"{counts}")
+    check(counts == want, f"sjc launches {counts}, want {want}")
+
+    kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    strips = system.guidance_eval_snapshot(state, num_steps=SNAPSHOT_STEPS)
+    end.record()
+    end.synchronize()
+    counts = kernels.launch_counts()
+    b, s = system.camera_cfg.batch_size, g.cfg.image_size
+    for k in ("imgs_1step", "imgs_final", "depths_1step", "depths_final"):
+        x = strips[k]
+        check(x.shape == (b, s, s, 3) and bool(torch.isfinite(x).all())
+              and 0.0 <= float(x.min()) and float(x.max()) <= 1.0,
+              f"snapshot {k}: {tuple(x.shape)}")
+    path = save_guidance_strip(os.path.join(tmp, "guidance.png"), strips)
+    check(os.path.getsize(path) > 0, "guidance strip not written")
+    # the 1-step estimate and every rollout step at or below t_start are
+    # one UNet forward each; three encodes; four decodes
+    forwards = 1 + SNAPSHOT_STEPS
+    norm_count = (forwards * norms_in(g.unet)
+                  + 3 * norms_in(g.vae.encoder)
+                  + 4 * norms_in(g.vae.decoder))
+    want = launches(rasterize_fwd=1, groupnorm_fwd_stats=norm_count,
+                    groupnorm_fwd_apply=norm_count,
+                    attention_fwd=forwards * ATTN_PER_UNET_FORWARD)
+    print(f"  guidance_eval_snapshot: {start.elapsed_time(end):.3f} ms; "
+          f"launches {counts}")
+    check(counts == want, f"snapshot launches {counts}, want {want}")
+
+
+def write_if_files(dev, tmp) -> tuple:
+    """Seeded IF-I-XL `unet/` weights in diffusers layout (bfloat16,
+    `torch.save`) and a prompt cache of `dummy_encode_fn(77, 4096)` T5
+    stand-ins; returns (the overrides that point the launcher at them,
+    seconds to make and write the file)."""
+    from humangaussian_torch.config import load_config
+    from humangaussian_torch.guidance.deep_floyd import IF_I_XL_CONFIG
+    from humangaussian_torch.guidance.prompt import (
+        PromptProcessor,
+        PromptProcessorConfig,
+        dummy_encode_fn,
+    )
+    from humangaussian_torch.guidance.unet import SingleUNet
+
+    t0 = time.perf_counter()
+    model_key = os.path.join(tmp, "if_model")
+    os.makedirs(os.path.join(model_key, "unet"))
+    path = os.path.join(model_key, "unet", "diffusion_pytorch_model.bin")
+    torch.save(seeded_state_dict(lambda: SingleUNet(IF_I_XL_CONFIG), 2, dev),
+               path)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    cache = os.path.join(tmp, "if_text_embeddings")
+    overrides = [*IF_OVERRIDES, f"system.guidance.model_key={model_key}",
+                 f"system.prompt_processor.prompt={PROMPT}",
+                 f"system.prompt_processor.cache_dir={cache}"]
+    pp = load_config(AVATAR_YAML, overrides)["system"]["prompt_processor"]
+    PromptProcessor(
+        PromptProcessorConfig(
+            prompt=pp["prompt"], negative_prompt=pp["negative_prompt"],
+            model_path=pp["pretrained_model_name_or_path"], cache_dir=cache,
+            encoder_type="t5"),
+        dummy_encode_fn(77, 4096), device=dev)()
+    print(f"  IF unet/ weights: {os.path.getsize(path) / 1e9:.2f} GB "
+          f"written in {seconds:.1f} s")
+    return overrides, seconds
+
+
+def if_norm_shapes(dev):
+    """K3 and K3a against their plain versions at IF_GN_SHAPES (bfloat16,
+    32 groups): K3 within GN_STATS_TOL of the f64 sums, K3a within one
+    bfloat16 ulp of plain on all but GN_BAD_FRACTION of the outputs."""
+    from humangaussian_torch.ops.groupnorm import (
+        group_norm_apply,
+        group_norm_apply_plain,
+        group_norm_stats,
+        group_norm_stats_plain,
+    )
+
+    g = torch.Generator(device="cpu").manual_seed(16)
+    for n, rows, c in IF_GN_SHAPES:
+        x = (torch.randn((n, rows, c), generator=g) * 1.5 + 0.7).to(
+            dev, torch.bfloat16)
+        gamma = (1 + 0.2 * torch.randn(c, generator=g)).to(dev)
+        beta = (0.2 * torch.randn(c, generator=g)).to(dev)
+        got = group_norm_stats(x)
+        torch.cuda.synchronize()
+        plain = group_norm_stats_plain(x)
+        x64 = x.double()
+        want = torch.stack([x64.sum(1), (x64 * x64).sum(1)], 1)
+        scale = torch.stack([x64.abs().sum(1), (x64 * x64).sum(1)], 1)
+        e_k, e_p = sums_error(got, want, scale), sums_error(plain, want,
+                                                             scale)
+        del x64, want, scale
+        check(e_k <= GN_STATS_TOL and e_p <= GN_STATS_TOL,
+              f"K3 [{n}, {rows}, {c}]: {e_k}, plain {e_p}")
+        y = group_norm_apply(x, got, gamma, beta, 32, 1e-5, True)
+        torch.cuda.synchronize()
+        y_p = group_norm_apply_plain(x, got, gamma, beta, 32, 1e-5, True)
+        err = (y.float() - y_p.float()).abs()
+        share = float((err > bf16_ulp(y_p)).float().mean())
+        print(f"  K3 [{n}, {rows}, {c}] ({c // 32} channels a group): "
+              f"kernel vs f64 {e_k:.3e}, plain {e_p:.3e}; K3a share over "
+              f"one ulp {share:.2e}, max difference {float(err.max()):.3e}")
+        check(share <= GN_BAD_FRACTION and bool(torch.isfinite(y).all()),
+              f"K3a [{n}, {rows}, {c}]: {share}")
+
+
+def deep_floyd_phase(dev, tmp, base_overrides) -> dict:
+    """Phase 16: the avatar trainer with DeepFloyd IF guidance at
+    IF_I_XL_CONFIG width, built by `apps.launch.build_system` from
+    configs/avatar.yaml with IF_OVERRIDES: train_steps with Perp-Neg off,
+    then on. Returns the launches of one step with Perp-Neg off."""
+    from humangaussian_torch.apps import launch
+    from humangaussian_torch.config import load_config
+    from humangaussian_torch.guidance.deep_floyd import (
+        DeepFloydSystemGuidance,
+    )
+
+    print("phase 16: the avatar trainer with DeepFloyd IF guidance "
+          "(IF-I-XL, batch 8, 1024^2 renders, 64^2 pixels)")
+    if_norm_shapes(dev)
+    overrides, write_s = write_if_files(dev, tmp)
+    t0 = time.perf_counter()
+    system = launch.build_system(
+        load_config(AVATAR_YAML, [*base_overrides, *overrides]), dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    g = system.guidance
+    check(isinstance(g, DeepFloydSystemGuidance), f"guidance {type(g)}")
+    unet = g.df.unet
+    n_unet = sum(p.numel() for p in unet.parameters())
+    print(f"  build_system (the IF weight file read with mmap): {n_unet} "
+          f"parameters ({unet.dtype}), {load_s:.1f} s; guidance scale "
+          f"{g.df.cfg.guidance_scale}, {g.df.cfg.image_size}^2 pixels, "
+          f"text {tuple(system.prompt_embeddings.text_vd.shape)}")
+    check(n_unet == IF_UNET_PARAMS, f"IF UNet has {n_unet} parameters")
+    check(system.prompt_embeddings.text_vd.shape == (4, 77, 4096),
+          "T5 stand-in shape")
+
+    # from the module tree: one UNet forward a step (the CFG pair, or
+    # Perp-Neg's four segments, in one batch); no flash attention; nothing
+    # differentiated through a norm
+    norm_count = norms_in(unet)
+    want = launches(rasterize_fwd=1, rasterize_bwd=1,
+                    groupnorm_fwd_stats=norm_count,
+                    groupnorm_fwd_apply=norm_count)
+    state = system.init_state(seed=0)
+    state, _row, counts, peak, _ = checked_step(system, state, "IF step 1")
+    print(f"  launches {counts}; expected {norm_count} UNet norms, K4 0")
+    check(counts == want, f"IF launches {counts}, want {want}")
+    state, _ = system.train_step(state)  # warm-up
+    state, times = step_times(system, state, IF_STEP_REPS)
+    print(f"  ms per IF train_step over {IF_STEP_REPS} steps: median "
+          f"{statistics.median(times):.3f}, min {min(times):.3f}, max "
+          f"{max(times):.3f}")
+
+    # staged by CUDA events from the system's and the guidance's methods
+    marks = []
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    def wrap(obj, name, before_too=False):
+        fn = getattr(obj, name)
+
+        def wrapped(*a, **k):
+            if before_too:
+                mark()
+            out = fn(*a, **k)
+            mark()
+            return out
+
+        setattr(obj, name, wrapped)
+
+    targets = ((system, "sample_step_inputs", False),
+               (system, "render_batch", False), (g.df, "grad", True),
+               (system, "loss_and_grads", False))
+    for obj, name, before in targets:
+        wrap(obj, name, before)
+    try:
+        marks.clear()
+        mark()
+        state, _ = system.train_step(state)
+        mark()
+        marks[-1].synchronize()
+    finally:
+        for obj, name, _ in targets:
+            delattr(obj, name)
+    check(len(marks) == 7, f"{len(marks)} stage marks")
+    stages = [marks[i].elapsed_time(marks[i + 1]) for i in range(6)]
+    print("  staged (CUDA events): " + ", ".join(
+        f"{n} {v:.3f} ms" for n, v in zip(
+            ("inputs", "render", "resize + noise", "UNet + CFG",
+             "loss + backward", "Adam + statistics"), stages))
+        + f"; sum {sum(stages):.3f}")
+    profile_device_time("1 IF train_step", lambda: system.train_step(state),
+                        top=12)
+
+    g.df.cfg = dataclasses.replace(g.df.cfg, use_perp_neg=True)
+    state, _row, pn_counts, pn_peak, _ = checked_step(system, state,
+                                                      "IF step, Perp-Neg")
+    check(pn_counts == want, f"Perp-Neg launches {pn_counts}, want {want}")
+    state, pn_times = step_times(system, state, IF_PERP_NEG_STEPS)
+    print(f"  ms per IF train_step with Perp-Neg (4 x 8 in one UNet batch) "
+          f"over {IF_PERP_NEG_STEPS} steps: median "
+          f"{statistics.median(pn_times):.3f}, min {min(pn_times):.3f}, "
+          f"max {max(pn_times):.3f}")
+    print(f"  IF summary: weight write {write_s:.1f} s, load {load_s:.1f} s, "
+          f"step {statistics.median(times):.3f} ms (peak {peak:.2f} GiB), "
+          f"Perp-Neg step {statistics.median(pn_times):.3f} ms (peak "
+          f"{pn_peak:.2f} GiB)")
+    del system, g, unet, state
+    torch.cuda.empty_cache()
+    if_cli(dev, tmp, [*base_overrides, *overrides], norm_count)
+    return counts
+
+
+def if_cli(dev, tmp, overrides, norm_count):
+    """Phase 16's path through the CLI: `apps.launch.main --train` with
+    the IF overrides for IF_CLI_STEPS steps, a validation render at the
+    last, and `finalize`."""
+    from humangaussian_torch import kernels
+    from humangaussian_torch.apps import launch
+    from humangaussian_torch.config import load_config
+    from humangaussian_torch.data.cameras import RandomCameraConfig
+
+    args = ["--config", AVATAR_YAML, "--train", "--device", dev.type,
+            f"exp_root_dir={tmp}/if_runs", *overrides,
+            f"trainer.max_steps={IF_CLI_STEPS}",
+            f"trainer.val_check_interval={IF_CLI_STEPS}",
+            "trainer.log_every=1"]
+    kernels.reset_launch_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        trial = launch.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    save = os.path.join(trial, "save")
+    with open(os.path.join(save, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    check([int(r["step"]) for r in rows] == list(range(1, IF_CLI_STEPS + 1)),
+          f"IF CLI logged {[r['step'] for r in rows]}")
+    check(all(math.isfinite(float(r["loss"])) for r in rows),
+          "IF CLI: non-finite loss")
+    files = set(os.listdir(save))
+    check({"last.ply", f"it{IF_CLI_STEPS}-val.png"} <= files
+          and any(f.startswith("orbit.") for f in files),
+          f"IF CLI artifacts {sorted(files)}")
+    cc = launch._take(RandomCameraConfig,
+                      load_config(AVATAR_YAML, overrides)["data"])
+    renders = (-(-cc.n_val_views // cc.batch_size)
+               + -(-cc.n_test_views // cc.batch_size))
+    want = launches(rasterize_fwd=IF_CLI_STEPS + renders,
+                    rasterize_bwd=IF_CLI_STEPS,
+                    groupnorm_fwd_stats=IF_CLI_STEPS * norm_count,
+                    groupnorm_fwd_apply=IF_CLI_STEPS * norm_count)
+    print(f"  apps.launch --train (deep-floyd), {IF_CLI_STEPS} steps: "
+          f"{wall:.1f} s with build, validation and finalize; losses "
+          f"{[round(float(r['loss']), 2) for r in rows]}; launches {counts}")
+    check(counts == want, f"IF CLI launches {counts}, want {want}")
+
+
+def sample_cli_phase(dev, tmp, overrides) -> dict:
+    """Phase 17: `apps.sample.main` on configs/avatar.yaml with phase 14's
+    prior files at SAMPLE_CLI_STEPS DDIM steps. Returns its launches."""
+    from humangaussian_torch import kernels
+    from humangaussian_torch.apps import sample
+    from humangaussian_torch.guidance.dual_branch import DualBranchGuidance
+
+    print(f"phase 17: apps.sample ({SAMPLE_CLI_STEPS} DDIM steps)")
+    seen = {}
+    own = DualBranchGuidance.sample_joint
+
+    def timed(self, *a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = own(self, *a, **k)
+        end.record()
+        end.synchronize()
+        seen.update(guidance=self, out=out, ms=start.elapsed_time(end))
+        return out
+
+    out_png = os.path.join(tmp, "sample.png")
+    DualBranchGuidance.sample_joint = timed
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        sample.main(["--config", AVATAR_YAML, "--prompt", PROMPT,
+                     "--steps", str(SAMPLE_CLI_STEPS), "--out", out_png,
+                     "--device", dev.type, *overrides])
+        torch.cuda.synchronize()
+    finally:
+        DualBranchGuidance.sample_joint = own
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    from PIL import Image
+
+    grid = np.asarray(Image.open(out_png))
+    g = seen["guidance"]
+    s = g.cfg.image_size
+    check(grid.shape == (s, 3 * s, 3), f"sample grid {grid.shape}")
+    for name, x in zip(("image", "depth"), seen["out"]):
+        check(x.shape == (1, s, s, 3) and bool(torch.isfinite(x).all()),
+              f"sample {name} {tuple(x.shape)}")
+    # one UNet forward a step (the CFG pair in one batch), the pose
+    # encode and two decodes, from the module trees
+    norm_count = (SAMPLE_CLI_STEPS * norms_in(g.unet)
+                  + norms_in(g.vae.encoder) + 2 * norms_in(g.vae.decoder))
+    want = launches(groupnorm_fwd_stats=norm_count,
+                    groupnorm_fwd_apply=norm_count,
+                    attention_fwd=SAMPLE_CLI_STEPS * ATTN_PER_UNET_FORWARD)
+    per_step = seen["ms"] / SAMPLE_CLI_STEPS
+    print(f"  sample_joint {seen['ms']:.3f} ms ({per_step:.3f} ms a "
+          f"step), the CLI {wall:.1f} s with "
+          f"build; {grid.shape[1]}x{grid.shape[0]} grid; launches {counts}")
+    check(counts == want, f"sample CLI launches {counts}, want {want}")
+    del seen
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sd_guidance_phase(dev):
+    """Phase 18: StableDiffusionGuidance at SD2_SINGLE_CONFIG width with
+    VAEConfig(), batch SD_BATCH at 512^2: one SDS and one Perp-Neg call,
+    each differentiated through the VAE encode."""
+    from humangaussian_torch import kernels
+    from humangaussian_torch.guidance.prompt import (
+        PromptProcessor,
+        PromptProcessorConfig,
+        dummy_encode_fn,
+    )
+    from humangaussian_torch.guidance.schedule import sd_eps_schedule
+    from humangaussian_torch.guidance.stable_diffusion import (
+        SDGuidanceConfig,
+        StableDiffusionGuidance,
+    )
+    from humangaussian_torch.guidance.unet import SD2_SINGLE_CONFIG, SingleUNet
+    from humangaussian_torch.guidance.vae import AutoencoderKL, VAEConfig
+
+    print(f"phase 18: StableDiffusionGuidance (SD2 width, batch {SD_BATCH}, "
+          "512^2)")
+    torch.manual_seed(18)
+    with torch.device(dev):
+        unet = SingleUNet(SD2_SINGLE_CONFIG)
+        vae = AutoencoderKL(VAEConfig())
+    unet.to(memory_format=torch.channels_last)
+    vae.to(memory_format=torch.channels_last)
+    n_unet = sum(p.numel() for p in unet.parameters())
+    g = StableDiffusionGuidance(unet, vae, sd_eps_schedule(device=dev),
+                                SDGuidanceConfig())
+    emb = PromptProcessor(
+        PromptProcessorConfig(prompt=PROMPT, negative_prompt="blurry",
+                              use_cache=False),
+        dummy_encode_fn(77, 1024), device=dev)()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rgb = torch.rand((SD_BATCH, 512, 512, 3), generator=gen, device=dev)
+    elev = torch.rand(SD_BATCH, generator=gen, device=dev) * 60 - 30
+    azim = torch.rand(SD_BATCH, generator=gen, device=dev) * 360 - 180
+    t = torch.randint(20, 981, (SD_BATCH,), generator=gen, device=dev)
+    enc_norms = norms_in(vae.encoder)
+    sites = flash_sites(unet, g.cfg.latent_size)
+    forward = 2 * enc_norms + norms_in(unet)  # encode, its recomputation
+    want = launches(groupnorm_fwd_stats=forward, groupnorm_fwd_apply=forward,
+                    groupnorm_bwd_stats=enc_norms,
+                    groupnorm_bwd_dx=enc_norms, attention_fwd=sites)
+    for perp_neg in (False, True):
+        g.cfg = dataclasses.replace(g.cfg, use_perp_neg=perp_neg)
+        x = rgb.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = g(x, emb, elev, azim, t, gen)
+        out["loss_sds"].backward()
+        end.record()
+        end.synchronize()
+        counts = kernels.launch_counts()
+        label = "Perp-Neg" if perp_neg else "SDS"
+        print(f"  {label}: loss {float(out['loss_sds'].detach()):.6g}, grad norm "
+              f"{float(out['grad_norm']):.6g}, d loss / d rgb max "
+              f"{float(x.grad.abs().max()):.3e}; {start.elapsed_time(end):.3f}"
+              f" ms (first call), peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {counts}")
+        check(math.isfinite(float(out["loss_sds"].detach()))
+              and bool(torch.isfinite(out["grad"]).all())
+              and bool(torch.isfinite(x.grad).all())
+              and float(x.grad.abs().max()) > 0, f"SD {label} not finite")
+        check(counts == want, f"SD {label} launches {counts}, want {want}")
+    print(f"  SingleUNet {n_unet} parameters, {norms_in(unet)} norms, "
+          f"{sites} K4 sites a forward at 64^2")
+    del g, unet, vae, out, x
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1920,7 +2471,8 @@ def run(dev, only=()) -> int:
         rows.update(norm_phase(dev))
     if want("attention"):
         rows.update(attention_phase(dev))
-    if want("guidance") or want("sample") or want("trainer"):
+    if any(want(x) for x in ("guidance", "sample", "trainer", "deep-floyd",
+                             "sample-cli")):
         overrides = write_prior_files(dev, tmp) + [
             f"system.smplx_path={assets[0]}"]
     unet = None
@@ -1928,6 +2480,7 @@ def run(dev, only=()) -> int:
         system = build_avatar_system(dev, overrides)
         if want("guidance"):
             counts, batch = train_step_phase(dev, system, assets)
+            sjc_snapshot_phase(dev, system, tmp)
             # every row's `launches` is the count of one train_step
             for name, row in rows.items():
                 row["launches"] = counts[name]
@@ -1952,6 +2505,18 @@ def run(dev, only=()) -> int:
     if want("trainer"):
         torch.cuda.empty_cache()
         trainer_phase(dev, tmp, overrides)
+    torch.cuda.empty_cache()
+    if want("sample-cli"):
+        cli_counts = sample_cli_phase(dev, tmp, overrides)
+        for name, row in rows.items():
+            row["launches_sample_cli"] = cli_counts[name]
+    if want("sd-guidance"):
+        sd_guidance_phase(dev)
+    if want("deep-floyd"):
+        if_counts = deep_floyd_phase(
+            dev, tmp, [f"system.smplx_path={assets[0]}"])
+        for name, row in rows.items():
+            row["launches_deep_floyd_step"] = if_counts[name]
     tmp_dir.cleanup()
 
     if only:

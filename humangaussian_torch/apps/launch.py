@@ -9,18 +9,23 @@ Port of humangaussian_tpu/apps/launch.py: `--config`, `--train`, `--test`,
 
 `system.type: gaussiandreamer-system` (the shipped text-to-avatar path)
 builds the SMPL-X skeleton from `system.smplx_path`, the prompt embeddings
-(the processor's md5 cache, else a host CLIP from
-`system.prompt_processor.pretrained_model_name_or_path`), the dual-branch
-prior from diffusers-layout weight files (`build_guidance`) and the
-camera, trainer, optimizer and rasterizer configurations; `main` then runs
+(the processor's md5 cache, else a host CLIP or, for DeepFloyd, T5 encoder
+from `system.prompt_processor.pretrained_model_name_or_path`), the prior
+from diffusers-layout weight files (`build_guidance` for the dual-branch
+prior; `build_deep_floyd` for `system.guidance.type: deep-floyd`, the
+IF-I-XL UNet of `model_key/unet/`) and the camera, trainer, optimizer and
+rasterizer configurations; `main` then runs
 `init_state` with the seed, `--resume`, `train/loop.run_training` and
 `finalize` (orbit video, `last.ply`, `ckpts/last`) and prints `artifacts in
 <save dir>`. The TensorBoard logger is built only when an event writer
 imports (the line printed otherwise says so), the CSV logger always, wandb
 with `trainer.wandb`. `system.type: photo-3dgs-system` is the photometric
 3DGS trainer (train/photo.py). Not ported yet, and raising
-NotImplementedError: `system.guidance.type: deep-floyd` (ROADMAP item 19)
-and `dreamfusion-system` (item 21).
+NotImplementedError: `dreamfusion-system` (ROADMAP item 21).
+
+Both priors are built on the meta device and materialized on the card
+(the IF-I-XL UNet is 6.8B parameters); a `.bin` weight file is read
+through `torch.load(mmap=True)`, so the host holds no second copy.
 """
 from __future__ import annotations
 
@@ -73,10 +78,6 @@ def _build_avatar_system(cfg: dict, device="cuda"):
     dev = resolve_device(device)
     sys_cfg = cfg.get("system", {})
     gtype = sys_cfg.get("guidance", {}).get("type", "dual-branch")
-    if gtype == "deep-floyd":
-        raise NotImplementedError(
-            "system.guidance.type deep-floyd is not ported yet (ROADMAP.md "
-            "queue 1 item 19)")
 
     model = load_smplx_npz(sys_cfg["smplx_path"],
                            gender=sys_cfg.get("gender", "neutral"))
@@ -89,9 +90,15 @@ def _build_avatar_system(cfg: dict, device="cuda"):
     pp_raw = dict(sys_cfg.get("prompt_processor", {}))
     pp_raw.setdefault("model_path",
                       pp_raw.pop("pretrained_model_name_or_path", ""))
+    # DeepFloyd conditions on T5 embeddings; an explicit encoder_type wins
+    pp_raw.setdefault("encoder_type",
+                      "t5" if gtype == "deep-floyd" else "clip")
     embeddings = PromptProcessor(_take(PromptProcessorConfig, pp_raw),
                                  device=dev)()
-    guidance = build_guidance(cfg, dev)
+    if gtype == "deep-floyd":
+        guidance = build_deep_floyd(cfg, dev, embeddings)
+    else:
+        guidance = build_guidance(cfg, dev)
     return GaussianDreamerSystem(
         _take(GaussianDreamerConfig, sys_cfg), skel, guidance, embeddings,
         camera_cfg=_take(RandomCameraConfig, cfg.get("data", {})),
@@ -122,7 +129,9 @@ def _find_weights(root: str, subfolder: str) -> str:
 def load_state_dict_file(path: str) -> dict:
     """A diffusers weight file as a dict of CPU tensors: `.safetensors`
     through the `safetensors` package (an ImportError names it when it is
-    missing), anything else through `torch.load(weights_only=True)`."""
+    missing), anything else through `torch.load(weights_only=True,
+    mmap=True)`: the tensors stay in the file's pages until they are
+    copied."""
     import torch
 
     if path.endswith(".safetensors"):
@@ -133,7 +142,78 @@ def load_state_dict_file(path: str) -> dict:
                 f"{path} needs the `safetensors` package, which is not "
                 "installed; convert the file to a .bin state dict") from exc
         return load_file(path)
-    return torch.load(path, map_location="cpu", weights_only=True)
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+
+def _load_into(module, path: str, dtype, bf16_weights: bool, dev,
+               upgrade=None):
+    """Materialize a meta-device module on `dev` from a weight file: a
+    tensor the file lacks raises KeyError naming it, one the module lacks
+    prints a warning; then the weights are cast (`cast_weights`) and the
+    module is put in the channels_last memory format its activations use."""
+    import torch
+
+    from humangaussian_torch.guidance.unet import cast_weights
+
+    module.to_empty(device=dev)
+    state = load_state_dict_file(path)
+    if upgrade is not None:
+        state = upgrade(state)
+    missing, unexpected = module.load_state_dict(state, strict=False)
+    if missing:
+        raise KeyError(f"{path} lacks {len(missing)} of the model's "
+                       f"tensors, e.g. {missing[:3]}")
+    if unexpected:
+        print(f"warning: {len(unexpected)} unmatched keys in {path}, "
+              f"e.g. {unexpected[:3]}")
+    del state
+    cast_weights(module, dtype, round_to_bf16=bf16_weights)
+    return module.to(memory_format=torch.channels_last)
+
+
+def build_deep_floyd(cfg: dict, device="cuda", embeddings=None):
+    """The DeepFloyd IF guidance of `system.guidance` (type deep-floyd)
+    behind the system's guidance call, on `device`.
+
+    `arch` is `if-xl` (or `sd2-base`, the shared default: IF_I_XL_CONFIG)
+    or `tiny` (TINY_IF_CONFIG, 16^2 pixels unless the config says
+    otherwise); `model_key` holds `unet/` in diffusers layout;
+    `half_precision_weights` (the default) rounds every floating weight
+    through bfloat16, as `build_guidance` does. `embeddings` rides into
+    the adapter for `use_perp_neg`."""
+    import torch
+
+    from humangaussian_torch import resolve_device
+    from humangaussian_torch.guidance.deep_floyd import (
+        IF_I_XL_CONFIG,
+        TINY_IF_CONFIG,
+        DeepFloydConfig,
+        DeepFloydGuidance,
+        DeepFloydSystemGuidance,
+    )
+    from humangaussian_torch.guidance.schedule import if_schedule
+    from humangaussian_torch.guidance.unet import SingleUNet
+
+    dev = resolve_device(device)
+    g_raw = dict(cfg.get("system", {}).get("guidance", {}))
+    arch = g_raw.get("arch", "sd2-base")
+    if arch == "tiny":
+        unet_cfg = TINY_IF_CONFIG
+        g_raw.setdefault("image_size", 16)
+    elif arch in ("sd2-base", "if-xl"):
+        unet_cfg = IF_I_XL_CONFIG
+    else:
+        raise ValueError(f"unknown deep-floyd arch {arch!r}; expected "
+                         "'if-xl', 'sd2-base' or 'tiny'")
+    with torch.device("meta"):
+        unet = SingleUNet(unet_cfg)
+    _load_into(unet, _find_weights(g_raw["model_key"], "unet"),
+               unet_cfg.dtype,
+               bool(g_raw.get("half_precision_weights", True)), dev)
+    return DeepFloydSystemGuidance(
+        DeepFloydGuidance(unet, if_schedule(device=dev),
+                          _take(DeepFloydConfig, g_raw)),
+        embeddings=embeddings)
 
 
 def build_guidance(cfg: dict, device="cuda"):
@@ -160,7 +240,6 @@ def build_guidance(cfg: dict, device="cuda"):
         SD2_BASE_CONFIG,
         TINY_TEST_CONFIG,
         DualBranchUNet,
-        cast_weights,
     )
     from humangaussian_torch.guidance.vae import (
         AutoencoderKL,
@@ -202,27 +281,10 @@ def build_guidance(cfg: dict, device="cuda"):
     with torch.device("meta"):
         unet = DualBranchUNet(unet_cfg)
         vae = AutoencoderKL(vae_cfg)
-    for module, path, dtype in (
-        (unet, _find_weights(g_raw["model_key"], "unet_ema"), unet_cfg.dtype),
-        (vae, _find_weights(g_raw["vae_key"], ""), vae_cfg.dtype),
-    ):
-        module.to_empty(device=dev)
-        state = load_state_dict_file(path)
-        if module is vae:
-            state = upgrade_vae_state_dict(state)
-        missing, unexpected = module.load_state_dict(state, strict=False)
-        if missing:
-            raise KeyError(
-                f"{path} lacks {len(missing)} of the model's tensors, e.g. "
-                f"{missing[:3]}")
-        if unexpected:
-            print(f"warning: {len(unexpected)} unmatched keys in {path}, "
-                  f"e.g. {unexpected[:3]}")
-        cast_weights(module, dtype, round_to_bf16=bf16_weights)
-    # the UNet's and the VAE's activations are channels_last (see
-    # guidance/unet.py and guidance/vae.py)
-    unet.to(memory_format=torch.channels_last)
-    vae.to(memory_format=torch.channels_last)
+    _load_into(unet, _find_weights(g_raw["model_key"], "unet_ema"),
+               unet_cfg.dtype, bf16_weights, dev)
+    _load_into(vae, _find_weights(g_raw["vae_key"], ""), vae_cfg.dtype,
+               bf16_weights, dev, upgrade=upgrade_vae_state_dict)
     return DualBranchGuidance(
         unet, vae, DiffusionSchedule.create(device=dev),
         _take(GuidanceConfig, g_raw))

@@ -151,10 +151,14 @@ def _transformer_key(rest) -> str:
 
 
 def unet_state_dict_from_flax(leaves: dict) -> dict:
-    """A Flax `DualBranchUNet` parameter tree (numpy leaves, with or without
-    the top-level "params") as a diffusers-named state dict of float32
-    tensors, the inverse of the JAX package's torch -> Flax converter. The
-    number of levels and of branch up blocks is read off the tree."""
+    """A Flax `DualBranchUNet` or `SingleUNet` parameter tree (numpy
+    leaves, with or without the top-level "params") as a diffusers-named
+    state dict of float32 tensors, the inverse of the JAX package's torch
+    -> Flax converter. Branch i >= 1 of a `branch_num > 1` tree (Flax
+    names `conv_in_branch1`, `down_block_branch1_0`, `head_branch1`, ...)
+    becomes `*_branch.{i}`; `fusion_conv` and `encoder_hid_proj` keep
+    their names. The number of levels and of branch up blocks is read off
+    the tree."""
     params = _params(leaves)
     n_levels = sum(1 for k in params if re.fullmatch(r"down_block_\d+", k))
     n_last = sum(1 for k in params if re.fullmatch(r"up_block_branch_\d+", k))
@@ -165,7 +169,7 @@ def unet_state_dict_from_flax(leaves: dict) -> dict:
         m = re.fullmatch(
             r"(down_block|up_block)(?:_branch(\d*))?_(\d+)", top)
         if top in ("time_embedding", "add_embedding", "conv_in",
-                   "fusion_conv"):
+                   "fusion_conv", "encoder_hid_proj"):
             key = ".".join([top, *rest[:-1], leaf])
         elif top.startswith("conv_in_branch"):
             key = f"conv_in_branch.{int(top[14:] or 0)}.{leaf}"

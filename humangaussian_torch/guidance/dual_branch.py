@@ -15,7 +15,7 @@ Port of humangaussian_tpu/guidance/dual_branch.py. Per step
        delta_d = t < 200 ? e_null : (e_null - e_neg)
        grad    = w(t) * (delta_c + delta_d),  w = 1 - alpha_bar_t
      with an optional per-pixel norm clamp (mode `sds` is plain CFG-SDS on
-     a 2B batch);
+     a 2B batch, mode `sjc` Score Jacobian Chaining, `compute_grad_sjc`);
   4. the reparameterized loss, so that autograd carries `grad` into the
      renderer: 0.5 ||latents - sg(latents - g_rgb)||^2 / B
      + lw_depth ||depth_latents - sg(depth_latents - g_depth)||^2 / B.
@@ -25,16 +25,22 @@ stop-gradient); the two differentiated encodes run under
 `torch.utils.checkpoint` when `remat_encode` is on, which recomputes the
 encoder in the backward instead of keeping its convolution activations.
 
-Noise: every draw comes from a `torch.Generator` or is passed in (`noise=`,
-`depth_noise=`, `latent_eps=`), so a test can inject the reference's
-draws. The reference's per-sample key folding (`sample_idx`, which makes
-its draws invariant to how a batch is sharded) has no counterpart yet.
+With a `branch_num > 1` UNet the step takes a list of structure images,
+encodes each, and adds one `lw_depth` term a branch to the loss.
+`guidance_eval` is the training-time visualization: the 1-step x0 estimate
+and a DDIM rollout from the current noise level, decoded, for both
+branches.
+
+Noise: every draw comes from a `torch.Generator` in a fixed order or is
+passed in (`noise=`, `depth_noise=`, `latent_eps=`), so a test can inject
+the reference's draws. This replaces the reference's `per_sample_normal`,
+which folds each sample's id into the key so that its draws do not depend
+on how a batch is sharded: a torch generator cannot replay JAX's keys, and
+the port's step runs unsharded.
 
 Layout: images are `[B, H, W, 3]` in [0, 1], latents and `grad`
 `[B, h, w, C]`, as in the reference; the VAE and the UNet turn them
 channels-first inside.
-
-Waiting (not ported): `compute_grad_sjc`, `guidance_eval`, `branch_num > 1`.
 """
 from __future__ import annotations
 
@@ -88,7 +94,7 @@ class GuidanceConfig:
     original_size: int = 1024
     target_size: int = 1024
     anpg_boundary_t: int = 200  # below it delta_d is e_null alone
-    mode: str = "anpg"  # "anpg" | "sds"
+    mode: str = "anpg"  # "anpg" | "sds" | "sjc"
     guidance_rescale: float = 0.0
     latent_size: int = 64
     image_size: int = 512
@@ -107,10 +113,9 @@ class DualBranchGuidance:
 
     def __init__(self, unet, vae, schedule: DiffusionSchedule,
                  cfg: GuidanceConfig = GuidanceConfig()):
-        if cfg.mode not in ("anpg", "sds"):
-            raise ValueError(
-                f"unknown guidance mode {cfg.mode!r}; the port has 'anpg' "
-                "and 'sds'")
+        if cfg.mode not in ("anpg", "sds", "sjc"):
+            raise ValueError(f"unknown guidance mode {cfg.mode!r}; expected "
+                             "'anpg', 'sds' or 'sjc'")
         self.unet = unet.eval().requires_grad_(False)
         self.vae = vae.eval().requires_grad_(False)
         self.schedule = schedule
@@ -119,6 +124,10 @@ class DualBranchGuidance:
     @property
     def device(self) -> torch.device:
         return self.schedule.alphas_cumprod.device
+
+    @property
+    def branch_num(self) -> int:
+        return self.unet.cfg.branch_num
 
     def _normal(self, shape, generator):
         return torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -137,8 +146,10 @@ class DualBranchGuidance:
 
     # ---- UNet scoring ----------------------------------------------------
     def _unet_eps(self, rgb_lat_in, depth_lat_in, t, text_embeddings):
-        """[kB, h, w, 8] inputs -> [kB, h, w, 8] predictions (rgb, depth),
-        without gradients."""
+        """[kB, h, w, 8] inputs (`depth_lat_in` a list of `branch_num` of
+        them when there are several branches) -> [kB, h, w, 4 (1 +
+        branch_num)] predictions (rgb, then each branch), without
+        gradients."""
         c = self.cfg
         time_ids = torch.tensor(
             [[c.original_size, c.original_size, 0, 0, c.target_size,
@@ -149,28 +160,41 @@ class DualBranchGuidance:
                              time_ids)
 
     def _unet_k(self, k, latents_noisy, depth_noisy, whole_latents, t, text):
+        """The UNet on k copies of the batch; `depth_noisy` is one tensor or
+        a list of one a branch."""
         whole = _repeat(whole_latents, k)
         lat_in = torch.cat([_repeat(latents_noisy, k), whole], dim=-1)
-        dep_in = torch.cat([_repeat(depth_noisy, k), whole], dim=-1)
-        return self._unet_eps(lat_in, dep_in, t.repeat(k), text)
+        deps = depth_noisy if isinstance(depth_noisy, list) else [depth_noisy]
+        dep_in = [torch.cat([_repeat(d, k), whole], dim=-1) for d in deps]
+        return self._unet_eps(lat_in, dep_in if len(deps) > 1 else dep_in[0],
+                              t.repeat(k), text)
 
     def compute_grad(self, latents, depth_latents, whole_latents, t,
                      text_embeddings, generator=None, noise=None,
                      depth_noise=None):
         """ANPG (or plain CFG-SDS) gradient for both branches.
 
-        latents, depth_latents, whole_latents [B, h, w, 4];
-        text_embeddings [3B, L, D] in [cond | neg | null] order; t [B] int.
-        `noise` / `depth_noise` [B, h, w, 4] replace the generator's draws.
-        Returns grad [B, h, w, 8]."""
+        latents, depth_latents, whole_latents [B, h, w, 4] (depth_latents a
+        list of one a branch when there are several); text_embeddings
+        [3B, L, D] in [cond | neg | null] order; t [B] int. `noise` /
+        `depth_noise` [B, h, w, 4] (a list for several branches) replace the
+        generator's draws, made in that order. Returns grad [B, h, w,
+        4 (1 + branches)]."""
         c = self.cfg
         b = latents.shape[0]
+        multi = isinstance(depth_latents, list)
+        deps = depth_latents if multi else [depth_latents]
         if noise is None:
             noise = self._normal(latents.shape, generator)
         if depth_noise is None:
-            depth_noise = self._normal(depth_latents.shape, generator)
+            dnoises = [self._normal(d.shape, generator) for d in deps]
+        else:
+            dnoises = depth_noise if multi else [depth_noise]
         latents_noisy = self.schedule.add_noise(latents, noise, t)
-        depth_noisy = self.schedule.add_noise(depth_latents, depth_noise, t)
+        depth_noisy = [self.schedule.add_noise(d, n, t)
+                       for d, n in zip(deps, dnoises)]
+        if not multi:
+            depth_noisy = depth_noisy[0]
 
         if c.mode == "anpg":
             # NFSD decomposition over a 3-way [cond | neg | null] batch
@@ -191,7 +215,7 @@ class DualBranchGuidance:
             if c.guidance_rescale > 0.0:
                 noise_pred = rescale_noise_cfg(noise_pred, e_text,
                                                c.guidance_rescale)
-            score = noise_pred - torch.cat([noise, depth_noise], dim=-1)
+            score = noise_pred - torch.cat([noise, *dnoises], dim=-1)
 
         w = self.schedule.sds_weight(t, c.weighting_strategy)
         grad = w.reshape(b, 1, 1, 1) * score
@@ -200,6 +224,39 @@ class DualBranchGuidance:
             gnorm = torch.linalg.vector_norm(grad, dim=-1, keepdim=True) + 1e-8
             grad = gnorm.clamp_max(c.grad_clip_threshold) * grad / gnorm
         return torch.nan_to_num(grad)
+
+    def compute_grad_sjc(self, latents, depth_latents, whole_latents, t,
+                         text_embeddings, generator=None, noise=None,
+                         depth_noise=None, var_red: bool = True):
+        """Score Jacobian Chaining gradient [B, h, w, 8]: sigma =
+        sqrt((1 - abar) / abar), zs = y + sigma eps, the UNet scores
+        zs / sqrt(1 + sigma^2) with the 2-way CFG over [cond | neg], Ds =
+        zs - sigma pred, grad = -(Ds - y) / sigma (variance-reduced; -(Ds -
+        zs) / sigma without `var_red`). Single-branch."""
+        c = self.cfg
+        b = latents.shape[0]
+        abar = self.schedule.alphas_cumprod[t]
+        sigma = torch.sqrt((1.0 - abar) / abar).reshape(b, 1, 1, 1)
+        if noise is None:
+            noise = self._normal(latents.shape, generator)
+        if depth_noise is None:
+            depth_noise = self._normal(depth_latents.shape, generator)
+        zs = latents + sigma * noise
+        dzs = depth_latents + sigma * depth_noise
+        scale = torch.sqrt(1.0 + sigma ** 2)
+        pred = self._unet_k(2, zs / scale, dzs / scale, whole_latents, t,
+                            text_embeddings[: 2 * b])
+        e_text, e_uncond = pred.chunk(2, dim=0)
+        noise_pred = e_text + c.guidance_scale * (e_text - e_uncond)
+        if c.guidance_rescale > 0.0:
+            noise_pred = rescale_noise_cfg(noise_pred, e_text,
+                                           c.guidance_rescale)
+        zs_all = torch.cat([zs, dzs], dim=-1)
+        y_all = torch.cat([latents, depth_latents], dim=-1)
+        sigma2 = sigma.expand(zs_all.shape)
+        ds = zs_all - sigma2 * noise_pred
+        ref = y_all if var_red else zs_all
+        return torch.nan_to_num(-(ds - ref) / sigma2)
 
     # ---- sampling ----------------------------------------------------------
     def denoise_pred(self, latents_noisy, depth_noisy, whole_latents, t,
@@ -213,6 +270,41 @@ class DualBranchGuidance:
         if self.cfg.guidance_rescale > 0.0:
             out = rescale_noise_cfg(out, e_text, self.cfg.guidance_rescale)
         return out
+
+    @torch.no_grad()
+    def guidance_eval(self, latents_noisy, depth_noisy, whole_latents,
+                      t_start, text2, num_steps: int = 50):
+        """The training-time visualization: the 1-step x0 estimate at
+        `t_start` and a DDIM rollout over the trailing timesteps at or
+        below each sample's `t_start`, for both branches, decoded. Returns
+        {imgs_1step, depths_1step, imgs_final, depths_final}, [B, H, W, 3]
+        in [0, 1]."""
+        sched = self.schedule
+        pred0 = self.denoise_pred(latents_noisy, depth_noisy, whole_latents,
+                                  t_start, text2)
+        x0_rgb = sched.pred_original(pred0[..., :4], latents_noisy, t_start)
+        x0_depth = sched.pred_original(pred0[..., 4:], depth_noisy, t_start)
+
+        lat, dep = latents_noisy, depth_noisy
+        ts = sched.trailing_timesteps(num_steps)
+        for i, t_i in enumerate(ts):
+            t_prev = ts[i + 1] if i + 1 < len(ts) else -1
+            t_arr = torch.full_like(t_start, int(t_i))
+            t_prev_arr = torch.full_like(t_start, int(t_prev))
+            active = (int(t_i) <= t_start).reshape(-1, 1, 1, 1)
+            pred = self.denoise_pred(lat, dep, whole_latents, t_arr, text2)
+            lat = torch.where(active, sched.ddim_step(
+                pred[..., :4], lat, t_arr, t_prev_arr), lat)
+            dep = torch.where(active, sched.ddim_step(
+                pred[..., 4:], dep, t_arr, t_prev_arr), dep)
+
+        def undepth(z):  # invert the depth-latent renormalization
+            return (z - RGB_MEAN) / RGB_STD * DEPTH_STD + DEPTH_MEAN
+
+        return {"imgs_1step": self.decode_latents(x0_rgb),
+                "depths_1step": self.decode_latents(undepth(x0_depth)),
+                "imgs_final": self.decode_latents(lat),
+                "depths_final": self.decode_latents(undepth(dep))}
 
     @torch.no_grad()
     def sample_joint(self, pose_image, text2, generator=None,
@@ -260,19 +352,31 @@ class DualBranchGuidance:
     # ---- the public step ---------------------------------------------------
     def __call__(self, pose_image, rgb, depth, text_embeddings, t,
                  generator=None, grad_clip_val=None, latent_eps=None,
-                 noise=None, depth_noise=None):
+                 noise=None, depth_noise=None, elevation=None, azimuth=None,
+                 camera_distances=None):
         """One guidance step.
 
         pose_image [B, H, W, 3]: the skeleton conditioning render; rgb
         [B, H, W, 3]: the differentiable render; depth [B, H, W, 3]: the
-        normalized structure image; text_embeddings [3B, L, D] = [cond |
-        neg | null]; t [B] int timesteps. `latent_eps` is a dict with any
-        of "rgb", "depth", "pose" -> [B, h, w, 4] replacing the encodes'
-        draws; `noise` / `depth_noise` replace `compute_grad`'s.
+        normalized structure image, or a list of `branch_num` of them;
+        text_embeddings [3B, L, D] = [cond | neg | null]; t [B] int
+        timesteps. `latent_eps` is a dict with any of "rgb", "depth",
+        "pose" (and "depth1", ... for further branches) -> [B, h, w, 4]
+        replacing the encodes' draws; `noise` / `depth_noise` replace the
+        gradient's. The camera angles are taken and ignored: the view
+        dependence is already in `text_embeddings`.
 
         Returns {"loss_sds", "grad_norm", "grad"}: `loss_sds` carries the
-        gradient into rgb and depth; `grad` [B, h, w, 8] is detached."""
+        gradient into rgb and depth; `grad` [B, h, w, 4 (1 + branches)] is
+        detached."""
         c = self.cfg
+        depths = list(depth) if isinstance(depth, (list, tuple)) else [depth]
+        nb = self.branch_num
+        if len(depths) != nb:
+            raise ValueError(f"got {len(depths)} structure images for a "
+                             f"branch_num={nb} UNet")
+        if c.mode == "sjc" and nb != 1:
+            raise NotImplementedError("SJC guidance is single-branch")
         b = rgb.shape[0]
         eps = latent_eps or {}
 
@@ -280,13 +384,15 @@ class DualBranchGuidance:
         lat_shape = (b, c.image_size // down, c.image_size // down,
                      self.vae.cfg.latent_channels)
 
-        # draws in a fixed order (rgb, depth, pose, noise, depth noise) so a
-        # seeded generator reproduces a step; they are made outside the
-        # checkpointed encodes, whose recomputation must see the same draw
+        # draws in a fixed order (rgb, depth, pose, further branches, then
+        # the gradient's) so a seeded generator reproduces a step; they are
+        # made outside the checkpointed encodes, whose recomputation must
+        # see the same draw
+        depth_keys = ["depth"] + [f"depth{i}" for i in range(1, nb)]
         draws = {
             key: eps[key] if key in eps else self._normal(lat_shape,
                                                           generator)
-            for key in ("rgb", "depth", "pose")
+            for key in ("rgb", "depth", "pose", *depth_keys[1:])
         }
 
         def encode(img, key):
@@ -296,27 +402,31 @@ class DualBranchGuidance:
             return fn(img)
 
         latents = encode(resize_bilinear(rgb, c.image_size), "rgb")
-        depth_latents = (
-            encode(resize_bilinear(depth, c.image_size), "depth")
-            - DEPTH_MEAN) / DEPTH_STD * RGB_STD + RGB_MEAN
+        depth_latents = [
+            (encode(resize_bilinear(d, c.image_size), key) - DEPTH_MEAN)
+            / DEPTH_STD * RGB_STD + RGB_MEAN
+            for d, key in zip(depths, depth_keys)]
         with torch.no_grad():
             whole_latents = encode(
                 resize_bilinear(pose_image, c.image_size), "pose")
             whole_latents = (
                 (whole_latents - WHOLE_MEAN) / WHOLE_STD * RGB_STD + RGB_MEAN
             )
-            grad = self.compute_grad(
-                latents.detach(), depth_latents.detach(), whole_latents, t,
-                text_embeddings, generator, noise, depth_noise)
+            grad_fn = (self.compute_grad_sjc if c.mode == "sjc"
+                       else self.compute_grad)
+            dls = [d.detach() for d in depth_latents]
+            grad = grad_fn(latents.detach(), dls[0] if nb == 1 else dls,
+                           whole_latents, t, text_embeddings, generator,
+                           noise=noise, depth_noise=depth_noise)
             if grad_clip_val is not None:
                 grad = grad.clamp(-grad_clip_val, grad_clip_val)
 
-        # the reparameterized SDS loss
+        # the reparameterized SDS loss, one lw_depth term a branch
         target = (latents - grad[..., :4]).detach()
         loss_sds = 0.5 * ((latents - target) ** 2).sum() / b
-        d_target = (depth_latents - grad[..., 4:8]).detach()
-        loss_sds = loss_sds + c.lw_depth * (
-            (depth_latents - d_target) ** 2).sum() / b
+        for i, dl in enumerate(depth_latents):
+            d_target = (dl - grad[..., 4 * (i + 1): 4 * (i + 2)]).detach()
+            loss_sds = loss_sds + c.lw_depth * ((dl - d_target) ** 2).sum() / b
         return {
             "loss_sds": loss_sds,
             "grad_norm": torch.linalg.vector_norm(grad),

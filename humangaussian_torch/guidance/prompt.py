@@ -10,18 +10,24 @@ Port of humangaussian_tpu/guidance/prompt.py:
   by the md5 of model path and prompt;
 - `get_text_embeddings` returns the 3-segment `[cond | neg | null]` batch
   the ANPG guidance expects;
-- "lib:" prompts resolve through a JSON prompt library.
+- "lib:" prompts resolve through a JSON prompt library;
+- `get_text_embeddings_perp_neg` builds Perp-Neg's 4-segment batch
+  (positive prompt interpolated between front, side and back by azimuth,
+  two negative-direction prompts a camera with signed decay weights).
 
 The direction selection is torch code on the cameras' device. Encoding is
 host-side set-up. Without an `encode_fn` the processor encodes with
-`hf_clip_encode_fn(model_path)` (a `transformers` CLIP text model on the
-host CPU, as the JAX package runs it), built only when a prompt misses the
-cache: a run whose prompts are all cached needs no `transformers`. When
-one is missing and `transformers` is not installed, the error names the
-prompts and the cache directory. The T5 encoder, Perp-Neg and prompt
-debiasing are not ported (ROADMAP item 19). `dummy_encode_fn` gives
+`hf_clip_encode_fn(model_path)` (`encoder_type: clip`, the SD2 prior) or
+`hf_t5_encode_fn(model_path)` (`t5`, DeepFloyd IF): a `transformers` text
+model on the host CPU, as the JAX package runs it, built only when a
+prompt misses the cache: a run whose prompts are all cached needs no
+`transformers`. When one is missing and `transformers` is not installed,
+the error names the prompts and the cache directory.
+`use_prompt_debiasing` rewrites the view-dependent prompts with a BERT
+masked language model (`get_debiased_prompts`), which needs
+`transformers` whatever the cache holds. `dummy_encode_fn` gives
 deterministic pseudo-embeddings for pipelines that need the plumbing
-without a text encoder.
+without a text encoder; `DummyPromptProcessor` is a processor wired to it.
 """
 from __future__ import annotations
 
@@ -109,6 +115,74 @@ class PromptEmbeddings(NamedTuple):
         return torch.cat([cond, neg, null], dim=0)
 
 
+def shifted_exponential_decay(a, b, c, r):
+    """a exp(-b r) + c."""
+    return a * torch.exp(-b * r) + c
+
+
+def perpendicular_component(x, y):
+    """The component of x perpendicular to y, batched over axis 0."""
+    axes = tuple(range(1, x.dim()))
+    dot = (x * y).sum(dim=axes, keepdim=True)
+    nrm = (y * y).sum(dim=axes, keepdim=True)
+    return x - dot / nrm.clamp_min(1e-6) * y
+
+
+# default Perp-Neg decay coefficients (a, b, c)
+PERP_NEG_F_SB = (1.0, 0.5, -0.606)
+PERP_NEG_F_FSB = (1.0, 0.5, 0.967)
+PERP_NEG_F_FS = (4.0, 0.5, -2.426)
+PERP_NEG_F_SF = (4.0, 0.5, -2.426)
+
+
+def get_text_embeddings_perp_neg(
+    emb: PromptEmbeddings,
+    elevation,
+    azimuth,
+    camera_distances=None,
+    f_sb=PERP_NEG_F_SB,
+    f_fsb=PERP_NEG_F_FSB,
+    f_fs=PERP_NEG_F_FS,
+    f_sf=PERP_NEG_F_SF,
+    **thresholds,
+):
+    """Perp-Neg embeddings: ([4B, L, D] in [pos | uncond | neg1, neg2
+    interleaved per camera] order, weights [B, 2]). The positive prompt
+    interpolates front -> side (|azimuth| < 90) or side -> back by
+    azimuth; overhead views take the overhead prompt and zero weights."""
+    az = shift_azimuth_deg(azimuth)
+    idx = direction_index(elevation, azimuth, **thresholds)
+    side, front, back, overhead = emb.text_vd.unbind(0)
+    uncond = emb.uncond_vd[idx]  # [B, L, D]
+
+    abs_az = az.abs()
+    is_over = (idx == 3)[:, None, None]
+    is_fs = (abs_az < 90.0)[:, None, None]
+    r_fs = 1.0 - abs_az / 90.0  # 1 front, 0 side
+    r_sb = 2.0 - abs_az / 90.0  # 1 side, 0 back
+
+    pos_fs = r_fs[:, None, None] * front + (1 - r_fs)[:, None, None] * side
+    pos_sb = r_sb[:, None, None] * side + (1 - r_sb)[:, None, None] * back
+    pos = torch.where(is_over, overhead, torch.where(is_fs, pos_fs, pos_sb))
+
+    b = az.shape[0]
+    bfront = front.expand(b, *front.shape)
+    bside = side.expand(b, *side.shape)
+    neg1 = torch.where(is_over, uncond, torch.where(is_fs, bfront, bside))
+    neg2 = torch.where(is_over, uncond, torch.where(is_fs, bside, bfront))
+
+    zero = torch.zeros_like(r_fs)
+    w1 = torch.where(idx == 3, zero, torch.where(
+        abs_az < 90.0, -shifted_exponential_decay(*f_fs, r_fs),
+        -shifted_exponential_decay(*f_sb, r_sb)))
+    w2 = torch.where(idx == 3, zero, torch.where(
+        abs_az < 90.0, -shifted_exponential_decay(*f_sf, 1.0 - r_fs),
+        -shifted_exponential_decay(*f_fsb, r_sb)))
+    negs = torch.stack([neg1, neg2], dim=1).reshape(2 * b, *neg1.shape[1:])
+    return (torch.cat([pos, uncond, negs], dim=0),
+            torch.stack([w1, w2], dim=1))
+
+
 @dataclasses.dataclass
 class PromptProcessorConfig:
     prompt: str = ""
@@ -118,9 +192,13 @@ class PromptProcessorConfig:
     front_threshold: float = 45.0
     back_threshold: float = 45.0
     view_dependent_prompt_front: bool = False
+    use_prompt_debiasing: bool = False
+    prompt_debiasing_model_path: str = "bert-base-uncased"
+    prompt_debiasing_mask_ids: tuple | None = None
     cache_dir: str = ".humangaussian_cache/text_embeddings"
     prompt_library_path: str = ""  # JSON for "lib:" prompts
     use_cache: bool = True
+    encoder_type: str = "clip"  # "clip" (SD2) | "t5" (DeepFloyd IF)
 
 
 def _hash_prompt(model: str, prompt: str) -> str:
@@ -146,6 +224,94 @@ def resolve_library_prompt(prompt: str, library_path: str) -> str:
     return candidates[0]
 
 
+def _transformers(what: str):
+    """The `transformers` module, or an ImportError naming `what` needs
+    it."""
+    try:
+        import transformers
+    except ImportError as exc:
+        raise ImportError(
+            f"{what} needs the `transformers` package, which is not "
+            "installed") from exc
+    return transformers
+
+
+def _checkpoint_parts(model_path: str):
+    """(tokenizer dir, text encoder dir): the `tokenizer/` and
+    `text_encoder/` subfolders, or the flat directory itself."""
+    tok = os.path.join(model_path, "tokenizer")
+    enc = os.path.join(model_path, "text_encoder")
+    return (tok if os.path.isdir(tok) else model_path,
+            enc if os.path.isdir(enc) else model_path)
+
+
+def get_debiased_prompts(prompt: str, view_names: list[str],
+                         model_path: str,
+                         mask_ids: list[int] | None = None) -> list[str]:
+    """BERT masked-LM prompt debiasing: for each word (or the words of
+    `mask_ids`), compare the view-word distribution of "This image is
+    depicting a [MASK] view of <prompt>" with and without the word; a word
+    whose pointwise mutual information with a view falls below 0.95 is
+    dropped from that view's prompt. Host-side torch, like the encoders."""
+    import torch.nn.functional as F
+
+    tf = _transformers("prompt debiasing")
+    os.environ["TOKENIZERS_PARALLELISM"] = "false"
+    tokenizer = tf.AutoTokenizer.from_pretrained(model_path)
+    model = tf.BertForMaskedLM.from_pretrained(model_path)
+    model.eval()
+
+    view_ids = tokenizer(" ".join(view_names),
+                         return_tensors="pt").input_ids[0]
+    view_ids = view_ids[1: 1 + len(view_names)]
+
+    @torch.no_grad()
+    def modulate(p: str) -> torch.Tensor:
+        tokens = tokenizer(f"This image is depicting a [MASK] view of {p}",
+                           padding="max_length", truncation=True,
+                           add_special_tokens=True, return_tensors="pt")
+        mask_idx = torch.where(tokens.input_ids == tokenizer.mask_token_id)[1]
+        logits = model(**tokens).logits
+        probs = F.softmax(logits[0, mask_idx], dim=-1)[0, view_ids]
+        return probs / probs.sum()
+
+    words = prompt.split(" ")
+    prompts = [list(words) for _ in view_names]
+    full_probe = modulate(prompt)
+    ids = mask_ids if mask_ids is not None else list(range(len(words)))
+    for idx in ids:
+        part_probe = modulate(" ".join(words[:idx] + words[idx + 1:]))
+        pmi = full_probe / torch.lerp(part_probe, full_probe, 0.5)
+        for i in range(pmi.shape[0]):
+            if pmi[i].item() < 0.95:
+                prompts[i][idx] = ""
+    return [" ".join(w for w in p if w) for p in prompts]
+
+
+def hf_t5_encode_fn(model_path: str) -> Callable[[list[str]], np.ndarray]:
+    """A host T5 text encoder from a local checkpoint (DeepFloyd IF's
+    prompt pipeline: attention-masked encode at 77 tokens at most),
+    laid out as `hf_clip_encode_fn` takes it: prompts -> [n, L, D] float32
+    numpy. `transformers` is imported when it encodes."""
+
+    def encode(prompts: list[str]) -> np.ndarray:
+        tf = _transformers("the T5 prompt encoder")
+        tok_path, enc_path = _checkpoint_parts(model_path)
+        tokenizer = tf.AutoTokenizer.from_pretrained(tok_path)
+        encoder = tf.T5EncoderModel.from_pretrained(enc_path)
+        encoder.eval()
+        max_len = min(int(tokenizer.model_max_length), 77)
+        with torch.no_grad():
+            tokens = tokenizer(prompts, padding="max_length",
+                               max_length=max_len, truncation=True,
+                               add_special_tokens=True, return_tensors="pt")
+            out = encoder(tokens.input_ids,
+                          attention_mask=tokens.attention_mask)[0]
+        return out.float().numpy()
+
+    return encode
+
+
 def hf_clip_encode_fn(model_path: str) -> Callable[[list[str]], np.ndarray]:
     """A host CLIP text encoder from a local checkpoint (`tokenizer/` and
     `text_encoder/` subfolders, or one flat directory): prompts -> [n, L, D]
@@ -153,14 +319,10 @@ def hf_clip_encode_fn(model_path: str) -> Callable[[list[str]], np.ndarray]:
     imported when it encodes."""
 
     def encode(prompts: list[str]) -> np.ndarray:
-        from transformers import AutoTokenizer, CLIPTextModel
-
-        tok_path = os.path.join(model_path, "tokenizer")
-        enc_path = os.path.join(model_path, "text_encoder")
-        tokenizer = AutoTokenizer.from_pretrained(
-            tok_path if os.path.isdir(tok_path) else model_path)
-        encoder = CLIPTextModel.from_pretrained(
-            enc_path if os.path.isdir(enc_path) else model_path)
+        tf = _transformers("the CLIP prompt encoder")
+        tok_path, enc_path = _checkpoint_parts(model_path)
+        tokenizer = tf.AutoTokenizer.from_pretrained(tok_path)
+        encoder = tf.CLIPTextModel.from_pretrained(enc_path)
         encoder.eval()
         # without a tokenizer_config the tokenizer's model_max_length is a
         # ~1e30 sentinel; the text model's position count is the limit
@@ -179,7 +341,7 @@ def hf_clip_encode_fn(model_path: str) -> Callable[[list[str]], np.ndarray]:
 class PromptProcessor:
     """Host-side precompute; calling it gives a `PromptEmbeddings` on
     `device`. Without `encode_fn`, prompts missing from the cache are
-    encoded by `hf_clip_encode_fn(cfg.model_path)`."""
+    encoded by the `cfg.encoder_type` encoder of `cfg.model_path`."""
 
     def __init__(
         self,
@@ -189,6 +351,9 @@ class PromptProcessor:
     ):
         from humangaussian_torch import resolve_device
 
+        if cfg.encoder_type not in ("clip", "t5"):
+            raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}; "
+                             "expected 'clip' or 't5'")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.encode_fn = encode_fn
@@ -205,7 +370,7 @@ class PromptProcessor:
             _hash_prompt(self.cfg.model_path, prompt) + ".npy")
 
     def _encode(self, prompts: list[str]) -> np.ndarray:
-        """Encode prompts the cache lacks, building the CLIP encoder on
+        """Encode prompts the cache lacks, building the text encoder on
         first need."""
         if self.encode_fn is None:
             try:
@@ -217,7 +382,9 @@ class PromptProcessor:
                     "them needs the `transformers` package, which is not "
                     "installed; fill the cache where it is (or pass an "
                     "encode_fn)") from exc
-            self.encode_fn = hf_clip_encode_fn(self.cfg.model_path)
+            build = (hf_t5_encode_fn if self.cfg.encoder_type == "t5"
+                     else hf_clip_encode_fn)
+            self.encode_fn = build(self.cfg.model_path)
         return np.asarray(self.encode_fn(prompts))
 
     def _encode_cached(self, prompts: list[str]) -> np.ndarray:
@@ -239,7 +406,17 @@ class PromptProcessor:
         return np.stack([out[i] for i in range(len(prompts))])
 
     def __call__(self) -> PromptEmbeddings:
-        vd_prompts = [d.prompt(self.prompt) for d in self.directions]
+        cfg = self.cfg
+        if cfg.use_prompt_debiasing:
+            debiased = get_debiased_prompts(
+                self.prompt, [d.name for d in self.directions],
+                cfg.prompt_debiasing_model_path,
+                None if cfg.prompt_debiasing_mask_ids is None
+                else list(cfg.prompt_debiasing_mask_ids))
+            vd_prompts = [d.prompt(p)
+                          for d, p in zip(self.directions, debiased)]
+        else:
+            vd_prompts = [d.prompt(self.prompt) for d in self.directions]
         vd_neg = [d.negative_prompt(self.negative_prompt)
                   for d in self.directions]
         emb = self._encode_cached(
@@ -275,3 +452,12 @@ def dummy_encode_fn(
         return np.stack(out)
 
     return encode
+
+
+class DummyPromptProcessor(PromptProcessor):
+    """A PromptProcessor wired to `dummy_encode_fn()` unless given
+    another encoder."""
+
+    def __init__(self, cfg: PromptProcessorConfig, encode_fn=None,
+                 device="cuda"):
+        super().__init__(cfg, encode_fn or dummy_encode_fn(), device)

@@ -143,3 +143,23 @@ class DiffusionSchedule:
             torch.ones((), device=x_t.device))
         sa, s1a = self._coeffs(abar_prev, x_t.dim())
         return sa * x0 + s1a * eps
+
+
+def if_schedule(num_train_timesteps: int = 1000,
+                device="cuda") -> DiffusionSchedule:
+    """DeepFloyd IF's DDPM schedule: cosine (squaredcos_cap_v2) betas,
+    epsilon prediction, no zero-SNR rescale."""
+    return DiffusionSchedule.create(
+        num_train_timesteps=num_train_timesteps,
+        beta_schedule="squaredcos_cap_v2", rescale_betas_zero_snr=False,
+        prediction_type="epsilon", device=device)
+
+
+def sd_eps_schedule(num_train_timesteps: int = 1000,
+                    device="cuda") -> DiffusionSchedule:
+    """SD 2.1-base's schedule: scaled-linear betas, epsilon prediction, no
+    zero-SNR rescale."""
+    return DiffusionSchedule.create(
+        num_train_timesteps=num_train_timesteps,
+        rescale_betas_zero_snr=False, prediction_type="epsilon",
+        device=device)

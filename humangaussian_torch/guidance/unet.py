@@ -17,11 +17,26 @@ Port of humangaussian_tpu/guidance/unet.py: a Stable-Diffusion-2-base UNet
   channels each) and returns the channel-concat of the rgb and the depth
   prediction.
 
+`branch_num > 1` adds structure branches (`conv_in_branch.{i}`,
+`down_blocks_branch.{i}`, `up_blocks_branch.{i}`, `conv_norm_out_branch.{i}`,
+`conv_out_branch.{i}`), each fed its own input, fused with the main stem by
+`fusion` (`avg`, `sum`, or `learn`: a 3 x 3 `fusion_conv` over the
+channel-concat of the stems). `SingleUNet` is the plain diffusers
+UNet2DConditionModel (no branch, no size micro-conditioning), with
+`encoder_hid_proj` when `encoder_hid_dim` is set (DeepFloyd IF's T5 width):
+the backbone of guidance/stable_diffusion.py and guidance/deep_floyd.py.
+
 Kernels: every GroupNorm is `GroupNormAct` (ops/groupnorm.py, kernels K3
 and K3a forward, K5 backward) and self-attention with `flash_attention` on and a token count that is a
 multiple of 128 is `self_attention` (ops/attention.py, kernel K4).
-Cross-attention and the 8 x 8 mid block (64 tokens) take the matrix-product
-branch, as in the reference.
+Cross-attention, the 8 x 8 mid block (64 tokens) and every site of a
+configuration without `flash_attention` (IF_I_XL_CONFIG) take the
+matrix-product branch, as in the reference. That branch runs over chunks
+of the (batch x heads) rows so that one chunk's float32 logits stay under
+`ATTN_CHUNK_BYTES`: XLA's fusion keeps the reference's one-pass form from
+materializing its [B, heads, 4096, 4096] logits, eager torch would not
+(about 12 GB at IF's first level, batch 16). Each row's arithmetic is
+that of the one pass.
 
 Parameter names are diffusers' `unet_ema` names (`down_blocks.0.resnets.0
 .norm1.weight`, `conv_in_branch.0.weight`, ...), so a state dict loads
@@ -35,8 +50,6 @@ the reference's public layout; inside, activations are channels-first
 tensors in the `channels_last` memory format, which is what cuDNN's bf16
 convolutions want and makes the `[B, h, w, C]` view GroupNormAct and the
 transformer blocks need free.
-
-Waiting (not ported): `SingleUNet`, `branch_num > 1`, `fusion: learn`.
 """
 from __future__ import annotations
 
@@ -64,6 +77,7 @@ class UNetConfig:
     norm_num_groups: int = 32
     addition_time_embed_dim: int = 256
     num_time_ids: int = 6
+    encoder_hid_dim: int | None = None  # e.g. 4096 for DeepFloyd's T5
     branch_num: int = 1
     copy_first_n_block: int = 1
     copy_last_n_block: int = 1
@@ -88,6 +102,9 @@ TINY_TEST_CONFIG = UNetConfig(
     addition_time_embed_dim=16,
     dtype=torch.float32,
 )
+
+
+ATTN_CHUNK_BYTES = 1 << 30  # float32 logits of one matrix-product chunk
 
 
 def sinusoidal_embedding(timesteps, dim: int):
@@ -155,12 +172,28 @@ class Attention(nn.Module):
             # [b, h, 4096, 4096] logits at the first level
             out = self_attention(q, k, v).reshape(b, n, inner)
         else:
-            logits = torch.einsum("bnhd,bmhd->bhnm", q.float(),
-                                  k.float()) / math.sqrt(d)
-            attn = torch.softmax(logits, dim=-1).to(x.dtype)
-            out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(
-                b, n, inner)
+            out = matmul_attention(q, k, v)
         return self.to_out[0](out)
+
+
+def matmul_attention(q, k, v):
+    """softmax(q k^T / sqrt(d)) v with float32 logits and softmax, the
+    probabilities cast to v's dtype before the second product: q [b, n, h,
+    d], k and v [b, m, h, d] -> [b, n, h * d]. The (batch x heads) rows
+    run in chunks whose float32 logits take at most ATTN_CHUNK_BYTES."""
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    step = max(1, ATTN_CHUNK_BYTES // (n * m * 4))
+    qh, kh, vh = (x.permute(0, 2, 1, 3).reshape(b * h, -1, d)
+                  for x in (q, k, v))
+    out = torch.empty((b * h, n, d), dtype=v.dtype, device=v.device)
+    for s in range(0, b * h, step):
+        logits = torch.bmm(qh[s:s + step].float(),
+                           kh[s:s + step].float().transpose(1, 2)
+                           ) / math.sqrt(d)
+        attn = torch.softmax(logits, dim=-1).to(v.dtype)
+        out[s:s + step] = torch.bmm(attn, vh[s:s + step])
+    return out.reshape(b, h, n, d).permute(0, 2, 1, 3).reshape(b, n, h * d)
 
 
 class GEGLU(nn.Module):
@@ -333,16 +366,112 @@ def cast_weights(module: nn.Module, dtype: torch.dtype,
     return module
 
 
+def _down_blocks(cfg: UNetConfig, count: int) -> nn.ModuleList:
+    """The first `count` down blocks."""
+    chs = cfg.block_out_channels
+    n = len(chs)
+    return nn.ModuleList(
+        [DownBlock(chs[max(i - 1, 0)], chs[i], cfg.time_embed_dim,
+                   cfg.down_block_has_attn[i], cfg.attn_heads[i], i < n - 1,
+                   cfg)
+         for i in range(count)]
+    )
+
+
+def _up_blocks(cfg: UNetConfig, first: int) -> nn.ModuleList:
+    """Up blocks `first` .. n - 1, with diffusers' skip-channel bookkeeping:
+    the channels are reversed and each block takes layers_per_block + 1
+    skips off the stack."""
+    chs = list(cfg.block_out_channels)
+    n = len(chs)
+    rev = list(reversed(chs))
+    rev_attn = list(reversed(cfg.down_block_has_attn))
+    rev_heads = list(reversed(cfg.attn_heads))
+    skips = [chs[0]]  # bottom of the stack first
+    for i in range(n):
+        skips += [chs[i]] * cfg.layers_per_block
+        if i < n - 1:
+            skips.append(chs[i])
+    take = cfg.layers_per_block + 1
+    blocks = []
+    for i in range(n):
+        skip_chs = list(reversed(skips[-take:]))
+        skips = skips[:-take]
+        if i >= first:
+            blocks.append(UpBlock(
+                rev[max(i - 1, 0)], skip_chs, rev[i], cfg.time_embed_dim,
+                rev_attn[i], rev_heads[i], i < n - 1, cfg))
+    return nn.ModuleList(blocks)
+
+
+def _stem(x, dtype):
+    """[B, h, w, C] -> channels-first in the channels_last memory format."""
+    return x.to(dtype).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+class SingleUNet(nn.Module):
+    """The plain diffusers UNet2DConditionModel: no depth branch, no size
+    micro-conditioning; `encoder_hid_proj` maps the text embeddings to the
+    cross-attention width when `cfg.encoder_hid_dim` is set."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        chs = list(cfg.block_out_channels)
+        n = len(chs)
+        g = cfg.norm_num_groups
+        self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+        self.time_embedding = TimestepEmbedding(chs[0], cfg.time_embed_dim)
+        self.encoder_hid_proj = (
+            nn.Linear(cfg.encoder_hid_dim, cfg.cross_attention_dim)
+            if cfg.encoder_hid_dim is not None else None)
+        self.down_blocks = _down_blocks(cfg, n)
+        self.mid_block = MidBlock(chs[-1], cfg.time_embed_dim,
+                                  cfg.attn_heads[-1], cfg)
+        self.up_blocks = _up_blocks(cfg, 0)
+        self.conv_norm_out = GroupNormAct(g, chs[0], eps=1e-5, silu=True)
+        self.conv_out = nn.Conv2d(chs[0], cfg.out_channels, 3, padding=1)
+        cast_weights(self, cfg.dtype)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv_in.weight.dtype
+
+    def forward(self, sample, timesteps, encoder_hidden_states):
+        """sample [B, h, w, in_channels], timesteps [B],
+        encoder_hidden_states [B, L, encoder_hid_dim or
+        cross_attention_dim] -> [B, h, w, out_channels] float32."""
+        cfg = self.cfg
+        dtype = self.dtype
+        emb = self.time_embedding(sinusoidal_embedding(
+            timesteps, cfg.block_out_channels[0]).to(dtype))
+        context = encoder_hidden_states.to(dtype)
+        if self.encoder_hid_proj is not None:
+            context = self.encoder_hid_proj(context)
+        h = self.conv_in(_stem(sample, dtype))
+        res = [h]
+        for blk in self.down_blocks:
+            h, rs = blk(h, emb, context)
+            res += rs
+        h = self.mid_block(h, emb, context)
+        for blk in self.up_blocks:
+            h = blk(h, res, emb, context)
+        out = self.conv_out(self.conv_norm_out(h)).float()
+        return out.permute(0, 2, 3, 1)
+
+
+SD2_SINGLE_CONFIG = dataclasses.replace(SD2_BASE_CONFIG, in_channels=4)
+
+TINY_SINGLE_CONFIG = dataclasses.replace(TINY_TEST_CONFIG, in_channels=4)
+
+
 class DualBranchUNet(nn.Module):
     def __init__(self, cfg: UNetConfig = SD2_BASE_CONFIG):
         super().__init__()
-        if cfg.branch_num != 1:
-            raise NotImplementedError(
-                "branch_num > 1 is not ported (ROADMAP.md queue 1 item 19)")
-        if cfg.fusion not in ("avg", "sum"):
-            raise NotImplementedError(
-                f"fusion {cfg.fusion!r} is not ported (avg and sum are; "
-                "ROADMAP.md queue 1 item 19)")
+        if cfg.fusion not in ("avg", "sum", "learn"):
+            raise ValueError(
+                f"unknown fusion {cfg.fusion!r}; expected avg, sum or learn")
         self.cfg = cfg
         chs = list(cfg.block_out_channels)
         n = len(chs)
@@ -358,47 +487,19 @@ class DualBranchUNet(nn.Module):
         self.time_embedding = TimestepEmbedding(chs[0], temb_dim)
         self.add_embedding = TimestepEmbedding(
             cfg.addition_time_embed_dim * cfg.num_time_ids, temb_dim)
+        if cfg.fusion == "learn":
+            fused = chs[cfg.copy_first_n_block - 1]
+            self.fusion_conv = nn.Conv2d((1 + bn) * fused, fused, 3,
+                                         padding=1)
 
-        def make_down(count):
-            return nn.ModuleList(
-                [DownBlock(chs[max(i - 1, 0)], chs[i], temb_dim,
-                           cfg.down_block_has_attn[i], cfg.attn_heads[i],
-                           i < n - 1, cfg)
-                 for i in range(count)]
-            )
-
-        self.down_blocks = make_down(n)
+        self.down_blocks = _down_blocks(cfg, n)
         self.down_blocks_branch = nn.ModuleList(
-            [make_down(cfg.copy_first_n_block) for _ in range(bn)]
+            [_down_blocks(cfg, cfg.copy_first_n_block) for _ in range(bn)]
         )
         self.mid_block = MidBlock(chs[-1], temb_dim, cfg.attn_heads[-1], cfg)
-
-        def make_up(first):
-            """Up blocks `first` .. n - 1, with diffusers' skip-channel
-            bookkeeping: the channels are reversed and each block takes
-            layers_per_block + 1 skips off the stack."""
-            rev = list(reversed(chs))
-            rev_attn = list(reversed(cfg.down_block_has_attn))
-            rev_heads = list(reversed(cfg.attn_heads))
-            skips = [chs[0]]  # bottom of the stack first
-            for i in range(n):
-                skips += [chs[i]] * cfg.layers_per_block
-                if i < n - 1:
-                    skips.append(chs[i])
-            take = cfg.layers_per_block + 1
-            blocks = []
-            for i in range(n):
-                skip_chs = list(reversed(skips[-take:]))
-                skips = skips[:-take]
-                if i >= first:
-                    blocks.append(UpBlock(
-                        rev[max(i - 1, 0)], skip_chs, rev[i], temb_dim,
-                        rev_attn[i], rev_heads[i], i < n - 1, cfg))
-            return nn.ModuleList(blocks)
-
-        self.up_blocks = make_up(0)
+        self.up_blocks = _up_blocks(cfg, 0)
         self.up_blocks_branch = nn.ModuleList(
-            [make_up(n - cfg.copy_last_n_block) for _ in range(bn)]
+            [_up_blocks(cfg, n - cfg.copy_last_n_block) for _ in range(bn)]
         )
 
         self.conv_norm_out = GroupNormAct(g, chs[0], eps=1e-5, silu=True)
@@ -418,16 +519,23 @@ class DualBranchUNet(nn.Module):
 
     def forward(self, sample, sample_branch, timesteps,
                 encoder_hidden_states, time_ids):
-        """sample, sample_branch [B, h, w, in_channels]: the noisy rgb and
-        depth latents, each with the pose latent appended; timesteps [B];
+        """sample [B, h, w, in_channels]: the noisy rgb latent with the pose
+        latent appended; sample_branch: the same for the depth latent, or a
+        list of `branch_num` such inputs; timesteps [B];
         encoder_hidden_states [B, L, cross_attention_dim]; time_ids
-        [B, num_time_ids]. Returns [B, h, w, 2 * out_channels] float32:
-        the rgb prediction, then the depth prediction."""
+        [B, num_time_ids]. Returns [B, h, w, (1 + branch_num) *
+        out_channels] float32: the rgb prediction, then each branch's."""
         cfg = self.cfg
         dtype = self.dtype
         n = len(cfg.block_out_channels)
         first_n, last_n = cfg.copy_first_n_block, cfg.copy_last_n_block
         b = time_ids.shape[0]
+        branches = (list(sample_branch)
+                    if isinstance(sample_branch, (list, tuple))
+                    else [sample_branch])
+        if len(branches) != cfg.branch_num:
+            raise ValueError(f"got {len(branches)} branch inputs for "
+                             f"branch_num={cfg.branch_num}")
 
         emb = self.time_embedding(sinusoidal_embedding(
             timesteps, cfg.block_out_channels[0]).to(dtype))
@@ -437,44 +545,50 @@ class DualBranchUNet(nn.Module):
         emb = emb + self.add_embedding(size_emb.to(dtype))
         context = encoder_hidden_states.to(dtype)
 
-        def stem(x):
-            return x.to(dtype).permute(0, 3, 1, 2).contiguous(
-                memory_format=torch.channels_last)
-
-        h = self.conv_in(stem(sample))
-        h_br = self.conv_in_branch[0](stem(sample_branch))
-        res_main, res_br = [h], [h_br]
+        h = self.conv_in(_stem(sample, dtype))
+        h_brs = [conv(_stem(x, dtype))
+                 for conv, x in zip(self.conv_in_branch, branches)]
+        res_main = [h]
+        res_brs = [[hb] for hb in h_brs]
         for blk in self.down_blocks[:first_n]:
             h, rs = blk(h, emb, context)
             res_main += rs
-        for blk in self.down_blocks_branch[0]:
-            h_br, rs = blk(h_br, emb, context)
-            res_br += rs
+        for i, blocks in enumerate(self.down_blocks_branch):
+            for blk in blocks:
+                h_brs[i], rs = blk(h_brs[i], emb, context)
+                res_brs[i] += rs
 
-        h = h + h_br
-        if cfg.fusion == "avg":
-            h = h / (1.0 + cfg.branch_num)
+        if cfg.fusion == "learn":
+            h = self.fusion_conv(torch.cat([h, *h_brs], dim=1))
+        else:
+            h = sum(h_brs, h)
+            if cfg.fusion == "avg":
+                h = h / (1.0 + cfg.branch_num)
 
         for blk in self.down_blocks[first_n:]:
             h, rs = blk(h, emb, context)
             res_main += rs
-            res_br += rs
+            for rb in res_brs:
+                rb += rs
 
         h = self.mid_block(h, emb, context)
 
         layers_up = cfg.layers_per_block + 1
         for blk in self.up_blocks[: n - last_n]:
             h = blk(h, res_main, emb, context)
-            del res_br[-layers_up:]  # the branch stack pops in lockstep
+            for rb in res_brs:  # the branch stacks pop in lockstep
+                del rb[-layers_up:]
 
-        h_b = h
-        for blk in self.up_blocks_branch[0]:
-            h_b = blk(h_b, res_br, emb, context)
+        h_bs = []
+        for i, blocks in enumerate(self.up_blocks_branch):
+            h_b = h
+            for blk in blocks:
+                h_b = blk(h_b, res_brs[i], emb, context)
+            h_bs.append(h_b)
         for blk in self.up_blocks[n - last_n:]:
             h = blk(h, res_main, emb, context)
 
-        out = torch.cat(
-            [self.conv_out(self.conv_norm_out(h)).float(),
-             self.conv_out_branch[0](
-                 self.conv_norm_out_branch[0](h_b)).float()], dim=1)
-        return out.permute(0, 2, 3, 1)
+        outs = [self.conv_out(self.conv_norm_out(h)).float()]
+        outs += [conv(norm(h_b)).float() for conv, norm, h_b in zip(
+            self.conv_out_branch, self.conv_norm_out_branch, h_bs)]
+        return torch.cat(outs, dim=1).permute(0, 2, 3, 1)

@@ -6,7 +6,11 @@ Port of humangaussian_tpu/train/loop.py. `run_training` drives
 step calls for (`system.maybe_densify`, decided without a device read),
 logs every `log_every` steps and after each density-control pass (the
 metrics are read from the device only then), renders the validation orbit
-every `val_interval` steps (`it{N}-val.png`) and writes `metrics.csv`.
+every `val_interval` steps (`it{N}-val.png`), writes the guidance strip
+every `guidance_eval_interval` steps (`it{N}-guidance.png`: the render,
+the pose image, the 1-step and the denoised image, the 1-step and the
+denoised depth of the first camera, each resized to the prior's image
+size) and writes `metrics.csv`.
 `finalize` writes the 120-view orbit video (`orbit.mp4`, or the `.gif`
 that `save_video` falls back to), `last.ply` and the checkpoint
 `ckpts/last`.
@@ -21,15 +25,16 @@ it and a resumed run does not climb the ladder again. Not ported, because
 dynamic binning leaves them nothing to do: `active_rank_bucket` (the
 candidate domain is sized by the live scene) and the `class_fracs` ladder
 (there is no class chain, so `overflow_spill` is 0), with their arguments;
-nor the opt-in `overflow_limit` abort, which the ladder replaces.
-`guidance_eval_interval > 0` raises until `guidance_eval_snapshot` is
-ported (ROADMAP item 19). The JAX `run_training` also calls `finalize`,
+nor the opt-in `overflow_limit` abort, which the ladder replaces. The
+JAX `run_training` also calls `finalize`,
 and its launcher calls it again; here the launcher's call is the only one.
 """
 from __future__ import annotations
 
 import os
 import time
+
+import numpy as np
 
 from humangaussian_torch.io.ply import save_ply
 from humangaussian_torch.train.checkpoint import save_checkpoint
@@ -93,10 +98,6 @@ def run_training(
     progress_path: str | None = None,  # percentage file for external UIs
 ):
     """Train from `state.step` to `max_steps`. Returns (state, history)."""
-    if guidance_eval_interval:
-        raise NotImplementedError(
-            "guidance_eval_interval > 0 needs guidance_eval_snapshot, which "
-            "is not ported yet (ROADMAP.md queue 1 item 19)")
     max_steps = max_steps or system.cfg.max_steps
     history: list[dict] = []
     t_last = time.time()
@@ -156,12 +157,33 @@ def run_training(
                             images)
             if logger is not None:
                 logger.log_image(step, "val/render", images[0])
+        if (save_dir and guidance_eval_interval
+                and step % guidance_eval_interval == 0):
+            save_guidance_strip(
+                os.path.join(save_dir, f"it{step}-guidance.png"),
+                system.guidance_eval_snapshot(state))
 
     if save_dir:
         save_metrics_csv(os.path.join(save_dir, "metrics.csv"), history)
     if logger is not None:
         logger.close()
     return state, history
+
+
+GUIDANCE_STRIP = ("render", "pose", "imgs_1step", "imgs_final",
+                  "depths_1step", "depths_final")
+
+
+def save_guidance_strip(path: str, strips: dict) -> str:
+    """The first camera's panels of a `guidance_eval_snapshot`, side by
+    side, each resized (anti-aliased bilinear) to the denoised image's
+    size."""
+    from humangaussian_torch.guidance.dual_branch import resize_bilinear
+
+    size = strips["imgs_final"].shape[1]
+    row = [resize_bilinear(strips[k][:1], size)[0].cpu().numpy()
+           for k in GUIDANCE_STRIP if k in strips]
+    return save_image_grid(path, [np.concatenate(row, axis=1)])
 
 
 def finalize(system, state, save_dir: str) -> str:

@@ -4,7 +4,9 @@ Port of humangaussian_tpu/train/system.py. One `train_step`:
 
   sample 8 cameras, draw their pose images, anneal timesteps, pick text
   -> batched tiled render with the means2d tap (K1; K2 in the backward)
-  -> dual-branch ANPG guidance (VAE encodes, UNet, reparameterized loss)
+  -> the guidance: dual-branch ANPG (VAE encodes, UNet, reparameterized
+     loss), or DeepFloyd IF (`system.guidance.type: deep-floyd`), which is
+     handed the cameras' elevation, azimuth and distance for Perp-Neg
   -> sparsity (and opaque) losses -> gradients of the Gaussian parameters
      and of the means2d tap in one `torch.autograd.grad`
   -> densify statistics -> per-group Adam.
@@ -38,9 +40,11 @@ whole-batch render). There is no counterpart of `remat_render`, nor of the
 static-shape arguments `active_cap` and `class_fracs`, which size the JAX
 package's static candidate and class buffers: the port's binning is sized
 by the live scene; `GaussianDreamerConfig` has no `remat_render` field,
-and the launcher's `_take` drops it. Waiting: `guidance_eval_snapshot`
-(ROADMAP item 19) and `batch_loss`'s shard arguments (`axis_name`,
-`n_shards`, `global_batch`, `sample_idx`; item 17).
+and the launcher's `_take` drops it. `guidance_eval_snapshot` draws from
+a generator of its own (seeded from the host step unless one is passed),
+so that a snapshot leaves the training stream as it was, as the JAX
+method leaves the state's key. Waiting: `batch_loss`'s shard arguments
+(`axis_name`, `n_shards`, `global_batch`, `sample_idx`; item 17).
 """
 from __future__ import annotations
 
@@ -150,7 +154,7 @@ class GaussianDreamerSystem:
         self,
         cfg: GaussianDreamerConfig,
         skeleton,  # smplx.skeleton.Skeleton, loaded and scaled(-10)
-        guidance=None,  # guidance.dual_branch.DualBranchGuidance
+        guidance=None,  # DualBranchGuidance or DeepFloydSystemGuidance
         prompt_embeddings=None,  # guidance.prompt.PromptEmbeddings
         camera_cfg: RandomCameraConfig = RandomCameraConfig(),
         optim_cfg: GaussianOptimConfig = GaussianOptimConfig(),
@@ -276,9 +280,12 @@ class GaussianDreamerSystem:
             -1, -1, -1, 3)
 
         draws = inputs.guidance_draws or {}
+        cams = inputs.cameras
         g_out = self.guidance(
             inputs.pose, images, depth3, inputs.text, inputs.t, generator,
-            grad_clip_val=C_schedule(cfg.grad_clip, step), **draws)
+            grad_clip_val=C_schedule(cfg.grad_clip, step),
+            elevation=cams.elevation, azimuth=cams.azimuth,
+            camera_distances=cams.camera_distances, **draws)
         loss_sds = g_out["loss_sds"]
         loss = loss_sds * C_schedule(cfg.lambda_sds, step)
         loss_sparsity = torch.sqrt(opacity ** 2 + 0.01).mean()
@@ -402,6 +409,76 @@ class GaussianDreamerSystem:
         if self.should_prune_only(step):
             return self.prune_only_step(state)
         return state, None
+
+    @torch.no_grad()
+    def guidance_eval_snapshot(self, state: TrainState, t_frac: float = 0.5,
+                               num_steps: int = 20, generator=None,
+                               cameras: CameraBatch | None = None,
+                               latent_eps=None, noise=None) -> dict:
+        """The training-time guidance visualization: render a camera
+        batch, noise its latents to t = t_frac T, and return the 1-step and
+        the DDIM-denoised images of both branches (`guidance_eval`) with
+        "render" and "pose". The cameras, the encodes' draw (`latent_eps`,
+        one [B, h, w, 4] draw shared by the rgb, depth and pose encodes, as
+        the reference shares its key) and `noise` (shared by both branches)
+        come from `generator` unless passed; without one, a generator
+        seeded from the host step is made."""
+        from humangaussian_torch.guidance.dual_branch import (
+            DEPTH_MEAN,
+            DEPTH_STD,
+            RGB_MEAN,
+            RGB_STD,
+            WHOLE_MEAN,
+            WHOLE_STD,
+            resize_bilinear,
+        )
+
+        g = self.guidance
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                int(state.step))
+        if cameras is None:
+            cameras = sample_camera_batch(generator, state.step,
+                                          self.camera_cfg, self.device)
+        pose = self.pose_images(cameras)
+        out = self.render_batch(state.scene, cameras, self.camera_cfg.height,
+                                self.camera_cfg.width)
+        b = out["image"].shape[0]
+        s = g.cfg.image_size
+        depths = out["depth"][..., None]
+        dmin = depths.amin(dim=(1, 2, 3), keepdim=True)
+        dmax = depths.amax(dim=(1, 2, 3), keepdim=True)
+        depth3 = ((depths - dmin) / (dmax - dmin + 1e-10)).expand(
+            -1, -1, -1, 3)
+
+        if latent_eps is None:
+            down = 2 ** (len(g.vae.cfg.block_out_channels) - 1)
+            latent_eps = torch.randn(
+                (b, s // down, s // down, g.vae.cfg.latent_channels),
+                generator=generator, device=self.device)
+
+        def encode(img):
+            return g.encode_images(resize_bilinear(img, s), eps=latent_eps)
+
+        latents = encode(out["image"])
+        dep_lat = (encode(depth3) - DEPTH_MEAN) / DEPTH_STD * RGB_STD \
+            + RGB_MEAN
+        whole = (encode(pose) - WHOLE_MEAN) / WHOLE_STD * RGB_STD + RGB_MEAN
+        t = torch.full((b,), int(g.schedule.num_train_timesteps * t_frac),
+                       dtype=torch.int64, device=self.device)
+        if noise is None:
+            noise = torch.randn(latents.shape, generator=generator,
+                                device=self.device)
+        text2 = self.prompt_embeddings.get_text_embeddings(
+            cameras.elevation, cameras.azimuth,
+            cameras.camera_distances)[: 2 * b]
+        strips = g.guidance_eval(
+            g.schedule.add_noise(latents, noise, t),
+            g.schedule.add_noise(dep_lat, noise, t), whole, t, text2,
+            num_steps=num_steps)
+        strips["render"] = out["image"]
+        strips["pose"] = pose
+        return strips
 
     # ---- eval ----------------------------------------------------------------
     @torch.no_grad()

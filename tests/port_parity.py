@@ -170,6 +170,39 @@ def tiny_unet_pair(seed=0, flash=False, latent=8):
 
 
 @functools.lru_cache(maxsize=None)
+def tiny_single_unet_pair(seed=0, kind="sd", encoder_hid_dim=None):
+    """(flax module, flax params, port module) of a tiny `SingleUNet` with
+    the same weights, as `tiny_unet_pair`: `kind` "sd" is
+    TINY_SINGLE_CONFIG (4 channels in and out; `encoder_hid_dim` adds the
+    text projection), "if" TINY_IF_CONFIG (3 in, 6 out, a 48-wide T5
+    stand-in projected to 32)."""
+    import dataclasses
+
+    from humangaussian_torch.convert import unet_state_dict_from_flax
+    from humangaussian_torch.guidance import deep_floyd as port_df
+    from humangaussian_torch.guidance import unet as port_unet
+    from humangaussian_tpu.guidance import deep_floyd as jax_df
+    from humangaussian_tpu.guidance import unet as jax_unet
+
+    if kind == "if":
+        jcfg, pcfg = jax_df.TINY_IF_CONFIG, port_df.TINY_IF_CONFIG
+    else:
+        jcfg = dataclasses.replace(jax_unet.TINY_SINGLE_CONFIG,
+                                   encoder_hid_dim=encoder_hid_dim)
+        pcfg = dataclasses.replace(port_unet.TINY_SINGLE_CONFIG,
+                                   encoder_hid_dim=encoder_hid_dim)
+    module = jax_unet.SingleUNet(jcfg)
+    ctx = jcfg.encoder_hid_dim or jcfg.cross_attention_dim
+    params = module.init(
+        jax.random.PRNGKey(seed), jnp.zeros((1, 8, 8, jcfg.in_channels)),
+        jnp.zeros((1,)), jnp.zeros((1, 7, ctx)))
+    leaves = _jitter(flax_leaves(params), np.random.RandomState(seed + 1))
+    port = port_unet.SingleUNet(pcfg)
+    port.load_state_dict(unet_state_dict_from_flax(leaves))
+    return module, jax.tree.map(jnp.asarray, leaves), port.eval()
+
+
+@functools.lru_cache(maxsize=None)
 def tiny_vae_pair(seed=0):
     """(flax module, flax params, port module) of the tiny VAE, as
     `tiny_unet_pair`."""
@@ -264,12 +297,13 @@ def tiny_prompt_arrays(seed=0, n=7, d=32) -> dict:
 
 
 def tiny_system_pair(seed=0, capacity=2048, batch=2, tile_capacity=256,
-                     max_tiles=16, **cfg):
+                     max_tiles=16, guidance_pair=None, prompt_dim=32, **cfg):
     """(JAX GaussianDreamerSystem, port GaussianDreamerSystem) at the sizes
     of `humangaussian_tpu.testing.tiny_system` (64^2 renders, capacity
     2048, 500 points, batch 2, the tiny prior) built from one seed: the
-    prior through `tiny_guidance_pair`, the prompt embeddings from numpy,
-    each package's skeleton from its own toy SMPL-X model."""
+    prior through `tiny_guidance_pair` (or the (JAX, port) `guidance_pair`
+    given), the prompt embeddings from numpy (`prompt_dim` wide), each
+    package's skeleton from its own toy SMPL-X model."""
     from humangaussian_torch.convert import prompt_embeddings_from_numpy
     from humangaussian_torch.data.cameras import (
         RandomCameraConfig as PortCameraConfig,
@@ -287,7 +321,7 @@ def tiny_system_pair(seed=0, capacity=2048, batch=2, tile_capacity=256,
     from humangaussian_tpu.smplx.skeleton import Skeleton
     from humangaussian_tpu.train import system as jax_system
 
-    jg, pg = tiny_guidance_pair(seed, remat_encode=True)
+    jg, pg = guidance_pair or tiny_guidance_pair(seed, remat_encode=True)
     sys_cfg = dict(
         capacity=capacity, pts_num=500, pose_image_size=64,
         tile_capacity=tile_capacity, densify_prune_start_step=2,
@@ -297,7 +331,7 @@ def tiny_system_pair(seed=0, capacity=2048, batch=2, tile_capacity=256,
     sys_cfg.update(cfg)
     cam_cfg = dict(batch_size=batch, height=64, width=64, eval_height=64,
                    eval_width=64, n_val_views=2, n_test_views=3)
-    prompts = tiny_prompt_arrays(seed)
+    prompts = tiny_prompt_arrays(seed, d=prompt_dim)
     js = jax_system.GaussianDreamerSystem(
         jax_system.GaussianDreamerConfig(**sys_cfg),
         Skeleton(style="humansd", apose=True).load_smplx(

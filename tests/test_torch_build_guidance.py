@@ -202,9 +202,12 @@ def test_build_guidance_reports_missing_tensors(tmp_path):
 
 
 def test_avatar_system_still_waits():
-    """The avatar system is ported; with DeepFloyd guidance it still
-    waits (ROADMAP item 19)."""
-    with pytest.raises(NotImplementedError, match="item 19"):
-        launch.build_system({"system": {"type": "gaussiandreamer-system",
-                                        "guidance": {"type": "deep-floyd"}}},
-                            "cpu")
+    """The avatar system with DeepFloyd guidance no longer waits (ROADMAP
+    item 19): its builder is `build_deep_floyd`, which rejects an unknown
+    arch; `build_guidance` stays the dual-branch builder."""
+    cfg = {"system": {"guidance": {"type": "deep-floyd", "arch": "huge",
+                                   "model_key": "/nonexistent"}}}
+    with pytest.raises(ValueError, match="deep-floyd arch"):
+        launch.build_deep_floyd(cfg, "cpu")
+    with pytest.raises(ValueError, match="dual-branch"):
+        launch.build_guidance(cfg, "cpu")

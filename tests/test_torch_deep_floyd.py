@@ -1,0 +1,369 @@
+"""guidance/deep_floyd.py of the port against the JAX package at
+TINY_IF_CONFIG (3 channels in, 6 out, a 48-wide T5 stand-in, 16^2 pixels),
+weights shared through `unet_state_dict_from_flax`, and the IF trainer
+through `apps.launch.build_system` at `arch: tiny`.
+
+Tolerances: the SDS and Perp-Neg gradients, `grad` and d(loss)/d(rgb) 2e-4
+of the reference's max (the guidance chain's tolerance,
+tests/test_torch_guidance.py), losses 2e-4 relative; `if_schedule` and
+`sd_eps_schedule` bit for bit; the anti-aliased 1024^2 -> 64^2 resize
+1e-6 absolute on [-1, 1] pixels (float32 sums of 16 x 16 taps a pixel in
+another order); the trainer's loss 1e-5 relative and its gradients 2e-4
+of each leaf's max, as tests/test_torch_system.py holds the dual-branch
+step.
+"""
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from humangaussian_torch.apps import launch
+from humangaussian_torch.guidance import deep_floyd as port_df
+from humangaussian_torch.guidance import prompt as port_prompt
+from humangaussian_torch.guidance import schedule as port_schedule
+from humangaussian_torch.guidance.dual_branch import resize_bilinear
+from humangaussian_torch.guidance.unet import SingleUNet
+from humangaussian_tpu.guidance import deep_floyd as jax_df
+from humangaussian_tpu.guidance import prompt as jax_prompt
+from humangaussian_tpu.guidance import stable_diffusion as jax_sd
+from humangaussian_tpu.guidance.dual_branch import per_sample_normal
+from humangaussian_tpu.ops import groupnorm as jax_gn
+from port_parity import (
+    assert_tree_close,
+    dreamer_state_from_jax,
+    jax_camera_draws,
+    tiny_prompt_arrays,
+    tiny_single_unet_pair,
+    tiny_system_pair,
+)
+from test_launch import make_smplx_npz
+
+torch.set_num_threads(1)
+B, S = 2, 16
+REL = 2e-4
+T = np.array([120, 700], np.int64)
+ELEV = np.array([10.0, 70.0], np.float32)  # one side/front, one overhead
+AZIM = np.array([30.0, -150.0], np.float32)
+
+
+@pytest.fixture(autouse=True)
+def pallas(monkeypatch):
+    monkeypatch.setattr(jax_gn, "FORCE_PALLAS_INTERPRET", True)
+
+
+def _pair(use_perp_neg=False, **cfg):
+    """(JAX DeepFloydGuidance, port DeepFloydGuidance) sharing weights."""
+    jmod, jparams, punet = tiny_single_unet_pair(seed=0, kind="if")
+    kw = dict(image_size=S, guidance_scale=7.5, use_perp_neg=use_perp_neg)
+    kw.update(cfg)
+    jg = jax_df.DeepFloydGuidance(unet=jmod, unet_params=jparams,
+                                  schedule=jax_df.if_schedule(),
+                                  cfg=jax_df.DeepFloydConfig(**kw))
+    pg = port_df.DeepFloydGuidance(punet,
+                                   port_schedule.if_schedule(device="cpu"),
+                                   port_df.DeepFloydConfig(**kw))
+    return jg, pg
+
+
+def _embeddings(seed=0):
+    arrays = tiny_prompt_arrays(seed, d=48)
+    return (jax_prompt.PromptEmbeddings(**{k: jnp.asarray(v)
+                                           for k, v in arrays.items()}),
+            port_prompt.PromptEmbeddings(**{k: torch.from_numpy(v)
+                                            for k, v in arrays.items()}))
+
+
+def _close(got, want, what, rel=REL):
+    want = np.asarray(want)
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(got, want, atol=rel * np.abs(want).max(),
+                               err_msg=what)
+
+
+def test_schedules_are_exact():
+    for jax_fn, port_fn in ((jax_df.if_schedule, port_schedule.if_schedule),
+                            (jax_sd.sd_eps_schedule,
+                             port_schedule.sd_eps_schedule)):
+        want, got = jax_fn(), port_fn(device="cpu")
+        np.testing.assert_array_equal(got.alphas_cumprod.numpy(),
+                                      np.asarray(want.alphas_cumprod))
+        assert got.prediction_type == want.prediction_type == "epsilon"
+    assert port_df.if_schedule is port_schedule.if_schedule
+
+
+def test_configs_match():
+    for name in ("IF_I_XL_CONFIG", "TINY_IF_CONFIG"):
+        want = dataclasses.asdict(getattr(jax_df, name))
+        got = dataclasses.asdict(getattr(port_df, name))
+        assert got.pop("dtype") == {"bfloat16": torch.bfloat16,
+                                    "float32": torch.float32}[
+            np.dtype(want.pop("dtype")).name]
+        want.pop("use_linear_projection")  # the port's only projection
+        assert got == want, name
+    assert dataclasses.asdict(port_df.DeepFloydConfig()) == \
+        dataclasses.asdict(jax_df.DeepFloydConfig())
+
+
+def test_resize_1024_to_64_matches_jax():
+    """The 16x anti-aliased shrink of the IF path: 1e-6 absolute."""
+    rng = np.random.RandomState(0)
+    x = (rng.rand(2, 1024, 1024, 3) * 2 - 1).astype(np.float32)
+    want = np.asarray(jax.image.resize(jnp.asarray(x), (2, 64, 64, 3),
+                                       "bilinear"))
+    got = resize_bilinear(torch.from_numpy(x), 64)
+    assert got.shape == (2, 64, 64, 3)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+
+
+@pytest.mark.parametrize("use_perp_neg", [False, True])
+def test_sds_gradients_match(use_perp_neg):
+    """compute_grad_sds (text-as-base CFG) and compute_grad_sds_perp_neg
+    on the same pixels, text and noise."""
+    jg, pg = _pair()
+    jemb, _ = _embeddings()
+    rng = np.random.RandomState(3)
+    lat = rng.uniform(-1, 1, (B, S, S, 3)).astype(np.float32)
+    noise = rng.randn(B, S, S, 3).astype(np.float32)
+    if use_perp_neg:
+        text4, neg_w = jax_prompt.get_text_embeddings_perp_neg(
+            jemb, jnp.asarray(ELEV), jnp.asarray(AZIM))
+        want = jg.compute_grad_sds_perp_neg(
+            jnp.asarray(lat), jnp.asarray(T, jnp.int32), text4, neg_w,
+            jnp.asarray(noise))
+        got = pg.compute_grad_sds_perp_neg(
+            torch.from_numpy(lat), torch.from_numpy(T),
+            torch.from_numpy(np.asarray(text4)),
+            torch.from_numpy(np.asarray(neg_w)), torch.from_numpy(noise))
+    else:
+        text2 = np.asarray(jemb.get_text_embeddings(
+            jnp.asarray(ELEV), jnp.asarray(AZIM)))[: 2 * B]
+        want = jg.compute_grad_sds(jnp.asarray(lat),
+                                   jnp.asarray(T, jnp.int32),
+                                   jnp.asarray(text2), jnp.asarray(noise))
+        got = pg.compute_grad_sds(torch.from_numpy(lat), torch.from_numpy(T),
+                                  torch.from_numpy(text2),
+                                  torch.from_numpy(noise))
+    assert got.shape == (B, S, S, 3)
+    _close(got, want, f"grad perp_neg={use_perp_neg}")
+
+
+@pytest.mark.parametrize("use_perp_neg", [False, True])
+def test_call_matches(use_perp_neg):
+    """The public step from a 64^2 render: loss, grad, grad_norm and
+    d(loss)/d(rgb) through the resize, with the JAX side's per-sample
+    noise injected; then the system adapter on the same inputs."""
+    jg, pg = _pair(use_perp_neg)
+    jemb, pemb = _embeddings()
+    rgb = np.random.RandomState(4).rand(B, 64, 64, 3).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    clip = 0.5
+
+    def jcall(rgb_):
+        out = jg(rgb_, jemb, jnp.asarray(ELEV), jnp.asarray(AZIM),
+                 jnp.asarray(T, jnp.int32), key, grad_clip_val=clip)
+        return out["loss_sds"], out
+
+    (jl, jout), jgrad = jax.value_and_grad(jcall, has_aux=True)(
+        jnp.asarray(rgb))
+    noise = torch.from_numpy(np.array(per_sample_normal(
+        key, jnp.arange(B, dtype=jnp.int32), (B, S, S, 3))))
+    rgb_t = torch.tensor(rgb, requires_grad=True)
+    out = pg(rgb_t, pemb, torch.from_numpy(ELEV), torch.from_numpy(AZIM),
+             torch.from_numpy(T), grad_clip_val=clip, noise=noise)
+    out["loss_sds"].backward()
+    assert float(out["loss_sds"].detach()) == pytest.approx(float(jl),
+                                                            rel=2e-4)
+    assert float(out["grad_norm"]) == pytest.approx(
+        float(jout["grad_norm"]), rel=2e-4)
+    _close(out["grad"], jout["grad"], "grad")
+    _close(rgb_t.grad, jgrad, "d(loss)/d(rgb)")
+    assert float(rgb_t.grad.abs().max()) > 0
+
+    adapter = port_df.DeepFloydSystemGuidance(pg, pemb)
+    text3 = pemb.get_text_embeddings(torch.from_numpy(ELEV),
+                                     torch.from_numpy(AZIM))
+    zeros = torch.zeros(B, 64, 64, 3)
+    via = adapter(zeros, torch.from_numpy(rgb), zeros, text3,
+                  torch.from_numpy(T), grad_clip_val=clip,
+                  elevation=torch.from_numpy(ELEV),
+                  azimuth=torch.from_numpy(AZIM), noise=noise)
+    torch.testing.assert_close(via["grad"], out["grad"], rtol=0, atol=0)
+    assert adapter.schedule is pg.schedule
+    if use_perp_neg:
+        with pytest.raises(ValueError, match="elevation and azimuth"):
+            adapter(zeros, torch.from_numpy(rgb), zeros, text3,
+                    torch.from_numpy(T), noise=noise)
+    with pytest.raises(ValueError, match="pixel-space"):
+        pg(rgb_t, pemb, torch.from_numpy(ELEV), torch.from_numpy(AZIM),
+           torch.from_numpy(T), rgb_as_latents=True)
+
+
+# ---- the avatar trainer with IF guidance ---------------------------------
+
+
+@pytest.fixture(scope="module", params=[False, True],
+                ids=["cfg", "perp_neg"])
+def if_system_pair(request):
+    """(JAX, port) GaussianDreamerSystem with the IF adapter (tiny IF,
+    16^2 pixels, Perp-Neg off or on), and one JAX batch_loss with its
+    gradients and draws."""
+    jg, pg = _pair(request.param)
+    jemb, pemb = _embeddings()
+    js, ps = tiny_system_pair(
+        guidance_pair=(jax_df.DeepFloydSystemGuidance(jg, jemb),
+                       port_df.DeepFloydSystemGuidance(pg, pemb)),
+        prompt_dim=48)
+    # the adapters carry the systems' own embeddings
+    js.guidance = js.guidance.replace(embeddings=js.prompt_embeddings)
+    ps.guidance.embeddings = ps.prompt_embeddings
+    state0 = js.init_state(jax.random.PRNGKey(0), seed=0)
+    _key, k_cam, k_t, k_guid = jax.random.split(state0.key, 4)
+    _key2, _kg, cams, pose, text3, t = js.sample_step_inputs(state0)
+
+    def loss_fn(p, o):
+        return js.batch_loss(p, o, state0.scene, cams, pose, text3, t,
+                             k_guid, state0.step, guidance=js.guidance)
+
+    (loss, _aux), (pgrads, mgrad) = jax.jit(jax.value_and_grad(
+        loss_fn, argnums=(0, 1), has_aux=True))(
+            state0.scene.params(), jnp.zeros((js.cfg.capacity, 2)))
+    noise = np.array(per_sample_normal(
+        k_guid, jnp.arange(B, dtype=jnp.int32), (B, S, S, 3)))
+    return dict(js=js, ps=ps, state0=state0, loss=float(loss),
+                pgrads={k: np.asarray(v) for k, v in pgrads.items()},
+                mgrad=np.asarray(mgrad), cam_draws=jax_camera_draws(k_cam, B),
+                u=torch.from_numpy(np.array(jax.random.uniform(k_t, (B,)),
+                                            np.float32)),
+                noise=torch.from_numpy(noise), t=np.asarray(t))
+
+
+def test_if_trainer_step_matches(if_system_pair):
+    """The system forwards the cameras' angles; with them the IF step's
+    loss and every gradient match the JAX step (Perp-Neg off and on)."""
+    from humangaussian_torch.data.cameras import camera_batch_from_draws
+    from humangaussian_torch.train.system import StepInputs
+
+    d = if_system_pair
+    ps = d["ps"]
+    cams = camera_batch_from_draws(d["cam_draws"], 0, ps.camera_cfg)
+    inputs = StepInputs(
+        cameras=cams, pose=ps.pose_images(cams),
+        text=ps.prompt_embeddings.get_text_embeddings(
+            cams.elevation, cams.azimuth, cams.camera_distances),
+        t=ps.timesteps_from_uniform(d["u"], 0),
+        guidance_draws={"noise": d["noise"]})
+    np.testing.assert_array_equal(inputs.t.numpy(), d["t"])
+    state = dreamer_state_from_jax(d["state0"])
+    loss, aux, pgrads, mgrad = ps.loss_and_grads(state, inputs)
+    assert float(loss) == pytest.approx(d["loss"], rel=1e-5)
+    got = dict(pgrads, means2d=mgrad)
+    want = dict(d["pgrads"], means2d=d["mgrad"])
+    assert_tree_close(got, want, scale_rel=2e-4, what="IF grad")
+    assert float(got["sh_dc"].abs().max()) > 0
+
+
+def _if_config(tmp_path, punet, use_perp_neg):
+    """A tiny IF trainer's YAML: the UNet's state dict under
+    `model_key/unet/`, the SMPL-X stand-in, a prompt cache of 48-wide T5
+    stand-ins (so no text encoder is built)."""
+    (tmp_path / "if_model" / "unet").mkdir(parents=True)
+    torch.save(punet.state_dict(), tmp_path / "if_model" / "unet"
+               / "diffusion_pytorch_model.bin")
+    smplx_path = str(tmp_path / "SMPLX_NEUTRAL.npz")
+    make_smplx_npz(smplx_path)
+    cache = str(tmp_path / "text_embeddings")
+    port_prompt.PromptProcessor(
+        port_prompt.PromptProcessorConfig(
+            prompt="a man", model_path="t5-stand-in", cache_dir=cache),
+        port_prompt.dummy_encode_fn(7, 48), device="cpu")()
+    cfg = {
+        "name": "if", "seed": 0, "exp_root_dir": str(tmp_path / "out"),
+        "data": {"batch_size": 2, "height": 64, "width": 64,
+                 "eval_height": 64, "eval_width": 64, "n_val_views": 2,
+                 "n_test_views": 2},
+        "system": {
+            "smplx_path": smplx_path, "capacity": 1024, "pts_num": 300,
+            "pose_image_size": 64, "tile_capacity": 1024,
+            "texture_structure_joint": False,
+            "rasterizer": {"tile": 32, "max_tiles_per_gaussian": 4},
+            "prompt_processor": {
+                "prompt": "a man",
+                "pretrained_model_name_or_path": "t5-stand-in",
+                "cache_dir": cache},
+            "guidance": {"type": "deep-floyd", "arch": "tiny",
+                         "model_key": str(tmp_path / "if_model"),
+                         "guidance_scale": 7.5,
+                         "use_perp_neg": use_perp_neg},
+        },
+        "trainer": {"max_steps": 2, "val_check_interval": 2,
+                    "log_every": 1},
+    }
+    path = tmp_path / "if.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path), cfg
+
+
+@pytest.mark.parametrize("use_perp_neg", [False, True])
+def test_build_system_deep_floyd_from_files(tmp_path, use_perp_neg):
+    """build_system with system.guidance.type deep-floyd at arch tiny:
+    the IF UNet loaded from `unet/` (weights rounded through bfloat16,
+    computing in float32), T5 as the default encoder type (served here
+    from the cache), the angles forwarded; two steps through the CLI with
+    finite metrics and the openpose skeleton."""
+    _jmod, _jparams, punet = tiny_single_unet_pair(seed=0, kind="if")
+    path, cfg = _if_config(tmp_path, punet, use_perp_neg)
+    system = launch.build_system(cfg, "cpu")
+    g = system.guidance
+    assert isinstance(g, port_df.DeepFloydSystemGuidance)
+    assert g.df.cfg.use_perp_neg == use_perp_neg
+    assert g.df.cfg.image_size == S and g.df.cfg.guidance_scale == 7.5
+    assert g.embeddings is system.prompt_embeddings
+    assert system.prompt_embeddings.text_vd.shape == (4, 7, 48)
+    assert g.schedule.prediction_type == "epsilon"
+    w = g.df.unet.conv_in.weight
+    assert w.dtype == torch.float32
+    torch.testing.assert_close(w, punet.conv_in.weight.to(torch.bfloat16)
+                               .float(), rtol=0, atol=0)
+    state = system.init_state(seed=0)
+    state, metrics = system.train_step(state)
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+    trial = launch.main(["--config", path, "--train", "--device", "cpu"])
+    assert os.path.exists(os.path.join(trial, "save", "last.ply"))
+
+
+def test_build_deep_floyd_rejects(tmp_path):
+    _jmod, _jparams, punet = tiny_single_unet_pair(seed=0, kind="if")
+    _path, cfg = _if_config(tmp_path, punet, False)
+    cfg["system"]["guidance"]["arch"] = "if-xxl"
+    with pytest.raises(ValueError, match="deep-floyd arch"):
+        launch.build_deep_floyd(cfg, "cpu")
+    cfg["system"]["guidance"].update(arch="tiny",
+                                     model_key=str(tmp_path / "nowhere"))
+    with pytest.raises(FileNotFoundError):
+        launch.build_deep_floyd(cfg, "cpu")
+
+
+def test_encoder_hid_proj_loads_from_a_diffusers_file():
+    """The T5 projection of an IF checkpoint (`encoder_hid_proj.weight` /
+    `.bias`) loads into the port's SingleUNet; the JAX package's torch ->
+    Flax converter leaves those two keys unmatched (a property of the
+    reference, ROADMAP queue 3), so its deep-floyd launcher would build
+    the UNet without them."""
+    from humangaussian_tpu.guidance.convert import convert_unet_state_dict
+
+    _jmod, _jparams, punet = tiny_single_unet_pair(seed=0, kind="if")
+    sd = {k: v.numpy() for k, v in punet.state_dict().items()}
+    _params, unmatched = convert_unet_state_dict(sd, num_levels=2)
+    assert sorted(unmatched) == ["encoder_hid_proj.bias",
+                                 "encoder_hid_proj.weight"]
+    other = SingleUNet(port_df.TINY_IF_CONFIG)
+    missing, unexpected = other.load_state_dict(punet.state_dict(),
+                                                strict=False)
+    assert not missing and not unexpected
+    torch.testing.assert_close(other.encoder_hid_proj.weight,
+                               punet.encoder_hid_proj.weight)

@@ -3,10 +3,12 @@ against the JAX package at the tiny widths (16^2 images, 8^2 latents), weights s
 converters, with the JAX side's noise draws (its key splits, reproduced by
 `port_parity.jax_guidance_draws`) injected into the port.
 
-Tolerances: `compute_grad`, `grad` and the image gradients 2e-4 of the
-reference's max (the tolerance of tests/test_anpg_grad_parity.py, which
-holds the JAX package to executing torch mirrors); losses 2e-4 relative;
-`sample_joint` 1e-4 absolute on [0, 1] images.
+Tolerances: `compute_grad`, `compute_grad_sjc`, `grad` and the image
+gradients 2e-4 of the reference's max (the tolerance of
+tests/test_anpg_grad_parity.py, which holds the JAX package to executing
+torch mirrors); losses 2e-4 relative; `sample_joint` and `guidance_eval`
+1e-4 absolute on [0, 1] images. A `branch_num = 2` prior takes a list of
+structure images.
 """
 import dataclasses
 
@@ -190,4 +192,147 @@ def test_small_functions_match():
     assert dataclasses.asdict(port_db.GuidanceConfig()) == \
         dataclasses.asdict(jax_db.GuidanceConfig())
     with pytest.raises(ValueError):
-        tiny_port_guidance(mode="sjc")
+        tiny_port_guidance(mode="nfsd")
+
+
+def _grad_inputs(seed=5):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(B, LAT, LAT, 4).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("var_red", [True, False])
+def test_compute_grad_sjc_matches(var_red):
+    """Score Jacobian Chaining with the JAX side's per-sample draws
+    injected."""
+    from humangaussian_tpu.guidance.dual_branch import per_sample_normal
+
+    jg, pg = tiny_guidance_pair(seed=0, mode="sjc")
+    lat, dlat, whole = _grad_inputs()
+    text = _scene()[3]
+    key = jax.random.PRNGKey(9)
+    idx = jnp.arange(B, dtype=jnp.int32)
+    noise, dnoise = (np.array(per_sample_normal(k, idx, lat.shape))
+                     for k in jax.random.split(key))
+    want = jg.compute_grad_sjc(jnp.asarray(lat), jnp.asarray(dlat),
+                               jnp.asarray(whole), jnp.asarray(T, jnp.int32),
+                               jnp.asarray(text), key, var_red=var_red)
+    got = pg.compute_grad_sjc(
+        torch.from_numpy(lat), torch.from_numpy(dlat),
+        torch.from_numpy(whole), torch.from_numpy(T), torch.from_numpy(text),
+        noise=torch.from_numpy(noise), depth_noise=torch.from_numpy(dnoise),
+        var_red=var_red)
+    assert got.shape == (B, LAT, LAT, 8)
+    _close(got, want, f"compute_grad_sjc var_red={var_red}")
+
+
+def test_sjc_call_matches():
+    """mode: sjc through the public step: loss, grad and d(loss)/d(rgb)."""
+    jg, pg = tiny_guidance_pair(seed=0, mode="sjc")
+    pose, rgb, depth, text = _scene(seed=8)
+    key = jax.random.PRNGKey(21)
+
+    def jcall(rgb_):
+        out = jg(jnp.asarray(pose), rgb_, jnp.asarray(depth),
+                 jnp.asarray(text), jnp.asarray(T, jnp.int32), key)
+        return out["loss_sds"], out
+
+    (jl, jout), jg_rgb = jax.value_and_grad(jcall, has_aux=True)(
+        jnp.asarray(rgb))
+    eps = {k: torch.from_numpy(v)
+           for k, v in jax_guidance_draws(jg, key, B, LAT).items()}
+    rgb_t = torch.tensor(rgb, requires_grad=True)
+    out = pg(torch.from_numpy(pose), rgb_t, torch.from_numpy(depth),
+             torch.from_numpy(text), torch.from_numpy(T), latent_eps=eps,
+             noise=eps["noise"], depth_noise=eps["dnoise"])
+    out["loss_sds"].backward()
+    assert float(out["loss_sds"].detach()) == pytest.approx(float(jl),
+                                                            rel=2e-4)
+    _close(out["grad"], jout["grad"], "sjc grad")
+    _close(rgb_t.grad, jg_rgb, "sjc d(loss)/d(rgb)")
+
+
+def test_guidance_eval_matches():
+    """The 1-step estimates and a 3-step DDIM rollout from two noise
+    levels (each sample stops at its own t_start)."""
+    jg, pg = tiny_guidance_pair(seed=0)
+    lat, dlat, whole = _grad_inputs(seed=10)
+    text2 = _scene(seed=11)[3][: 2 * B]
+    t_start = np.array([400, 900], np.int64)
+    want = jg.guidance_eval(jnp.asarray(lat), jnp.asarray(dlat),
+                            jnp.asarray(whole), jnp.asarray(t_start,
+                                                            jnp.int32),
+                            jnp.asarray(text2), num_steps=3)
+    got = pg.guidance_eval(torch.from_numpy(lat), torch.from_numpy(dlat),
+                           torch.from_numpy(whole),
+                           torch.from_numpy(t_start),
+                           torch.from_numpy(text2), num_steps=3)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == (B, HW, HW, 3)
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=1e-4, err_msg=k)
+    assert not np.allclose(got["imgs_1step"].numpy(),
+                           got["imgs_final"].numpy())
+
+
+def test_two_structure_branches_match():
+    """A branch_num = 2 prior: a list of two structure images, one encode
+    and one lw_depth term each; the further branch's draws are the JAX
+    side's folded keys, injected as latent_eps["depth1"] and the second
+    depth noise."""
+    from humangaussian_torch.convert import unet_state_dict_from_flax
+    from humangaussian_torch.guidance import unet as port_unet
+    from humangaussian_tpu.guidance import unet as jax_unet
+    from humangaussian_tpu.guidance.dual_branch import per_sample_normal
+    from port_parity import _jitter, flax_leaves
+
+    jg, pg = tiny_guidance_pair(seed=0)
+    jcfg = dataclasses.replace(jax_unet.TINY_TEST_CONFIG, branch_num=2)
+    module = jax_unet.DualBranchUNet(jcfg)
+    z = jnp.zeros((1, LAT, LAT, 8))
+    leaves = _jitter(flax_leaves(module.init(
+        jax.random.PRNGKey(3), z, [z, z], jnp.zeros((1,)),
+        jnp.zeros((1, 7, 32)), jnp.zeros((1, 6)))), np.random.RandomState(4))
+    punet = port_unet.DualBranchUNet(dataclasses.replace(
+        port_unet.TINY_TEST_CONFIG, branch_num=2))
+    punet.load_state_dict(unet_state_dict_from_flax(leaves))
+    jg = jg.replace(unet=module, unet_params=jax.tree.map(jnp.asarray,
+                                                          leaves))
+    pg = port_db.DualBranchGuidance(punet, pg.vae, pg.schedule, pg.cfg)
+
+    pose, rgb, depth, text = _scene(seed=12)
+    depth2 = np.random.RandomState(13).rand(*depth.shape).astype(np.float32)
+    key = jax.random.PRNGKey(23)
+
+    def jcall(rgb_, d1, d2):
+        out = jg(jnp.asarray(pose), rgb_, [d1, d2], jnp.asarray(text),
+                 jnp.asarray(T, jnp.int32), key)
+        return out["loss_sds"], out
+
+    (jl, jout), jgrads = jax.value_and_grad(
+        jcall, argnums=(0, 1, 2), has_aux=True)(
+            jnp.asarray(rgb), jnp.asarray(depth), jnp.asarray(depth2))
+    eps = {k: torch.from_numpy(v)
+           for k, v in jax_guidance_draws(jg, key, B, LAT).items()}
+    idx = jnp.arange(B, dtype=jnp.int32)
+    _, k_depth, _, k_grad = jax.random.split(key, 4)
+    _, k_dnoise = jax.random.split(k_grad)
+    shape = (B, LAT, LAT, 4)
+    eps["depth1"] = torch.from_numpy(np.array(per_sample_normal(
+        jax.random.fold_in(k_depth, 1), idx, shape)))
+    dnoise1 = torch.from_numpy(np.array(per_sample_normal(
+        jax.random.fold_in(k_dnoise, 1), idx, shape)))
+    ins = [torch.tensor(x, requires_grad=True) for x in (rgb, depth, depth2)]
+    out = pg(torch.from_numpy(pose), ins[0], ins[1:], torch.from_numpy(text),
+             torch.from_numpy(T), latent_eps=eps, noise=eps["noise"],
+             depth_noise=[eps["dnoise"], dnoise1])
+    out["loss_sds"].backward()
+    assert out["grad"].shape == (B, LAT, LAT, 12)
+    assert float(out["loss_sds"].detach()) == pytest.approx(float(jl),
+                                                            rel=2e-4)
+    _close(out["grad"], jout["grad"], "grad, two branches")
+    for x, w, name in zip(ins, jgrads, ("rgb", "depth", "depth2")):
+        _close(x.grad, w, f"d(loss)/d({name})")
+    with pytest.raises(ValueError, match="structure images"):
+        pg(torch.from_numpy(pose), ins[0], ins[1], torch.from_numpy(text),
+           torch.from_numpy(T))

@@ -208,6 +208,16 @@ class _FakeSystem:
         self.evals.append(split)
         return {"image": torch.zeros(2, 8, 8, 3)}, None
 
+    def guidance_eval_snapshot(self, state):
+        """Panels of two cameras, each a constant grey of its own: the
+        render and pose at 32^2, the guidance images at 16^2."""
+        self.evals.append(f"guidance {int(state)}")
+        names = ("render", "pose", "imgs_1step", "imgs_final",
+                 "depths_1step", "depths_final")
+        return {k: torch.full((2,) + (32 if i < 2 else 16,) * 2 + (3,),
+                              0.1 * (i + 1))
+                for i, k in enumerate(names)}
+
 
 class _State(int):
     @property
@@ -235,8 +245,18 @@ def test_run_training_schedule(tmp_path):
     assert system.evals == ["val"]
     assert os.path.exists(tmp_path / "it4-val.png")
     assert os.path.exists(tmp_path / "metrics.csv")
-    with pytest.raises(NotImplementedError, match="guidance_eval"):
-        run_training(system, _State(0), max_steps=1, guidance_eval_interval=5)
+    # guidance_eval_interval writes the six-panel strip of the first camera
+    system.evals.clear()
+    run_training(system, _State(0), max_steps=6, val_interval=0,
+                 save_dir=str(tmp_path), guidance_eval_interval=5,
+                 log_fn=lines.append)
+    assert system.evals == ["guidance 5"]
+    from PIL import Image
+
+    strip = np.asarray(Image.open(tmp_path / "it5-guidance.png"))
+    assert strip.shape[:2] == (16, 6 * 16)
+    np.testing.assert_allclose(strip[8, 8::16, 0] / 255.0,
+                               [0.1, 0.2, 0.3, 0.4, 0.5, 0.6], atol=0.01)
 
 
 class _ScriptedSystem:

@@ -157,3 +157,129 @@ def test_prompt_embeddings_from_numpy(tmp_path):
     for name in port.PromptEmbeddings._fields:
         np.testing.assert_array_equal(getattr(pe, name).numpy(),
                                       np.asarray(getattr(re_, name)))
+
+
+# ---- Perp-Neg, the T5 encoder, debiasing, the dummy processor -------------
+
+
+def test_perpendicular_component_matches():
+    rng = np.random.RandomState(1)
+    x = rng.randn(4, 3, 5, 2).astype(np.float32)
+    y = rng.randn(4, 3, 5, 2).astype(np.float32)
+    y[1] = 0.0  # the 1e-6 floor of |y|^2
+    want = np.asarray(ref.perpendicular_component(jnp.asarray(x),
+                                                  jnp.asarray(y)))
+    got = port.perpendicular_component(torch.from_numpy(x),
+                                       torch.from_numpy(y))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    r = np.linspace(0.0, 1.0, 11, dtype=np.float32)
+    np.testing.assert_allclose(
+        port.shifted_exponential_decay(4.0, 0.5, -2.426,
+                                       torch.from_numpy(r)).numpy(),
+        np.asarray(ref.shifted_exponential_decay(4.0, 0.5, -2.426,
+                                                 jnp.asarray(r))),
+        atol=1e-6)
+
+
+def test_perp_neg_embeddings_match(tmp_path):
+    """The 4-segment batch and the weights over the angle grid (front,
+    side, back and overhead views, azimuths past +-180), within 1e-6."""
+    pp, rp = _processors(tmp_path)
+    pe, re_ = pp(), rp()
+    el, az = _angle_grid()
+    want_emb, want_w = ref.get_text_embeddings_perp_neg(
+        re_, jnp.asarray(el), jnp.asarray(az))
+    got_emb, got_w = port.get_text_embeddings_perp_neg(
+        pe, torch.from_numpy(el), torch.from_numpy(az))
+    assert got_emb.shape == (4 * el.shape[0], 5, 8)
+    assert got_w.shape == (el.shape[0], 2)
+    np.testing.assert_allclose(got_emb.numpy(), np.asarray(want_emb),
+                               atol=1e-6)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), atol=1e-6)
+    assert float(got_w.abs().max()) > 0 and float(got_w.abs().min()) == 0
+
+
+def test_t5_encoder_and_encoder_type(tmp_path):
+    """`hf_t5_encode_fn` of a tiny real T5 checkpoint gives the JAX
+    package's embeddings, and `encoder_type: t5` builds it on a cache
+    miss; an unknown encoder_type raises."""
+    from test_t5_prompt import make_t5_checkpoint
+
+    path = make_t5_checkpoint(str(tmp_path / "t5"))
+    prompts = ["a man", "a woman in a dress", ""]
+    got = port.hf_t5_encode_fn(path)(prompts)
+    want = ref.hf_t5_encode_fn(path)(prompts)
+    assert got.shape == (3, 77, 32)
+    np.testing.assert_array_equal(got, want)
+    cfg = port.PromptProcessorConfig(prompt="a man", model_path=path,
+                                     encoder_type="t5",
+                                     cache_dir=str(tmp_path / "cache"))
+    emb = port.PromptProcessor(cfg, device="cpu")()
+    np.testing.assert_array_equal(emb.text.numpy(), want[0])
+    with pytest.raises(ValueError, match="encoder_type"):
+        port.PromptProcessor(port.PromptProcessorConfig(
+            encoder_type="bert"), device="cpu")
+
+
+def test_t5_encoder_without_transformers_says_so(monkeypatch):
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    with pytest.raises(ImportError, match="T5 prompt encoder.*transformers"):
+        port.hf_t5_encode_fn("some/dir")(["a man"])
+
+
+def _tiny_bert(root):
+    """A tiny random BertForMaskedLM and a word-level vocabulary that holds
+    the view names and the prompt's words; initialized wide (std 1), so
+    that the view-word probabilities move enough for debiasing to drop
+    words."""
+    from transformers import BertConfig, BertForMaskedLM, BertTokenizer
+
+    words = ["side", "front", "back", "overhead", "this", "image", "is",
+             "depicting", "a", "view", "of", "man", "in", "red", "suit"]
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+    os.makedirs(root)
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    BertTokenizer(os.path.join(root, "vocab.txt"),
+                  model_max_length=32).save_pretrained(root)
+    torch.manual_seed(0)
+    BertForMaskedLM(BertConfig(
+        vocab_size=len(vocab), hidden_size=16, num_hidden_layers=1,
+        num_attention_heads=2, intermediate_size=32,
+        max_position_embeddings=32,
+        initializer_range=1.0)).save_pretrained(root)
+    return root
+
+
+def test_prompt_debiasing_matches(tmp_path):
+    """`get_debiased_prompts` with a tiny BERT gives the JAX package's
+    prompts (both run the same host torch), and `use_prompt_debiasing`
+    encodes the debiased view prompts."""
+    bert = _tiny_bert(str(tmp_path / "bert"))
+    views = ["side", "front", "back", "overhead"]
+    prompt = "a man in red suit"
+    got = port.get_debiased_prompts(prompt, views, bert)
+    assert got == ref.get_debiased_prompts(prompt, views, bert)
+    assert got != [prompt] * 4  # some word was dropped from some view
+    assert port.get_debiased_prompts(prompt, views, bert, [1]) == \
+        ref.get_debiased_prompts(prompt, views, bert, [1])
+    seen = []
+    enc = port.dummy_encode_fn(3, 4)
+    port.PromptProcessor(
+        port.PromptProcessorConfig(
+            prompt=prompt, use_prompt_debiasing=True,
+            prompt_debiasing_model_path=bert, use_cache=False),
+        lambda p: seen.extend(p) or enc(p), device="cpu")()
+    assert seen[3:7] == [port.directions()[i].prompt(p)
+                         for i, p in enumerate(got)]
+
+
+def test_dummy_prompt_processor():
+    cfg = port.PromptProcessorConfig(prompt="a man", use_cache=False)
+    got = port.DummyPromptProcessor(cfg, device="cpu")()
+    want = ref.DummyPromptProcessor(ref.PromptProcessorConfig(
+        prompt="a man", use_cache=False))()
+    assert got.text_vd.shape == (4, 77, 1024)
+    for name in port.PromptEmbeddings._fields:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)))

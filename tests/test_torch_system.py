@@ -295,3 +295,37 @@ def test_checkpoint_roundtrip_and_resume_bit_equal(step_pair, tmp_path):
     assert int(resumed.scene.alive.sum()) > 500  # step 3 cloned
     for k, v in _leaves(straight).items():
         assert torch.equal(_leaves(resumed)[k], v), k
+
+
+def test_guidance_eval_snapshot_matches(step_pair):
+    """The training-time strip from the step's state: the JAX snapshot's
+    cameras, encode draw and noise rebuilt from its key splits; render and
+    pose as the step holds them, the decoded images within 1e-4 on
+    [0, 1]; with no generator given, the state's own generator is left as
+    it was."""
+    from humangaussian_torch.data.cameras import camera_batch_from_draws
+
+    d = step_pair
+    js, ps = d["js"], d["ps"]
+    want = js.guidance_eval_snapshot(d["state1"], num_steps=3)
+    _key, k_cam, k_enc, k_noise = jax.random.split(d["state1"].key, 4)
+    shape = (B, 8, 8, 4)
+    eps, noise = (torch.from_numpy(np.array(jax.random.normal(k, shape)))
+                  for k in (k_enc, k_noise))
+    state = dreamer_state_from_jax(d["state1"])
+    cams = camera_batch_from_draws(jax_camera_draws(k_cam, B), 1,
+                                   ps.camera_cfg)
+    got = ps.guidance_eval_snapshot(state, num_steps=3, cameras=cams,
+                                    latent_eps=eps, noise=noise)
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(np_(got["pose"]), np.asarray(want["pose"]))
+    np.testing.assert_allclose(np_(got["render"]),
+                               np.asarray(want["render"]), atol=2e-6)
+    for k in ("imgs_1step", "imgs_final", "depths_1step", "depths_final"):
+        assert got[k].shape == (B, 16, 16, 3)
+        np.testing.assert_allclose(np_(got[k]), np.asarray(want[k]),
+                                   atol=1e-4, err_msg=k)
+    before = state.generator.get_state()
+    drawn = ps.guidance_eval_snapshot(state, num_steps=2)
+    assert torch.equal(state.generator.get_state(), before)
+    assert all(bool(torch.isfinite(v).all()) for v in drawn.values())
