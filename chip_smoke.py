@@ -172,6 +172,42 @@ source, started together), writes the assets, then:
    loss and render gradient, K3 and K3a once per norm of two encoder
    passes and one UNet forward, K5 and K5a once per encoder norm, K4 once
    per UNet site that passes its gate (15);
+19. `ops.knn.mean_3nn_sq_dist` on the card at the avatar's 100,000 points
+   against the exact KD-tree (`mean_3nn_sq_dist_host`): it never
+   underestimates; prints the share it overestimates and both times;
+20. K1 and K2 against their plain versions at 1024x576 (32 x 18 tiles,
+   phase 2's limits): a view of the avatar, and the multiview trainer's
+   first view as the launcher builds it (the random initial cloud keeps
+   every tile busy), with ms per `train_step` there; an instant-ngp
+   capture (transforms.json, OPENCV intrinsics with an off-centre
+   principal point): 24 + 4 seeded orbit views at 1024x576 rendered by the
+   port, and `apps.launch.main` on configs/photo.yaml with
+   `data.type=multiview` at full width (capacity 131072, SH 3, 100k
+   initial points) for 20 steps with density control from step 10: K1 and
+   K2 launch once a step (K1 once more per test view), the mean loss of
+   the last 5 steps is below that of the first 5, `last.ply` loads with
+   finite parameters;
+21. a CO3D-v2 sequence (frame_annotations.jgz with NDC-isotropic cameras,
+   28 views at 1024x768 as RGB PNGs, masks from the alpha, float16-in-
+   uint16 depth PNGs) trained the same way with `data.type=co3d`,
+   `box_crop` on, at 512^2 (K1 and K2 held and the step timed at its first
+   training view first);
+22. LPIPS with seeded VGG16 and lin weights (through `load_lpips_params`)
+   between the capture's test views and the trained scene's renders at
+   1024x576: d(x, x) = 0 and d symmetric within 1e-6 of d(x, y), the
+   card's value within 1e-4 relative of the CPU's; ms per pair;
+23. `mesh.extract_mesh` on the avatar PLY at 128^3: the field finite, the
+   mesh non-empty and inside the scene's box (widened by 3 of the largest
+   scale and 2 voxels), `save_obj` read back; the field's and marching
+   tetrahedra's seconds and the Gaussian-block pairs dropped past
+   `block_capacity`;
+24. the viewer CLI's server (`apps.viewer.build_server` with the stand-in's
+   animator) on port 0 at 512^2, over HTTP: "gs", "mesh" and "skel" frames
+   decode at that size and differ, K1 launches exactly once per "gs"
+   frame, `POST /pose` changes the next "gs" frame, `/joints` gives 22
+   finite points; one "gs" frame, before its PNG encode, against the plain
+   compositing of the same view (phase 2's image limits); ms per frame in
+   each mode;
 and prints the `kernels` JSON line (all seven kernels, each with the
 launches of one `train_step` of phase 11, the main path, and
 `launches_deep_floyd_step` (phase 16, Perp-Neg off) and
@@ -179,10 +215,12 @@ launches of one `train_step` of phase 11, the main path, and
 carries `launches_serving_and_photo` (phases 4 to 6) and K2's
 `launches_photo` (phase 6); K1's and K2's rows also carry
 `ms_guidance_batch`, `bound_ms_guidance_batch` and
-`bound_ms_guidance_batch_visits`, shape c) and, last, the device JSON
-line. `--only GROUP[,GROUP]` (render, norm, attention, guidance (phases
-11 and 15), sample, unet-backward, trainer, deep-floyd, sample-cli,
-sd-guidance) runs some phase groups alone and prints no result lines.
+`bound_ms_guidance_batch_visits`, shape c), and `launches_photo_data`
+(phases 20 and 21), K1's `launches_viewer` (phase 24)) and, last, the
+device JSON line. `--only GROUP[,GROUP]` (render, norm, attention,
+guidance (phases 11 and 15), sample, unet-backward, trainer, deep-floyd,
+sample-cli, sd-guidance, photo-data (phases 19 to 22), tools (phases 23
+and 24)) runs some phase groups alone and prints no result lines.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Weights and data are random, made from fixed seeds.
@@ -293,10 +331,11 @@ def spin(fn, seconds: float = 0.25) -> None:
         torch.cuda.synchronize()
 
 
-def compare(name, got, want) -> float:
+def compare(name, got, want, keys=tuple(TOL)) -> float:
     """Hold kernel outputs against the plain version; returns max abs err."""
     worst = 0.0
-    for key, atol in TOL.items():
+    for key in keys:
+        atol = TOL[key]
         err = (got[key] - want[key]).abs()
         if err.dim() == 4:
             err = err.amax(dim=-1)
@@ -592,14 +631,16 @@ def sample_surface(verts, faces, n, rng):
     return pts, normals
 
 
-def write_assets(tmp: str, seed: int = 0):
-    """Procedural SMPL-X npz, 100k-Gaussian avatar PLY, 8-frame motion."""
+def write_assets(tmp: str, seed: int = 0, n_avatar: int | None = None):
+    """Procedural SMPL-X npz, an `n_avatar`-Gaussian avatar PLY (N_AVATAR
+    by default), 8-frame motion."""
     from scipy.spatial import cKDTree
 
     from humangaussian_torch.core.scene import GaussianScene
     from humangaussian_torch.io.ply import save_ply
     from humangaussian_torch.smplx.model import toy_model
 
+    n_avatar = N_AVATAR if n_avatar is None else n_avatar
     # ~10.4k vertices / 20.6k faces, near the release's 10,475 / 20,908;
     # a wider tube than the default so the splats cover more tiles
     m = toy_model(n_ring=64, n_seg_per_bone=27, radius=0.2)
@@ -622,16 +663,16 @@ def write_assets(tmp: str, seed: int = 0):
     vt = m.v_template
     center = (vt.max(0) + vt.min(0)) / 2
     scale = 0.6 / np.max(vt.max(0) - vt.min(0)) * 1.1 ** 10
-    pts, normals = sample_surface((vt - center) * scale, m.faces, N_AVATAR,
+    pts, normals = sample_surface((vt - center) * scale, m.faces, n_avatar,
                                   rng)
-    pts = pts + normals * rng.uniform(-5e-3, 5e-3, (N_AVATAR, 1))
+    pts = pts + normals * rng.uniform(-5e-3, 5e-3, (n_avatar, 1))
     d2, _ = cKDTree(pts).query(pts, k=4)
     mean_sq = np.mean(d2[:, 1:] ** 2, axis=1)
     log_scale = np.log(np.sqrt(np.maximum(mean_sq, 1e-7)))
     rgb = np.clip(np.array([0.8, 0.6, 0.5])
-                  + rng.normal(0, 0.1, (N_AVATAR, 3)), 0, 1)
-    opa = rng.uniform(0.3, 0.95, (N_AVATAR, 1))
-    quats = rng.normal(size=(N_AVATAR, 4))
+                  + rng.normal(0, 0.1, (n_avatar, 3)), 0, 1)
+    opa = rng.uniform(0.3, 0.95, (n_avatar, 1))
+    quats = rng.normal(size=(n_avatar, 4))
 
     def t(x):
         return torch.tensor(np.asarray(x, np.float32))
@@ -642,9 +683,9 @@ def write_assets(tmp: str, seed: int = 0):
         log_scales=t(np.repeat(log_scale[:, None], 3, axis=1)),
         quats=t(quats),
         sh_dc=t((rgb - 0.5) / 0.28209479177387814),
-        sh_rest=torch.zeros((N_AVATAR, 0, 3)),
+        sh_rest=torch.zeros((n_avatar, 0, 3)),
         opacity_logits=t(np.log(opa / (1 - opa))),
-        alive=torch.ones(N_AVATAR, dtype=torch.bool),
+        alive=torch.ones(n_avatar, dtype=torch.bool),
     )
     ply = os.path.join(tmp, "last.ply")
     save_ply(scene, ply)
@@ -664,7 +705,7 @@ def write_assets(tmp: str, seed: int = 0):
 
 PHASE_GROUPS = ("render", "norm", "attention", "guidance", "sample",
                 "unet-backward", "trainer", "deep-floyd", "sample-cli",
-                "sd-guidance")
+                "sd-guidance", "photo-data", "tools")
 AVATAR_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "avatar.yaml")
 PROMPT = "a person in a blue jacket"
@@ -2467,6 +2508,19 @@ def run(dev, only=()) -> int:
     rows = {}
     if want("render"):
         rows.update(render_phases(dev, tmp, assets))
+    if want("photo-data"):
+        photo = photo_data_phases(dev, tmp, assets)
+        for name, key in (("rasterize_fwd", "k1_err"),
+                          ("rasterize_bwd", "k2_err")):
+            if name in rows:
+                rows[name]["launches_photo_data"] = photo["counts"][name]
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                                photo[key])
+    if want("tools"):
+        viewer_launches = tools_phases(dev, tmp, assets)
+        if "rasterize_fwd" in rows:
+            rows["rasterize_fwd"]["launches_viewer"] = viewer_launches
+    torch.cuda.empty_cache()
     if want("norm"):
         rows.update(norm_phase(dev))
     if want("attention"):
@@ -3005,6 +3059,542 @@ def render_phases(dev, tmp, assets) -> dict:
             "ms_avatar_view": k2_avatar_ms,
         },
     ]}
+
+
+# phases 19-22 (`--only photo-data`): captures of the avatar in the two
+# formats a user reconstructs from, at the sizes users run them
+CAPTURE_HW = (576, 1024)  # a 16:9 multiview frame: 18 x 32 tiles
+CO3D_HW = (768, 1024)  # the CO3D frame before the crop
+CO3D_SIZE = 512  # data.height = data.width after the box crop
+CAPTURE_STEPS = 20
+# the capture's principal point, off the centre by these pixels (x, y)
+CAPTURE_PP_OFFSET = (6.5, -4.25)
+LPIPS_REL_TOL = 1e-4  # the card's LPIPS against the port's CPU value
+MESH_RESOLUTION = 128
+VIEWER_SIZE = 512
+VIEWER_FRAMES = 5  # timed HTTP frames per mode, after one warm-up
+
+
+def orbit_views(orbit, n, seed):
+    """`n` seeded views of the test orbit: (c2w [n,4,4], fovy)."""
+    rng = np.random.default_rng(seed)
+    picks = rng.choice(orbit.c2w.shape[0], n, replace=False)
+    return orbit.c2w[torch.from_numpy(picks).to(orbit.c2w.device)], float(
+        orbit.fovy[0])
+
+
+def render_views(avatar, c2ws, fovy, hw, bg):
+    """The avatar rendered by the port at each c2w, at hw = (H, W)."""
+    from humangaussian_torch.core.camera import camera_from_c2w
+    from humangaussian_torch.render import render
+
+    outs = []
+    with torch.no_grad():
+        for c2w in c2ws:
+            out = render(avatar, camera_from_c2w(c2w, fovy, *hw), bg)
+            outs.append({k: out[k].cpu().numpy()
+                         for k in ("image", "alpha", "depth")})
+    return outs
+
+
+def write_multiview_capture(root, avatar, orbit, bg, seed=10):
+    """An instant-ngp capture (transforms.json, OPENCV model): 24 + 4
+    seeded orbit views of the avatar at CAPTURE_HW rendered by the port,
+    fl_x = fl_y from the orbit's fovy, the principal point off the centre
+    by CAPTURE_PP_OFFSET."""
+    from humangaussian_torch.utils.saving import save_image
+
+    h, w = CAPTURE_HW
+    c2ws, fovy = orbit_views(orbit, TRAIN_VIEWS + TEST_VIEWS, seed)
+    focal = 0.5 * h / math.tan(0.5 * fovy)
+    gl2cv = np.diag([1.0, -1.0, -1.0, 1.0])
+    os.makedirs(root, exist_ok=True)
+    frames = []
+    for i, out in enumerate(render_views(avatar, c2ws, fovy, CAPTURE_HW,
+                                         bg)):
+        name = f"frame_{i:03d}.png"
+        save_image(os.path.join(root, name), np.clip(out["image"], 0, 1))
+        frames.append({
+            "file_path": name, "w": w, "h": h, "fl_x": focal,
+            "fl_y": focal, "cx": w / 2 + CAPTURE_PP_OFFSET[0],
+            "cy": h / 2 + CAPTURE_PP_OFFSET[1],
+            "transform_matrix": (c2ws[i].cpu().numpy() @ gl2cv).tolist()})
+    with open(os.path.join(root, "transforms.json"), "w") as f:
+        json.dump({"camera_model": "OPENCV", "frames": frames}, f)
+    return root
+
+
+def write_co3d_sequence(root, avatar, orbit, bg, seed=11):
+    """A CO3D-v2 sequence `<root>/avatar/seq_0`: 28 seeded orbit views of
+    the avatar at CO3D_HW rendered by the port, as RGB PNGs, masks (the
+    alpha) and float16-in-uint16 depth PNGs, with NDC-isotropic PyTorch3D
+    cameras in `avatar/frame_annotations.jgz`."""
+    import gzip
+
+    from PIL import Image
+
+    h, w = CO3D_HW
+    seq = os.path.join(root, "avatar", "seq_0")
+    for sub in ("images", "masks", "depths"):
+        os.makedirs(os.path.join(seq, sub), exist_ok=True)
+    c2ws, fovy = orbit_views(orbit, TRAIN_VIEWS + TEST_VIEWS, seed)
+    focal_ndc = (0.5 * h / math.tan(0.5 * fovy)) / (min(h, w) / 2)
+    # the loader's c2w is [R | -R T] @ diag(-1, -1, 1, 1) in OpenCV axes
+    gl2p3d = np.diag([-1.0, 1.0, -1.0, 1.0])
+    frames = []
+    for i, out in enumerate(render_views(avatar, c2ws, fovy, CO3D_HW, bg)):
+        stem = f"frame{i:06d}"
+        Image.fromarray((np.clip(out["image"], 0, 1) * 255).round()
+                        .astype(np.uint8)).save(
+            os.path.join(seq, "images", stem + ".png"))
+        Image.fromarray((np.clip(out["alpha"], 0, 1) * 255).round()
+                        .astype(np.uint8)).save(
+            os.path.join(seq, "masks", stem + ".png"))
+        Image.fromarray(out["depth"].astype(np.float16).view(np.uint16)
+                        ).save(os.path.join(seq, "depths", stem + ".png"))
+        pose = c2ws[i].cpu().numpy().astype(np.float64) @ gl2p3d
+        r = pose[:3, :3]
+        frames.append({
+            "sequence_name": "seq_0",
+            "meta": {"frame_type": "train_known"},
+            "image": {"path": f"avatar/seq_0/images/{stem}.png",
+                      "size": [h, w]},
+            "mask": {"path": f"avatar/seq_0/masks/{stem}.png"},
+            "depth": {"path": f"avatar/seq_0/depths/{stem}.png",
+                      "scale_adjustment": 1.0},
+            "viewpoint": {"focal_length": [focal_ndc, focal_ndc],
+                          "principal_point": [0.0, 0.0],
+                          "R": r.tolist(), "T": (-r.T @ pose[:3, 3]).tolist()},
+        })
+    with gzip.open(os.path.join(root, "avatar", "frame_annotations.jgz"),
+                   "wt") as fp:
+        json.dump(frames, fp)
+    return seq
+
+
+def knn_phase(dev, avatar):
+    """Phase 19: the on-device windowed 3-NN at the avatar's points against
+    the exact KD-tree."""
+    from humangaussian_torch.ops.knn import (
+        mean_3nn_sq_dist,
+        mean_3nn_sq_dist_host,
+    )
+
+    print(f"phase 19: mean_3nn_sq_dist on the card at {N_AVATAR} avatar "
+          f"points")
+    pts = avatar.means[avatar.alive].contiguous()
+    got = mean_3nn_sq_dist(pts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = mean_3nn_sq_dist_host(pts).to(dev)
+    host_s = time.perf_counter() - t0
+    ms = cuda_ms(lambda: mean_3nn_sq_dist(pts), reps=5)
+    rel = (got - exact) / exact.clamp_min(1e-30)
+    over = float((rel > 1e-5).to(torch.float64).mean())
+    print(f"  {pts.shape[0]} points: {ms:.3f} ms on the card (window 64), "
+          f"KD-tree {host_s:.3f} s on the host; overestimates "
+          f"{100 * over:.3f}% of the points (median relative error "
+          f"{float(rel.median()):.3e}, max {float(rel.max()):.3e}), min "
+          f"relative error {float(rel.min()):.3e}")
+    check(bool(torch.isfinite(got).all()), "knn: non-finite distances")
+    check(float(rel.min()) >= -1e-5, "knn: underestimates a distance")
+
+
+PHOTO_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "configs", "photo.yaml")
+
+
+def capture_overrides(tmp, *data):
+    """configs/photo.yaml's overrides at full width for CAPTURE_STEPS
+    steps with density control from step 10, plus the `data` ones that
+    name the capture."""
+    return [f"exp_root_dir={tmp}/outputs",
+            f"system.capacity={TRAIN_CAPACITY}", "system.sh_degree=3",
+            f"system.init_points={N_AVATAR}", "system.densify_from_iter=10",
+            "system.densification_interval=10",
+            f"system.densify_grad_threshold={TRAIN_GRAD_THRESHOLD:.1e}",
+            f"trainer.max_steps={CAPTURE_STEPS}", "trainer.log_every=1",
+            *data]
+
+
+def capture_cli(dev, label, overrides, n_test):
+    """`apps.launch.main --train` on configs/photo.yaml with `overrides`
+    (`capture_overrides`): checks the launches, the loss and `last.ply`.
+    Returns (launch counts, trial dir)."""
+    from humangaussian_torch import kernels
+    from humangaussian_torch.apps import launch
+    from humangaussian_torch.io.ply import load_ply
+
+    argv = ["--config", PHOTO_YAML, "--train", "--device", dev.type,
+            *overrides]
+    kernels.reset_launch_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        trial = launch.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    counts = {k: counts[k] for k in ("rasterize_fwd", "rasterize_bwd")}
+    steps = re.findall(r"photo step (\d+): loss=([0-9.eE+-]+) alive=(\d+)",
+                       log.getvalue())
+    losses = [float(x[1]) for x in steps]
+    alive = [int(x[2]) for x in steps]
+    psnr_line = re.search(r"photo eval: psnr=([0-9.]+) ssim=([0-9.]+)",
+                          log.getvalue())
+    print(f"  {label}: {len(steps)} steps in {wall:.1f} s (the capture's "
+          f"load and the test views included), launches {counts}, loss "
+          f"first 5 {statistics.mean(losses[:5]):.5f} last 5 "
+          f"{statistics.mean(losses[-5:]):.5f}, alive {alive[0]} -> "
+          f"{alive[-1]}, {n_test} test views: PSNR "
+          f"{psnr_line.group(1) if psnr_line else '?'}")
+    check(len(steps) == CAPTURE_STEPS, f"{label}: {len(steps)} steps logged")
+    check(counts == {"rasterize_fwd": CAPTURE_STEPS + n_test,
+                     "rasterize_bwd": CAPTURE_STEPS},
+          f"{label}: launches {counts}")
+    check(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+          f"{label}: the loss did not fall")
+    check(psnr_line is not None, f"{label}: no test PSNR printed")
+    trained = load_ply(os.path.join(trial, "save", "last.ply"), device=dev)
+    check(trained.num_alive > 0 and all(
+        bool(torch.isfinite(v[trained.alive]).all())
+        for v in trained.params().values()), f"{label}: last.ply non-finite")
+    print(f"  {label}: last.ply {trained.num_alive} Gaussians")
+    return counts, trial
+
+
+def trainer_first_view(dev, label, overrides, bg, seed):
+    """The photo trainer as `apps.launch.build_system` builds it for the
+    capture: K1 and K2 against their plain versions at its first training
+    view (the random initial cloud keeps every tile busy), then ms per
+    `train_step` there. Returns (K1 error, K2 errors)."""
+    from humangaussian_torch.apps import launch
+    from humangaussian_torch.config import load_config
+    from humangaussian_torch.ops.rasterize_tiled import (
+        composite,
+        composite_inputs,
+        composite_plain,
+    )
+
+    _, trainer, dataset, pts, colors = launch.build_system(
+        load_config(PHOTO_YAML, overrides), dev)
+    state = trainer.init_state(0, pts, colors)
+    posed = dataset.train[0]
+    sc, rcfg = state.scene, trainer.raster_cfg
+    _, pairs, kargs, tiles = composite_inputs(
+        sc.means, sc.scales, sc.quats, sc.features, sc.opacities, sc.alive,
+        [trainer.camera_for(posed)], sc.max_sh_degree, rcfg,
+        tile_capacity=trainer.cfg.tile_capacity)
+    got = composite(*kargs, bg, *tiles, rcfg)
+    torch.cuda.synchronize()
+    plain = composite_plain(*kargs, bg, *tiles, rcfg)
+    busy = pairs.counts[pairs.counts > 0]
+    h, w = posed.image.shape[:2]
+    print(f"  {label} first training view {w}x{h}: pairs="
+          f"{int(pairs.gids.numel())} on {busy.numel()} of "
+          f"{tiles[0] * tiles[1]} tiles (max {int(busy.max())})")
+    k1_err = compare(f"{label} first training view", got, plain)
+    k2_errs, _, _ = k2_vs_plain(f"{label} first training view", kargs, bg,
+                                tiles, rcfg, got, plain, seed=seed)
+    del got, plain
+
+    def step():
+        nonlocal state
+        state, _ = trainer.train_step(state, posed)
+
+    print(f"  {label}: {cuda_ms(step, reps=10):.3f} ms per train_step at "
+          f"{w}x{h} (first view, {N_AVATAR} Gaussians, SH 3)")
+    return k1_err, k2_errs
+
+
+def photo_data_phases(dev, tmp, assets) -> dict:
+    """Phases 19 to 22 (`--only photo-data`): the on-device KNN, training
+    from a multiview capture and from a CO3D sequence through
+    `apps.launch`, and LPIPS. Returns the K1 / K2 launches of the two
+    training runs and their largest errors against the plain versions."""
+    from humangaussian_torch.core.camera import camera_from_c2w
+    from humangaussian_torch.data.cameras import (
+        RandomCameraConfig,
+        eval_camera_batch,
+    )
+    from humangaussian_torch.io.ply import load_ply
+    from humangaussian_torch.ops.projection import RasterizeConfig
+    from humangaussian_torch.ops.rasterize_tiled import (
+        composite,
+        composite_inputs,
+        composite_plain,
+    )
+
+    avatar = load_ply(assets[1], device=dev)
+    knn_phase(dev, avatar)
+    orbit = eval_camera_batch(RandomCameraConfig(), "test", device=dev)
+    black = torch.zeros(3, device=dev)
+
+    # -- phase 20: K1 / K2 at a 16:9 view, then the multiview capture -----
+    h, w = CAPTURE_HW
+    print(f"phase 20: K1 and K2 vs plain at {w}x{h}, then apps.launch "
+          f"(photo-3dgs-system, data.type=multiview) on a {w}x{h} capture")
+    cfg = RasterizeConfig()
+    c2w, fovy = orbit_views(orbit, 1, seed=12)
+    _, pairs, kargs, tiles = composite_inputs(
+        avatar.means, avatar.scales, avatar.quats, avatar.features,
+        avatar.opacities, avatar.alive,
+        [camera_from_c2w(c2w[0], fovy, h, w)], avatar.max_sh_degree, cfg)
+    got = composite(*kargs, black, *tiles, cfg)
+    torch.cuda.synchronize()
+    plain = composite_plain(*kargs, black, *tiles, cfg)
+    busy = pairs.counts[pairs.counts > 0]
+    print(f"  {w}x{h} view: {tiles[0]} x {tiles[1]} tiles, pairs="
+          f"{int(pairs.gids.numel())} on {busy.numel()} busy tiles (max "
+          f"{int(busy.max())}), alpha>0.5 pixels "
+          f"{int((got['alpha'] > 0.5).sum())}")
+    check(float(got["alpha"].max()) > 0.9, f"avatar not in the {w}x{h} view")
+    k1_err = compare(f"{w}x{h} view", got, plain)
+    k2_err, _, _ = k2_vs_plain(f"{w}x{h} view", kargs, black, tiles, cfg,
+                               got, plain, seed=13)
+    del got, plain
+
+    t0 = time.perf_counter()
+    mv_root = write_multiview_capture(os.path.join(tmp, "multiview"), avatar,
+                                      orbit, black)
+    print(f"  capture: {TRAIN_VIEWS + TEST_VIEWS} frames "
+          f"({time.perf_counter() - t0:.1f} s)")
+    mv_overrides = capture_overrides(
+        tmp, "data.type=multiview", f"data.dataroot={mv_root}",
+        "data.train_downsample_resolution=1")
+    errs = trainer_first_view(dev, "multiview", mv_overrides, black, 14)
+    k1_err = max(k1_err, errs[0])
+    k2_err = tuple(max(a, b) for a, b in zip(k2_err, errs[1]))
+    mv_counts, mv_trial = capture_cli(dev, "multiview", mv_overrides,
+                                      TEST_VIEWS)
+
+    # -- phase 21: the CO3D sequence ---------------------------------------
+    ch, cw = CO3D_HW
+    print(f"phase 21: apps.launch (data.type=co3d, box_crop) on a {cw}x{ch} "
+          f"CO3D sequence at {CO3D_SIZE}^2")
+    t0 = time.perf_counter()
+    seq = write_co3d_sequence(os.path.join(tmp, "co3d"), avatar, orbit,
+                              black)
+    print(f"  sequence: {TRAIN_VIEWS + TEST_VIEWS} frames "
+          f"({time.perf_counter() - t0:.1f} s)")
+    co3d_overrides = capture_overrides(
+        tmp, "data.type=co3d", f"data.dataroot={seq}",
+        f"data.height={CO3D_SIZE}", f"data.width={CO3D_SIZE}",
+        "data.box_crop=true")
+    errs = trainer_first_view(dev, "co3d", co3d_overrides, black, 15)
+    k1_err = max(k1_err, errs[0])
+    k2_err = tuple(max(a, b) for a, b in zip(k2_err, errs[1]))
+    co3d_counts, _ = capture_cli(dev, "co3d", co3d_overrides, TEST_VIEWS)
+
+    lpips_phase(dev, mv_root, mv_trial)
+    return {"counts": {k: mv_counts[k] + co3d_counts[k] for k in mv_counts},
+            "k1_err": k1_err, "k2_err": k2_err[0]}
+
+
+def lpips_phase(dev, mv_root, trial):
+    """Phase 22: LPIPS with seeded VGG16 and lin weights (loaded through
+    `load_lpips_params` from torchvision-named state dicts) between the
+    multiview capture's test views and the trained scene's renders."""
+    from humangaussian_torch.core.camera import camera_from_c2w
+    from humangaussian_torch.data.multiview import (
+        MultiviewConfig,
+        MultiviewDataModule,
+    )
+    from humangaussian_torch.io.ply import load_ply
+    from humangaussian_torch.perceptual import (
+        LPIPS,
+        VGG_CONV_IDS,
+        VGG_STAGES,
+        load_lpips_params,
+    )
+    from humangaussian_torch.render import render
+
+    h, w = CAPTURE_HW
+    print(f"phase 22: LPIPS (seeded VGG16) on the capture's {TEST_VIEWS} "
+          f"test views at {w}x{h}")
+    torch.manual_seed(0)
+    seeded = LPIPS()
+    vgg_sd = seeded.vgg.state_dict()  # torchvision's `features.*` names
+    g = torch.Generator().manual_seed(1)
+    lin_sd = {f"lin{i}.model.1.weight": torch.rand((1, ch, 1, 1),
+                                                    generator=g)
+              for i, (ch, _) in enumerate(VGG_STAGES)}
+    check(len(vgg_sd) == 2 * len(VGG_CONV_IDS), "VGG16 state dict size")
+    model = LPIPS()
+    model.load_state_dict(load_lpips_params(vgg_sd, lin_sd))
+    model = model.eval().to(dev)
+
+    data = MultiviewDataModule(MultiviewConfig(
+        dataroot=mv_root, train_downsample_resolution=1)).as_photo_dataset()
+    scene = load_ply(os.path.join(trial, "save", "last.ply"), device=dev)
+    pairs = []
+    with torch.no_grad():
+        for p in data.test:
+            cam = camera_from_c2w(torch.from_numpy(p.c2w).to(dev), p.fovy,
+                                  *p.image.shape[:2])
+            x = torch.from_numpy(p.image).to(dev).permute(2, 0, 1)[None]
+            y = render(scene, cam, torch.zeros(3, device=dev))["image"]
+            pairs.append((x, y.clamp(0, 1).permute(2, 0, 1)[None]))
+        d = [float(model(x, y)) for x, y in pairs]
+        x, y = pairs[0]
+        dxx, dyx = float(model(x, x)), float(model(y, x))
+        ms = cuda_ms(lambda: model(x, y), reps=5)
+        cpu_model = LPIPS()
+        cpu_model.load_state_dict(model.state_dict())
+        d_cpu = float(cpu_model.eval()(x.cpu(), y.cpu()))
+    rel = abs(d[0] - d_cpu) / max(abs(d_cpu), 1e-30)
+    print(f"  d(test view, render) = {', '.join(f'{v:.6f}' for v in d)}; "
+          f"d(x, x) = {dxx:.3e}, |d(x, y) - d(y, x)| = {abs(d[0] - dyx):.3e}, "
+          f"card vs CPU relative {rel:.3e}; {ms:.3f} ms per pair")
+    check(all(math.isfinite(v) and v > 0 for v in d), "LPIPS not positive")
+    check(abs(dxx) <= 1e-6 * d[0], f"LPIPS d(x, x) = {dxx}")
+    check(abs(d[0] - dyx) <= 1e-6 * d[0], "LPIPS is not symmetric")
+    check(rel <= LPIPS_REL_TOL, f"LPIPS card vs CPU relative {rel}")
+
+
+def tools_phases(dev, tmp, assets) -> int:
+    """Phases 23 and 24 (`--only tools`): mesh extraction from the avatar
+    PLY and the viewer CLI's server driven over HTTP. Returns K1's
+    launches over the viewer's "gs" frames."""
+    mesh_phase(dev, tmp, assets)
+    return viewer_phase(dev, assets)
+
+
+def mesh_phase(dev, tmp, assets):
+    """Phase 23: `extract_mesh` on the avatar PLY at MESH_RESOLUTION."""
+    from humangaussian_torch.io.ply import load_ply
+    from humangaussian_torch.mesh import (
+        block_counts,
+        extract_density_field,
+        extract_mesh,
+        save_obj,
+    )
+
+    print(f"phase 23: extract_mesh on the {N_AVATAR}-Gaussian avatar at "
+          f"{MESH_RESOLUTION}^3")
+    avatar = load_ply(assets[1], device=dev)
+    t0 = time.perf_counter()
+    field, _, _ = extract_density_field(avatar, MESH_RESOLUTION)
+    field_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verts, tris = extract_mesh(avatar, resolution=MESH_RESOLUTION)
+    mesh_s = time.perf_counter() - t0
+    counts = block_counts(avatar)
+    dropped = int(np.maximum(counts - 8192, 0).sum())
+    means = avatar.means[avatar.alive].cpu().numpy()
+    lo, hi = means.min(0), means.max(0)
+    margin = 3 * float(avatar.scales[avatar.alive].max()) + 2 * float(
+        (hi - lo).max()) / (MESH_RESOLUTION - 1)
+    print(f"  field {field_s:.2f} s (max {float(field.max()):.3f}, "
+          f"{int((field > 1.0).sum())} voxels above the 1.0 iso level), "
+          f"marching tets {mesh_s - field_s:.2f} s (extract_mesh {mesh_s:.2f} "
+          f"s); {len(verts)} vertices, {len(tris)} triangles; blocks: "
+          f"{int((counts > 0).sum())} busy, largest {int(counts.max())}, "
+          f"{dropped} Gaussian-block pairs dropped past block_capacity 8192")
+    check(bool(np.isfinite(field).all()), "density field not finite")
+    check(len(verts) > 0 and len(tris) > 0, "the mesh is empty")
+    check(bool(np.all(verts >= lo - margin) and np.all(verts <= hi + margin)),
+          "the mesh leaves the scene's box")
+    check(int(tris.min()) >= 0 and int(tris.max()) < len(verts),
+          "triangle indices out of range")
+    path = save_obj(os.path.join(tmp, "mesh", "avatar.obj"), verts, tris)
+    with open(path) as f:
+        lines = f.read().splitlines()
+    vs = np.array([[float(t) for t in ln.split()[1:]] for ln in lines
+                   if ln.startswith("v ")], np.float32)
+    n_f = sum(ln.startswith("f ") for ln in lines)
+    check(vs.shape == verts.shape and n_f == len(tris)
+          and np.allclose(vs, verts, atol=1e-6), "save_obj did not read back")
+    print(f"  {os.path.basename(path)}: {os.path.getsize(path)} bytes, read "
+          f"back")
+
+
+def viewer_phase(dev, assets) -> int:
+    """Phase 24: the viewer CLI's server (`build_server`, the stand-in's
+    animator) on port 0, driven over HTTP at VIEWER_SIZE^2."""
+    import urllib.request
+
+    from PIL import Image
+
+    from humangaussian_torch import kernels
+    from humangaussian_torch.apps import viewer
+    from humangaussian_torch.ops.projection import RasterizeConfig
+    from humangaussian_torch.ops.rasterize_tiled import (
+        composite_inputs,
+        composite_plain,
+    )
+
+    print(f"phase 24: the viewer over HTTP at {VIEWER_SIZE}^2 (gs, mesh, "
+          f"skel), with the SMPL-X stand-in's animator")
+    smplx_path, ply = assets[0], assets[1]
+    server = viewer.build_server([
+        "--ply", ply, "--smplx_path", smplx_path, "--port", "0", "--size",
+        str(VIEWER_SIZE), "--device", dev.type]).start()
+    base = f"http://127.0.0.1:{server.port}"
+    view = "azimuth=30&elevation=15&distance=2.0"
+
+    def get(path):
+        return urllib.request.urlopen(base + path, timeout=600).read()
+
+    def frame(mode):
+        png = get(f"/render?{view}&mode={mode}")
+        img = Image.open(io.BytesIO(png))
+        check(img.size == (VIEWER_SIZE, VIEWER_SIZE) and img.mode == "RGB",
+              f"viewer {mode} frame {img.size} {img.mode}")
+        return png, np.asarray(img)
+
+    try:
+        check(b"viewer" in get("/"), "viewer page")
+        info = json.loads(get("/info"))
+        ms, frames = {}, {}
+        kernels.reset_launch_counts()
+        for mode in ("gs", "mesh", "skel"):
+            frames[mode] = frame(mode)  # warm-up
+            t0 = time.perf_counter()
+            for _ in range(VIEWER_FRAMES):
+                frame(mode)
+            ms[mode] = (time.perf_counter() - t0) * 1e3 / VIEWER_FRAMES
+        req = urllib.request.Request(
+            base + "/pose", method="POST", data=json.dumps(
+                {"joint": 15, "values": [0.3, -0.5, 0.8],
+                 "global_orient": [0.2, 0.0, 0.9]}).encode())
+        state = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        posed = frame("gs")
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()["rasterize_fwd"]
+        joints = json.loads(get(f"/joints?{view}"))
+    finally:
+        server.stop()
+    gs_frames = 2 + VIEWER_FRAMES
+    print(f"  {info['n_gaussians']} Gaussians, {server.animator.n_gaussians} "
+          f"bound; ms per frame over HTTP (render, PNG encode, transfer): "
+          + ", ".join(f"{m} {v:.3f}" for m, v in ms.items())
+          + f"; K1 launches {launches} for {gs_frames} gs frames")
+    check(launches == gs_frames, f"viewer K1 launches {launches}")
+    check(state["posable"], "the viewer is not posable")
+    check(posed[0] != frames["gs"][0], "POST /pose did not change the frame")
+    check(len(set(p for p, _ in frames.values())) == 3,
+          "two display modes drew the same frame")
+    check(all(int(a.max()) > 0 for _, a in frames.values()),
+          "a display mode drew an empty frame")
+    xy = np.asarray(joints["xy"], np.float64)
+    check(joints["posable"] and xy.shape == (22, 2)
+          and bool(np.isfinite(xy).all()), "/joints")
+
+    # one "gs" frame, taken before the PNG encode, against plain compositing
+    img = server.render(30.0, 15.0, 2.0, mode="gs")
+    with torch.no_grad():
+        scene = server.animator.frame_scene(server._current_pose())
+        cam, _ = server._camera(30.0, 15.0, 2.0)
+        cfg = RasterizeConfig()
+        _, _, kargs, tiles = composite_inputs(
+            scene.means, scene.scales, scene.quats, scene.features,
+            scene.opacities, scene.alive, [cam], server.sh_degree, cfg)
+        plain = composite_plain(*kargs, torch.zeros(3, device=dev), *tiles,
+                                cfg)
+    compare("viewer gs frame", {"image": torch.from_numpy(img)[None]},
+            {"image": plain["image"].cpu()}, keys=("image",))
+    return launches
 
 
 if __name__ == "__main__":

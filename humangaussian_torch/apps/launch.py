@@ -20,8 +20,14 @@ rasterizer configurations; `main` then runs
 <save dir>`. The TensorBoard logger is built only when an event writer
 imports (the line printed otherwise says so), the CSV logger always, wandb
 with `trainer.wandb`. `system.type: photo-3dgs-system` is the photometric
-3DGS trainer (train/photo.py). Not ported yet, and raising
-NotImplementedError: `dreamfusion-system` (ROADMAP item 21).
+3DGS trainer (train/photo.py) on `data.type` blender, colmap, multiview
+or co3d:
+
+  python -m humangaussian_torch.apps.launch --config configs/photo.yaml \\
+      --train data.type=multiview data.dataroot=/path/to/capture
+
+Not ported yet, and raising NotImplementedError: `dreamfusion-system`
+(ROADMAP item 21).
 
 Both priors are built on the meta device and materialized on the card
 (the IF-I-XL UNet is 6.8B parameters); a `.bin` weight file is read
@@ -292,8 +298,10 @@ def build_guidance(cfg: dict, device="cuda"):
 
 def _build_photo_trainer(cfg: dict, device="cuda"):
     """system.type: photo-3dgs-system — the photometric 3DGS trainer fed by
-    a posed-image dataset: data.type blender or colmap (multiview and co3d
-    are not ported yet)."""
+    a posed-image dataset: data.type blender, colmap, multiview (an
+    instant-ngp `transforms.json` capture) or co3d (one CO3D-v2 sequence;
+    `data.dataroot` is its `root_dir`), the last two through their
+    datamodules' `as_photo_dataset`."""
     from humangaussian_torch.train.photo import (
         PhotoTrainConfig,
         PhotoTrainer,
@@ -313,10 +321,20 @@ def _build_photo_trainer(cfg: dict, device="cuda"):
         from humangaussian_torch.data.photo import load_colmap
 
         dataset = load_colmap(data_cfg["dataroot"])
-    elif dtype_ in ("multiview", "co3d"):
-        raise ValueError(
-            f"data.type {dtype_!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 20); use blender or colmap")
+    elif dtype_ == "multiview":
+        from humangaussian_torch.data.multiview import (
+            MultiviewConfig,
+            MultiviewDataModule,
+        )
+
+        dataset = MultiviewDataModule(
+            _take(MultiviewConfig, data_cfg)).as_photo_dataset()
+    elif dtype_ == "co3d":
+        from humangaussian_torch.data.co3d import Co3dConfig, Co3dDataModule
+
+        data_cfg.setdefault("root_dir", data_cfg.pop("dataroot", ""))
+        dataset = Co3dDataModule(
+            _take(Co3dConfig, data_cfg)).as_photo_dataset()
     else:
         raise ValueError(
             f"unknown data.type {dtype_!r} for photo-3dgs-system; expected "

@@ -6,7 +6,9 @@ mapping or a NamedTuple of array-likes, into the port's GaussianScene;
 `smplx_from_numpy` does the same for an `SMPLXModel`, and
 `adam_state_from_numpy`, `densify_state_from_numpy` and
 `photo_state_from_numpy` for the training state (JAX `AdamState`,
-`DensifyState`, `PhotoTrainState` given as numpy leaves). The parity tests
+`DensifyState`, `PhotoTrainState` given as numpy leaves); the
+`*_from_flax` functions carry Flax parameter trees (the UNet, the VAE,
+LPIPS) into the port's state dicts. The parity tests
 use them so that the two packages compute on identical state. Nothing
 here imports JAX: arrays are read through `numpy.asarray`.
 """
@@ -227,6 +229,22 @@ def vae_state_dict_from_flax(leaves: dict) -> dict:
                 key = f"{side}.mid_block.attentions.0.{name}.{leaf}"
             else:  # conv_in, conv_norm_out, conv_out
                 key = f"{side}.{mod}.{leaf}"
+        sd[key] = _torch_leaf(path[-1], value)
+    return sd
+
+
+def lpips_state_dict_from_flax(leaves: dict) -> dict:
+    """A Flax `LPIPS` parameter tree (numpy leaves: `vgg/conv_{i}` and
+    `lin_{i}`) as the port's `LPIPS` state dict of float32 tensors."""
+    from humangaussian_torch.perceptual import VGG_CONV_IDS
+
+    sd = {}
+    for path, value in _flatten(_params(leaves)):
+        leaf = _LEAF_NAMES[path[-1]]
+        if path[0] == "vgg":
+            key = f"vgg.features.{VGG_CONV_IDS[int(path[1][5:])]}.{leaf}"
+        else:
+            key = f"lin{int(path[0][4:])}.{leaf}"
         sd[key] = _torch_leaf(path[-1], value)
     return sd
 

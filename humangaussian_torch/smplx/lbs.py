@@ -162,3 +162,16 @@ def lbs_forward(
     landmarks = verts[model.landmark_vertex_ids.clamp(max=verts.shape[0] - 1)]
     joints_out = torch.cat([joints_posed, landmarks], dim=0)
     return verts, joints_out
+
+
+def joint_world_rotations(model: SMPLXModel, pose: SMPLXPose) -> torch.Tensor:
+    """Global (world-frame) rotation of every kinematic joint, [J,3,3]: the
+    rotation part of `lbs_forward`'s world transforms. The viewer's
+    skeleton dragging conjugates a screen-space rotation with it into a
+    joint's parent frame."""
+    rmats = rodrigues(pose.full_pose(model.hands_mean, flat_hand_mean=True))
+    parents = np.asarray(model.parents)
+    world = [rmats[0]]
+    for i in range(1, model.j_regressor.shape[0]):
+        world.append(world[int(parents[i])] @ rmats[i])
+    return torch.stack(world)

@@ -264,7 +264,9 @@ def test_launcher_end_to_end_on_the_cpu(tmp_path, capsys):
     ("system.type=gaussiandreamer-system", KeyError, "smplx_path"),
     ("system.type=dreamfusion-system", NotImplementedError, "item 21"),
     ("system.type=bogus", ValueError, "unknown system.type"),
-    ("data.type=co3d", ValueError, "not ported yet"),
+    # co3d is ported: `data.dataroot` is the sequence, whose category
+    # holds the annotations
+    ("data.type=co3d", FileNotFoundError, "frame_annotations"),
     ("data.type=bogus", ValueError, "unknown data.type"),
 ])
 def test_launcher_refuses_what_is_not_ported(tmp_path, override, error, match):
