@@ -208,6 +208,29 @@ source, started together), writes the assets, then:
    finite points; one "gs" frame, before its PNG encode, against the plain
    compositing of the same view (phase 2's image limits); ms per frame in
    each mode;
+25. the DreamFusion system through `apps.launch.main`: (a)
+   configs/dreamfusion.yaml as shipped (the tiny prior, 200 steps): every
+   logged loss finite, `save/orbit.png` written, K3 / K3a once per norm of
+   one UNet forward and two encoder passes a step, K5 / K5a once per
+   encoder norm, K4 never (float32, 8^2 latents); (b) at full width
+   (`DF_FULL_OVERRIDES`: a 16 x 2^19 x 2 hash grid, 96 samples, the diffuse
+   material, the neural environment map; SD2_SINGLE_CONFIG and VAEConfig()
+   loaded from seeded bfloat16 files, the prompt cache filled by
+   `dummy_encode_fn(77, 1024)`), batch 2 at 64^2: one checked step (finite
+   loss and gradients, Adam moved the hash table, both MLPs and the
+   background, launches exactly K3 / K3a 105, K5 / K5a 22, K4 15, K1 / K2
+   0, from the module trees), ms per step over 10 steps after 2 warm-ups,
+   the staged step, a profiled step with the hash grid's gather and
+   scatter-add shares, the peak memory, one view of the trained field on
+   the card against the CPU (1e-5 of max, depth 1e-4), and the CLI at
+   this width for 5 steps;
+26. `NeusVolumeRenderer` with a full-width `ImplicitSDF` and
+   `NeuralRadianceMaterial` at 64^2 (96 samples), and the NeRF renderer
+   with 96 + 64 importance samples on phase 25's field: card against CPU
+   at the same limits (the importance pass's per-sample weights at 1e-4),
+   ms per view; `export_implicit_volume` on phase 25's field at 64^3 with
+   a 512^2 texture: the files written, the OBJ non-empty and inside the
+   box, its seconds;
 and prints the `kernels` JSON line (all seven kernels, each with the
 launches of one `train_step` of phase 11, the main path, and
 `launches_deep_floyd_step` (phase 16, Perp-Neg off) and
@@ -216,11 +239,13 @@ carries `launches_serving_and_photo` (phases 4 to 6) and K2's
 `launches_photo` (phase 6); K1's and K2's rows also carry
 `ms_guidance_batch`, `bound_ms_guidance_batch` and
 `bound_ms_guidance_batch_visits`, shape c), and `launches_photo_data`
-(phases 20 and 21), K1's `launches_viewer` (phase 24)) and, last, the
+(phases 20 and 21), K1's `launches_viewer` (phase 24), and every row's
+`launches_dreamfusion_step` (phase 25b's checked step)) and, last, the
 device JSON line. `--only GROUP[,GROUP]` (render, norm, attention,
 guidance (phases 11 and 15), sample, unet-backward, trainer, deep-floyd,
 sample-cli, sd-guidance, photo-data (phases 19 to 22), tools (phases 23
-and 24)) runs some phase groups alone and prints no result lines.
+and 24), nerf (phases 25 and 26)) runs some phase groups alone and prints
+no result lines.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Weights and data are random, made from fixed seeds.
@@ -705,7 +730,7 @@ def write_assets(tmp: str, seed: int = 0, n_avatar: int | None = None):
 
 PHASE_GROUPS = ("render", "norm", "attention", "guidance", "sample",
                 "unet-backward", "trainer", "deep-floyd", "sample-cli",
-                "sd-guidance", "photo-data", "tools")
+                "sd-guidance", "photo-data", "tools", "nerf")
 AVATAR_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "avatar.yaml")
 PROMPT = "a person in a blue jacket"
@@ -2566,6 +2591,13 @@ def run(dev, only=()) -> int:
             row["launches_sample_cli"] = cli_counts[name]
     if want("sd-guidance"):
         sd_guidance_phase(dev)
+    if want("nerf"):
+        df_counts, df_system = dreamfusion_phase(dev, tmp)
+        neus_export_phase(dev, tmp, df_system)
+        del df_system
+        torch.cuda.empty_cache()
+        for name, row in rows.items():
+            row["launches_dreamfusion_step"] = df_counts[name]
     if want("deep-floyd"):
         if_counts = deep_floyd_phase(
             dev, tmp, [f"system.smplx_path={assets[0]}"])
@@ -3595,6 +3627,541 @@ def viewer_phase(dev, assets) -> int:
     compare("viewer gs frame", {"image": torch.from_numpy(img)[None]},
             {"image": plain["image"].cpu()}, keys=("image",))
     return launches
+
+
+# phases 25-26 (`--only nerf`): the NeRF stack
+DF_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "configs", "dreamfusion.yaml")
+# phase 25b: the JAX package's defaults for the field over the shipped
+# config's cut-down one (DreamFusionConfig(): a hash grid of 16 levels x
+# 2^19 x 2 features from base 16, 64-neuron MLPs with one hidden layer, 96
+# samples a ray, the diffuse material and the neural environment map), and
+# the SD 2.1-base prior (arch sd2)
+DF_FULL_OVERRIDES = (
+    "system.guidance.arch=sd2",
+    "system.material=diffuse-with-point-light-material",
+    "system.background=neural-environment-map-background",
+    "system.geometry.n_neurons=64",
+    "system.geometry.n_hidden_layers=1",
+    "system.geometry.hash_cfg.n_levels=16",
+    "system.geometry.hash_cfg.log2_hashmap_size=19",
+    "system.geometry.hash_cfg.base_resolution=16",
+    "system.renderer.num_samples_per_ray=96",
+)
+DF_TABLE_SHAPE = (16, 1 << 19, 2)  # the hash table those overrides give
+DF_STEP_REPS = 10  # timed full-width steps, after 2 warm-ups
+DF_CLI_STEPS = 5  # full-width steps through apps.launch.main
+NEUS_HW = 64
+NEUS_IMPORTANCE = 64  # the NeRF renderer's importance samples in phase 26
+# the exporter's default threshold of 10 is the blob's peak density
+# (softplus(10) at the centre), so a young field's isosurface there is
+# empty; 5 is the JAX suite's
+EXPORT_THRESHOLD = 5.0
+# card against CPU: of each output's max |value| (tests/test_torch_nerf.py)
+RENDER_TOL = {"comp_rgb": 1e-5, "comp_rgb_fg": 1e-5, "opacity": 1e-5,
+              "weights": 1e-5, "depth": 1e-4, "sdf": 1e-5}
+# the importance pass's per-sample weights: a fine depth moves with the
+# coarse weights' rounding, and the merged depths' differences (dt) carry
+# it into each weight, relative to a dt as small as the two samples are
+# close; the composited outputs stay at RENDER_TOL
+IMPORTANCE_WEIGHTS_TOL = 1e-4
+
+
+def write_sd2_files(dev, tmp) -> list:
+    """Seeded SD2_SINGLE_CONFIG `unet/` and VAEConfig() weight files in
+    diffusers layout (bfloat16) and a prompt cache filled by
+    `dummy_encode_fn(77, 1024)` for configs/dreamfusion.yaml's prompt;
+    returns the overrides that point the launcher at them."""
+    from humangaussian_torch.config import load_config
+    from humangaussian_torch.guidance.prompt import (
+        PromptProcessor,
+        PromptProcessorConfig,
+        dummy_encode_fn,
+    )
+    from humangaussian_torch.guidance.unet import SD2_SINGLE_CONFIG, SingleUNet
+    from humangaussian_torch.guidance.vae import AutoencoderKL, VAEConfig
+
+    t0 = time.perf_counter()
+    model_key = os.path.join(tmp, "sd2")
+    vae_key = os.path.join(tmp, "sd2_vae")
+    os.makedirs(os.path.join(model_key, "unet"))
+    os.makedirs(vae_key)
+    torch.save(seeded_state_dict(lambda: SingleUNet(SD2_SINGLE_CONFIG), 25,
+                                 dev),
+               os.path.join(model_key, "unet", "diffusion_pytorch_model.bin"))
+    torch.save(seeded_state_dict(lambda: AutoencoderKL(VAEConfig()), 26, dev),
+               os.path.join(vae_key, "diffusion_pytorch_model.bin"))
+    cache = os.path.join(tmp, "df_text_embeddings")
+    overrides = [f"system.guidance.model_key={model_key}",
+                 f"system.guidance.vae_key={vae_key}",
+                 "system.prompt_processor.pretrained_model_name_or_path="
+                 + model_key,
+                 f"system.prompt_processor.cache_dir={cache}"]
+    pp = load_config(DF_YAML, overrides)["system"]["prompt_processor"]
+    PromptProcessor(
+        PromptProcessorConfig(
+            prompt=pp["prompt"], model_path=model_key, cache_dir=cache),
+        dummy_encode_fn(77, 1024), device=dev)()
+    print(f"  SD2 unet/ and VAE files and the prompt cache written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return overrides
+
+
+def sd_step_launches(guidance, steps: int = 1) -> dict:
+    """The launches of `steps` SD-guidance steps through the differentiated
+    encode, from the module trees: one UNet forward and two encoder passes
+    (the encode and its recomputation under checkpoint) for K3 / K3a, one
+    encoder backward for K5 / K5a, K4 at every gated UNet site."""
+    enc = norms_in(guidance.vae.encoder)
+    fwd = norms_in(guidance.unet) + 2 * enc
+    return launches(
+        groupnorm_fwd_stats=steps * fwd, groupnorm_fwd_apply=steps * fwd,
+        groupnorm_bwd_stats=steps * enc, groupnorm_bwd_dx=steps * enc,
+        attention_fwd=steps * flash_sites(guidance.unet,
+                                          guidance.cfg.latent_size))
+
+
+def run_dreamfusion_cli(args) -> tuple:
+    """`apps.launch.main(args)` with its output captured: (trial dir, the
+    logged losses, host seconds of each train_step (synchronized), wall
+    seconds)."""
+    from humangaussian_torch.apps import launch
+    from humangaussian_torch.nerf.system import DreamFusionSystem
+
+    own = DreamFusionSystem.train_step
+    step_s = []
+
+    def timed(self, *a, **k):
+        t = time.perf_counter()
+        out = own(self, *a, **k)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    DreamFusionSystem.train_step = timed
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            trial = launch.main(args)
+        torch.cuda.synchronize()
+    finally:
+        DreamFusionSystem.train_step = own
+    losses = [float(x) for x in re.findall(r"loss=(\S+)", log.getvalue())]
+    return trial, losses, step_s, time.perf_counter() - t0
+
+
+def check_orbit(trial, size):
+    from PIL import Image
+
+    path = os.path.join(trial, "save", "orbit.png")
+    check(os.path.exists(path), "save/orbit.png missing")
+    img = np.asarray(Image.open(path))
+    check(img.shape == (size, 8 * size, 3), f"orbit.png is {img.shape}")
+    return img
+
+
+def profile_by_op(label, fn, top=6):
+    """fn under torch.profiler: prints wall, device busy and idle share, the
+    top kernels and the top launching operators; returns the device busy
+    us (0 when the profiler saw no device kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, by_op = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+        elif e.device_type == DeviceType.CPU:
+            for k in e.kernels:
+                by_op[e.name] = by_op.get(e.name, 0.0) + k.duration
+    if not by_name:
+        print(f"  {label}: device time not measured (the profiler saw no "
+              f"device kernels)")
+        return 0.0
+    busy_us = sum(by_name.values())
+    print(f"  {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share "
+          f"{max(0.0, 1 - busy_us / wall_us):.3f}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  "
+              f"{name[:90]}")
+    print(f"  {label}, by launching operator:")
+    for op, us in sorted(by_op.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  {op[:90]}")
+    return busy_us
+
+
+def staged_df_step(system, state) -> tuple:
+    """One step timed by CUDA events in stages: the cameras (with the
+    timesteps and jitter), the render, the encode, UNet + CFG (the
+    system's and the guidance's methods wrapped on the instances, the
+    encode's recomputation in the backward left out), the rest of the
+    forward, the backward, Adam. Returns (ms by stage, state)."""
+    g = system.guidance
+    marks, forward = {}, [True]
+
+    def wrap(obj, name, label):
+        fn = getattr(obj, name)
+
+        def wrapped(*a, **k):
+            if not forward[0]:
+                return fn(*a, **k)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            marks.setdefault(label, []).append((start, end))
+            return out
+
+        setattr(obj, name, wrapped)
+
+    wrap(system, "render_batch", "render")
+    wrap(g, "encode_images", "encode")
+    wrap(g, "compute_grad_sds", "UNet + CFG")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    try:
+        ev[0].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        inputs = system.sample_step_inputs(state)
+        ev[1].record()
+        loss, _ = system.loss(inputs, state.generator)
+        ev[2].record()
+        forward[0] = False
+        grads = torch.autograd.grad(loss, list(system.params.values()),
+                                    materialize_grads=True)
+        ev[3].record()
+        system.apply_grads(state, dict(zip(system.params, grads)))
+        ev[4].record()
+        ev[4].synchronize()
+    finally:
+        del system.render_batch, g.encode_images, g.compute_grad_sds
+    ms = {"cameras": ev[0].elapsed_time(ev[1])}
+    for label, spans in marks.items():
+        ms[label] = sum(a.elapsed_time(b) for a, b in spans)
+    ms["rest of the forward"] = ev[1].elapsed_time(ev[2]) - sum(
+        ms[k] for k in ("render", "encode", "UNet + CFG"))
+    ms["backward"] = ev[2].elapsed_time(ev[3])
+    ms["Adam"] = ev[3].elapsed_time(ev[4])
+    ms["total"] = ev[0].elapsed_time(ev[4])
+    return ms, state._replace(step=state.step + 1)
+
+
+def renders_agree(label, got: dict, want: dict, tol=None) -> float:
+    """Card outputs against the CPU's at `tol` (RENDER_TOL) of each
+    output's max; prints each output's error and returns the largest as a
+    share of its limit."""
+    tol = tol or RENDER_TOL
+    worst, errs = 0.0, []
+    for k, w in want.items():
+        if k not in tol:
+            continue
+        w = w.double()
+        err = float((got[k].double().cpu() - w).abs().max())
+        limit = tol[k] * float(w.abs().max())
+        errs.append(f"{k} {err:.3e}")
+        check(err <= limit, f"{label} {k}: card vs CPU {err:.3e} > "
+              f"{limit:.3e}")
+        worst = max(worst, err / max(limit, 1e-30))
+    print(f"  {label}: card vs CPU max abs err " + ", ".join(errs))
+    return worst
+
+
+def hash_grid_share(system, state, busy_us):
+    """The hash grid's gather (`index_select` of the step's 8 corners x 16
+    levels per sample) and its backward's scatter-add (`index_add_` into a
+    zeroed table) timed alone by CUDA events on one training render's
+    samples, and their share of the profiled step's device time."""
+    enc = system.renderer.geometry.encoding
+    seen = []
+    hook = enc.register_forward_hook(
+        lambda m, args, out: seen.append(args[0].detach()))
+    try:
+        with torch.no_grad():
+            system.render_batch(system.sample_step_inputs(state))
+    finally:
+        hook.remove()
+    with torch.no_grad():
+        rows, _ = enc.corners(seen[0])
+        flat = enc.table.detach().reshape(-1, enc.table.shape[-1])
+        idx = rows.reshape(-1)
+        grad = torch.randn((idx.numel(), flat.shape[1]), device=flat.device)
+        gather_ms = cuda_ms(lambda: torch.index_select(flat, 0, idx), 10)
+        scatter_ms = cuda_ms(
+            lambda: torch.zeros_like(flat).index_add_(0, idx, grad), 10)
+    share = (f" = {100 * gather_ms * 1e3 / busy_us:.1f}% / "
+             f"{100 * scatter_ms * 1e3 / busy_us:.1f}% of the profiled "
+             f"step's device time" if busy_us else "")
+    print(f"  hash grid at one step's {seen[0].numel() // 3} samples "
+          f"({idx.numel()} corner rows): gather {gather_ms:.3f} ms, "
+          f"scatter-add with its zero fill {scatter_ms:.3f} ms" + share)
+
+
+def y_up_view(dev, azimuth_deg=0.0):
+    """The orbit's camera at `azimuth_deg`: y up, radius 2, height 0.3."""
+    from humangaussian_torch.core.camera import look_at_c2w
+
+    a = math.radians(azimuth_deg)
+    eye = torch.tensor([2.0 * math.sin(a), 0.3, 2.0 * math.cos(a)],
+                       device=dev)
+    return look_at_c2w(eye, torch.zeros(3, device=dev),
+                       torch.tensor([0.0, 1.0, 0.0], device=dev))
+
+
+def dreamfusion_phase(dev, tmp) -> tuple:
+    """Phase 25: the DreamFusion system through apps.launch, (a) as
+    shipped, (b) at full width. Returns (the launches of one full-width
+    train_step, the trained system)."""
+    import copy
+
+    from humangaussian_torch import kernels
+    from humangaussian_torch.apps import launch
+    from humangaussian_torch.config import load_config
+    from humangaussian_torch.nerf.renderer import NerfVolumeRenderer
+
+    # -- (a) configs/dreamfusion.yaml as shipped --------------------------
+    runs = os.path.join(tmp, "df_runs")
+    tiny_over = [f"exp_root_dir={runs}",
+                 f"system.prompt_processor.cache_dir={tmp}/df_tiny_cache"]
+    cfg = load_config(DF_YAML, tiny_over)
+    steps = int(cfg["trainer"]["max_steps"])
+    every = int(cfg["trainer"]["log_every"])
+    eval_h = int(cfg["data"]["eval_height"])
+    print(f"phase 25a: apps.launch --train on configs/dreamfusion.yaml as "
+          f"shipped (arch {cfg['system']['guidance']['arch']}, {steps} "
+          f"steps)")
+    kernels.reset_launch_counts()
+    trial, losses, step_s, wall = run_dreamfusion_cli(
+        ["--config", DF_YAML, "--train", "--device", dev.type, *tiny_over])
+    counts = kernels.launch_counts()
+    check(len(losses) == steps // every
+          and all(math.isfinite(x) for x in losses),
+          f"logged losses {losses}")
+    check_orbit(trial, eval_h)
+    tiny = launch.build_system(cfg, dev)
+    want = sd_step_launches(tiny.guidance, steps)
+    del tiny
+    print(f"  losses {losses[0]:.4f} (step {every}) -> {losses[-1]:.4f} "
+          f"(step {steps}); {1e3 * statistics.median(step_s):.3f} ms a step "
+          f"(median, host clock with a sync), wall {wall:.1f} s with the "
+          f"build and the orbit; launches {counts}")
+    check(counts == want, f"shipped DreamFusion launches {counts}, want "
+          f"{want}")
+    check(want["groupnorm_fwd_stats"] > 0 and want["groupnorm_bwd_dx"] > 0
+          and want["attention_fwd"] == 0, f"tiny prior launches {want}")
+
+    # -- (b) full width -----------------------------------------------------
+    print("phase 25b: DreamFusionSystem at full width (SD2_SINGLE_CONFIG "
+          "bf16, VAEConfig() at 512^2, 16 x 2^19 x 2 hash grid, 96 samples, "
+          "batch 2 at 64^2)")
+    overrides = write_sd2_files(dev, tmp) + list(DF_FULL_OVERRIDES) + [
+        f"exp_root_dir={runs}"]
+    cfg = load_config(DF_YAML, overrides)
+    t0 = time.perf_counter()
+    system = launch.build_system(cfg, dev)
+    torch.cuda.synchronize()
+    g = system.guidance
+    geo = system.renderer.geometry
+    n_unet = sum(p.numel() for p in g.unet.parameters())
+    n_field = sum(p.numel() for p in system.params.values())
+    print(f"  build_system {time.perf_counter() - t0:.1f} s: SingleUNet "
+          f"{n_unet} parameters ({g.unet.dtype}), field {n_field} "
+          f"parameters (hash table {tuple(geo.encoding.table.shape)}), "
+          f"{system.cfg.renderer.num_samples_per_ray} samples a ray, batch "
+          f"{system.camera_cfg.batch_size} at {system.camera_cfg.height}^2")
+    check(tuple(geo.encoding.table.shape) == DF_TABLE_SHAPE
+          and system.cfg.renderer.num_samples_per_ray == 96
+          and g.unet.dtype == torch.bfloat16
+          and system.prompt_embeddings.text_vd.shape == (4, 77, 1024),
+          "full-width configuration")
+    want = sd_step_launches(g)
+
+    # one checked step
+    state = system.init_state(0)
+    before = {k: v.detach().clone() for k, v in system.params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    state, metrics = system.train_step(state)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = float(metrics["loss"])
+    check(math.isfinite(loss), f"loss {loss}")
+    for k, p in system.params.items():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              f"gradient of {k} not finite")
+    for prefix in ("geometry.encoding.table", "geometry.density_network",
+                   "geometry.feature_network", "background.mlp"):
+        check(any(not torch.equal(v, before[k])
+                  for k, v in system.params.items() if k.startswith(prefix)),
+              f"Adam did not move {prefix}")
+    print(f"  checked step: loss {loss:.6g} (sds "
+          f"{float(metrics['loss_sds']):.6g}, sparsity "
+          f"{float(metrics['loss_sparsity']):.6g}), peak {peak:.2f} GiB; "
+          f"launches {counts}")
+    check(counts == want, f"DreamFusion step launches {counts}, want {want}")
+
+    # ms per train_step
+    for _ in range(2):
+        state, _ = system.train_step(state)
+    times = []
+    for _ in range(DF_STEP_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = system.train_step(state)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    check(math.isfinite(float(metrics["loss"])), "loss after the timed steps")
+    print(f"  train_step {statistics.median(times):.3f} ms median over "
+          f"{DF_STEP_REPS} ({min(times):.3f}-{max(times):.3f}), CUDA events")
+    stages, state = staged_df_step(system, state)
+    print("  staged: " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                   stages.items()))
+    busy_us = profile_by_op("profiled train_step",
+                            lambda: system.train_step(state))
+    hash_grid_share(system, state, busy_us)
+
+    # one view of the trained field on the card and on the CPU
+    h = system.camera_cfg.height
+    c2w = y_up_view(dev)
+    got = system.render_eval(state, c2w, 0.8, h, h)
+    field = copy.deepcopy(system.renderer.field).to("cpu")
+    cpu = NerfVolumeRenderer(field["geometry"], field["material"],
+                             field["background"], system.cfg.renderer)
+    with torch.no_grad():
+        want_view = cpu.render_image(c2w.cpu(), 0.8, h, h)
+    worst = renders_agree("render_eval", got, want_view)
+    view_ms = cuda_ms(lambda: system.render_eval(state, c2w, 0.8, h, h), 5)
+    print(f"  render_eval at {h}^2: card vs CPU within {worst:.3f} of the "
+          f"limits, {view_ms:.3f} ms a view (opacity max "
+          f"{float(got['opacity'].max()):.4f})")
+    del field, cpu, want_view
+
+    # the CLI at this width
+    kernels.reset_launch_counts()
+    trial, losses, step_s, wall = run_dreamfusion_cli(
+        ["--config", DF_YAML, "--train", "--device", dev.type, *overrides,
+         f"trainer.max_steps={DF_CLI_STEPS}", "trainer.log_every=1"])
+    check(len(losses) == DF_CLI_STEPS
+          and all(math.isfinite(x) for x in losses), f"CLI losses {losses}")
+    check_orbit(trial, int(cfg["data"]["eval_height"]))
+    check(kernels.launch_counts() == sd_step_launches(g, DF_CLI_STEPS),
+          f"CLI launches {kernels.launch_counts()}")
+    print(f"  apps.launch --train, {DF_CLI_STEPS} steps: "
+          f"{statistics.median(step_s[1:]):.3f} s a step (median after the "
+          f"first, host clock with a sync), first {step_s[0]:.3f} s, wall "
+          f"{wall:.1f} s with the build and the orbit; orbit.png written")
+    return counts, system
+
+
+def neus_export_phase(dev, tmp, system):
+    """Phase 26: the NeuS renderer at full width and the NeRF renderer's
+    importance pass, card against CPU; the exporter on phase 25's field."""
+    import copy
+
+    from humangaussian_torch.nerf.background import (
+        NeuralEnvironmentMapBackground,
+    )
+    from humangaussian_torch.nerf.exporter import export_implicit_volume
+    from humangaussian_torch.nerf.material import NeuralRadianceMaterial
+    from humangaussian_torch.nerf.renderer import (
+        NerfVolumeRenderer,
+        RendererConfig,
+    )
+    from humangaussian_torch.nerf.sdf import (
+        ImplicitSDF,
+        ImplicitSDFConfig,
+        NeusVolumeRenderer,
+    )
+
+    print(f"phase 26: NeusVolumeRenderer and the importance pass at "
+          f"{NEUS_HW}^2, card vs CPU; export_implicit_volume")
+    hw = NEUS_HW
+    s = system.cfg.renderer.num_samples_per_ray
+    gen = torch.Generator().manual_seed(26)
+    c2w = y_up_view(dev, 30.0)
+    jitter = torch.rand((hw * hw, s), generator=gen)
+
+    def on(device, modules):
+        return [copy.deepcopy(m).to(device) for m in modules]
+
+    neus_mods = [ImplicitSDF(ImplicitSDFConfig(), "cpu", gen),
+                 NeuralRadianceMaterial(3, device="cpu", generator=gen),
+                 NeuralEnvironmentMapBackground(device="cpu", generator=gen)]
+    rcfg = RendererConfig(num_samples_per_ray=s)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        r = NeusVolumeRenderer(*on(device, neus_mods), rcfg, device=device)
+        with torch.no_grad():
+            out[device.type] = r.render_image(
+                c2w.to(device), 0.8, hw, hw, jitter.to(device),
+                cos_anneal_ratio=0.5)
+        if device == dev:
+            neus_ms = cuda_ms(lambda: r.render_image(
+                c2w, 0.8, hw, hw, jitter.to(dev), cos_anneal_ratio=0.5), 5)
+    worst = renders_agree("NeuS", out[dev.type], out["cpu"])
+    op = out[dev.type]["opacity"]
+    check(float(op[hw // 2, hw // 2, 0]) > 0.5, "NeuS misses the sphere")
+    print(f"  NeuS (full-width ImplicitSDF, NeuralRadianceMaterial, {s} "
+          f"samples): card vs CPU within {worst:.3f} of the limits, "
+          f"{neus_ms:.3f} ms a view")
+
+    fine = torch.rand((hw * hw, NEUS_IMPORTANCE), generator=gen)
+    icfg = dataclasses.replace(system.cfg.renderer,
+                               num_importance_samples=NEUS_IMPORTANCE)
+    field = system.renderer.field
+    for device in (dev, torch.device("cpu")):
+        mods = ([field["geometry"], field["material"], field["background"]]
+                if device == dev else on(device, field.values()))
+        r = NerfVolumeRenderer(*mods, icfg)
+        with torch.no_grad():
+            out[device.type] = r.render_image(
+                c2w.to(device), 0.8, hw, hw, jitter.to(device),
+                fine.to(device))
+        if device == dev:
+            imp_ms = cuda_ms(lambda: r.render_image(
+                c2w, 0.8, hw, hw, jitter.to(dev), fine.to(dev)), 5)
+    worst = renders_agree("importance", out[dev.type], out["cpu"],
+                          dict(RENDER_TOL, weights=IMPORTANCE_WEIGHTS_TOL))
+    print(f"  NeRF renderer with {s} + {NEUS_IMPORTANCE} importance samples "
+          f"on phase 25's field: card vs CPU within {worst:.3f} of the "
+          f"limits, {imp_ms:.3f} ms a view")
+
+    save = os.path.join(tmp, "df_export")
+    t0 = time.perf_counter()
+    obj = export_implicit_volume(save, system.renderer.geometry,
+                                 system.renderer.material,
+                                 threshold=EXPORT_THRESHOLD)
+    export_s = time.perf_counter() - t0
+    for name in ("model.obj", "model.mtl", "texture_kd.png"):
+        check(os.path.exists(os.path.join(save, name)), f"{name} missing")
+    with open(obj) as f:
+        lines = f.read().splitlines()
+    verts = np.array([[float(x) for x in ln.split()[1:]] for ln in lines
+                      if ln.startswith("v ")])
+    n_faces = sum(ln.startswith("f ") for ln in lines)
+    check(len(verts) > 0 and n_faces > 0, "the exported mesh is empty")
+    check(bool(np.isfinite(verts).all()) and float(np.abs(verts).max())
+          <= 1.0, "the exported mesh leaves the box")
+    from PIL import Image
+
+    tex = Image.open(os.path.join(save, "texture_kd.png"))
+    check(tex.size == (512, 512), f"texture {tex.size}")
+    print(f"  export_implicit_volume (resolution 64, texture 512, threshold "
+          f"{EXPORT_THRESHOLD}): {len(verts)} vertices, {n_faces} faces, "
+          f"{export_s:.2f} s")
 
 
 if __name__ == "__main__":

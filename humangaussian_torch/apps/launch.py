@@ -26,8 +26,16 @@ or co3d:
   python -m humangaussian_torch.apps.launch --config configs/photo.yaml \\
       --train data.type=multiview data.dataroot=/path/to/capture
 
-Not ported yet, and raising NotImplementedError: `dreamfusion-system`
-(ROADMAP item 21).
+`system.type: dreamfusion-system` is the stock text-to-NeRF system
+(nerf/system.py) with the SD guidance: `system.guidance.arch` `tiny`
+(random weights, no files) or `sd2` (SD 2.1-base width, weights from
+`model_key/unet/` and `vae_key`; the prompt from the CLIP encoder of
+`prompt_processor.pretrained_model_name_or_path`, or from
+`dummy_encode_fn(77, 1024)` without one); `main` trains
+`trainer.max_steps` steps and writes the 8-view orbit `save/orbit.png`:
+
+  python -m humangaussian_torch.apps.launch \\
+      --config configs/dreamfusion.yaml --train trainer.max_steps=2
 
 Both priors are built on the meta device and materialized on the card
 (the IF-I-XL UNet is 6.8B parameters); a `.bin` weight file is read
@@ -55,9 +63,7 @@ def build_system(cfg: dict, device="cuda"):
     if stype == "gaussiandreamer-system":
         return _build_avatar_system(cfg, device)
     if stype == "dreamfusion-system":
-        raise NotImplementedError(
-            "dreamfusion-system is not ported yet (ROADMAP.md queue 1 item "
-            "21, the NeRF stack)")
+        return _build_dreamfusion_system(cfg, device)
     raise ValueError(
         f"unknown system.type {stype!r}; expected gaussiandreamer-"
         "system, dreamfusion-system or photo-3dgs-system"
@@ -296,6 +302,132 @@ def build_guidance(cfg: dict, device="cuda"):
         _take(GuidanceConfig, g_raw))
 
 
+def _build_dreamfusion_system(cfg: dict, device="cuda"):
+    """system.type: dreamfusion-system — the implicit-volume NeRF, the SD
+    guidance (`SingleUNet`) and the random-camera batch of `data`.
+    `system.guidance.arch` is `tiny` (TINY_SINGLE_CONFIG and the tiny VAE
+    with seeded random weights, 8^2 latents of 16^2 images, 7 x 32 prompt
+    embeddings) or `sd2` (SD2_SINGLE_CONFIG and VAEConfig() from the files
+    under `model_key/unet/` and `vae_key`, 77 x 1024 embeddings);
+    `system.geometry.hash_cfg` and `system.renderer` are nested dicts."""
+    import torch
+
+    from humangaussian_torch import resolve_device
+    from humangaussian_torch.data.cameras import RandomCameraConfig
+    from humangaussian_torch.guidance.prompt import (
+        PromptProcessor,
+        PromptProcessorConfig,
+        dummy_encode_fn,
+    )
+    from humangaussian_torch.guidance.schedule import sd_eps_schedule
+    from humangaussian_torch.guidance.stable_diffusion import (
+        SDGuidanceConfig,
+        StableDiffusionGuidance,
+    )
+    from humangaussian_torch.guidance.unet import (
+        SD2_SINGLE_CONFIG,
+        TINY_SINGLE_CONFIG,
+        SingleUNet,
+    )
+    from humangaussian_torch.guidance.vae import (
+        AutoencoderKL,
+        VAEConfig,
+        tiny_vae_config,
+        upgrade_vae_state_dict,
+    )
+    from humangaussian_torch.nerf.encoding import HashGridConfig
+    from humangaussian_torch.nerf.geometry import ImplicitVolumeConfig
+    from humangaussian_torch.nerf.renderer import RendererConfig
+    from humangaussian_torch.nerf.system import (
+        DreamFusionConfig,
+        DreamFusionSystem,
+    )
+
+    dev = resolve_device(device)
+    sys_cfg = cfg.get("system", {})
+    g_raw = dict(sys_cfg.get("guidance", {}))
+    arch = g_raw.get("arch", "tiny")
+    if arch == "tiny":
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            unet = SingleUNet(TINY_SINGLE_CONFIG)
+            vae = AutoencoderKL(tiny_vae_config())
+        unet = unet.to(dev, memory_format=torch.channels_last)
+        vae = vae.to(dev, memory_format=torch.channels_last)
+        g_raw.setdefault("latent_size", 8)
+        g_raw.setdefault("image_size", 16)
+        emb_len, emb_dim = 7, 32
+    elif arch == "sd2":
+        bf16_weights = bool(g_raw.get("half_precision_weights", True))
+        vae_cfg = VAEConfig()
+        with torch.device("meta"):
+            unet = SingleUNet(SD2_SINGLE_CONFIG)
+            vae = AutoencoderKL(vae_cfg)
+        _load_into(unet, _find_weights(g_raw["model_key"], "unet"),
+                   SD2_SINGLE_CONFIG.dtype, bf16_weights, dev)
+        _load_into(vae, _find_weights(g_raw["vae_key"], ""), vae_cfg.dtype,
+                   bf16_weights, dev, upgrade=upgrade_vae_state_dict)
+        emb_len, emb_dim = 77, 1024
+    else:
+        raise ValueError(f"unknown system.guidance.arch {arch!r}; expected "
+                         "'tiny' or 'sd2'")
+    guidance = StableDiffusionGuidance(unet, vae, sd_eps_schedule(device=dev),
+                                       _take(SDGuidanceConfig, g_raw))
+
+    pp_raw = dict(sys_cfg.get("prompt_processor", {}))
+    pp_raw.setdefault("model_path",
+                      pp_raw.pop("pretrained_model_name_or_path", ""))
+    embeddings = PromptProcessor(
+        _take(PromptProcessorConfig, pp_raw),
+        encode_fn=(dummy_encode_fn(emb_len, emb_dim)
+                   if arch == "tiny" or not pp_raw["model_path"] else None),
+        device=dev)()
+
+    geo_raw = dict(sys_cfg.get("geometry", {}))
+    if isinstance(geo_raw.get("hash_cfg"), dict):
+        geo_raw["hash_cfg"] = _take(HashGridConfig, geo_raw["hash_cfg"])
+    df_raw = dict(sys_cfg)
+    df_raw["geometry"] = _take(ImplicitVolumeConfig, geo_raw)
+    df_raw["renderer"] = _take(RendererConfig,
+                               dict(sys_cfg.get("renderer", {})))
+    return DreamFusionSystem(
+        _take(DreamFusionConfig, df_raw), guidance, embeddings,
+        camera_cfg=_take(RandomCameraConfig, cfg.get("data", {})),
+        device=dev)
+
+
+def _run_dreamfusion(system, cfg, dirs):
+    """`trainer.max_steps` steps (the loss printed every `log_every`),
+    then the 8-view orbit (y up, radius 2, height 0.3, fovy 0.8) at
+    `data.eval_height` into `save/orbit.png`."""
+    import torch
+
+    from humangaussian_torch.core.camera import look_at_c2w
+    from humangaussian_torch.utils.saving import save_image_grid
+
+    trainer_cfg = cfg.get("trainer", {})
+    max_steps = int(trainer_cfg.get("max_steps", system.cfg.max_steps))
+    log_every = int(trainer_cfg.get("log_every", 10))
+    state = system.init_state(int(cfg.get("seed", 0)))
+    for i in range(max_steps):
+        state, metrics = system.train_step(state)
+        if (i + 1) % log_every == 0:
+            print(f"step {i + 1}: loss={float(metrics['loss']):.4f}")
+    h = int(cfg.get("data", {}).get("eval_height", 64))
+    dev = system.device
+    frames = []
+    for az in np.linspace(0, 360, 8, endpoint=False):
+        a = np.deg2rad(az)
+        eye = torch.tensor([2.0 * np.sin(a), 0.3, 2.0 * np.cos(a)],
+                           dtype=torch.float32, device=dev)
+        c2w = look_at_c2w(eye, torch.zeros(3, device=dev),
+                          torch.tensor([0.0, 1.0, 0.0], device=dev))
+        out = system.render_eval(state, c2w, 0.8, h, h)
+        frames.append(out["comp_rgb"].cpu().numpy())
+    save_image_grid(os.path.join(dirs["save"], "orbit.png"), frames)
+    return state
+
+
 def _build_photo_trainer(cfg: dict, device="cuda"):
     """system.type: photo-3dgs-system — the photometric 3DGS trainer fed by
     a posed-image dataset: data.type blender, colmap, multiview (an
@@ -453,6 +585,12 @@ def main(argv=None):
     if isinstance(system, tuple):  # the photo-3DGS trainer's bundle
         if args.train:
             _run_photo(system, cfg, dirs)
+        return dirs["trial"]
+    from humangaussian_torch.nerf.system import DreamFusionSystem
+
+    if isinstance(system, DreamFusionSystem):
+        if args.train:
+            _run_dreamfusion(system, cfg, dirs)
         return dirs["trial"]
     _run_avatar(system, cfg, dirs, exp, args)
     return dirs["trial"]

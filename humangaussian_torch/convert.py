@@ -8,7 +8,7 @@ mapping or a NamedTuple of array-likes, into the port's GaussianScene;
 `photo_state_from_numpy` for the training state (JAX `AdamState`,
 `DensifyState`, `PhotoTrainState` given as numpy leaves); the
 `*_from_flax` functions carry Flax parameter trees (the UNet, the VAE,
-LPIPS) into the port's state dicts. The parity tests
+LPIPS, the NeRF modules) into the port's state dicts. The parity tests
 use them so that the two packages compute on identical state. Nothing
 here imports JAX: arrays are read through `numpy.asarray`.
 """
@@ -246,6 +246,27 @@ def lpips_state_dict_from_flax(leaves: dict) -> dict:
         else:
             key = f"lin{int(path[0][4:])}.{leaf}"
         sd[key] = _torch_leaf(path[-1], value)
+    return sd
+
+
+def nerf_state_dict_from_flax(leaves: dict) -> dict:
+    """A Flax NeRF parameter tree (numpy leaves) as the state dict of the
+    port's module: one module's tree (`geometry.init(...)`) for that
+    module, or a renderer's {geometry, material, background[, variance]}
+    for its `field`. Every "params" level is dropped; a Dense `kernel`
+    [in, out] becomes `weight` [out, in] and `bias` copies; the hash
+    `table`, `env_color`, `texture`, `adapter` and `grid` copy as they
+    are; an inline MLP `VanillaMLP_0` is the port's `mlp`; the NeuS
+    renderer's top-level `variance` is `variance.variance`."""
+    sd = {}
+    for path, value in _flatten(leaves):
+        names = ["mlp" if p == "VanillaMLP_0" else p
+                 for p in path if p != "params"]
+        if names == ["variance"]:
+            names = ["variance", "variance"]
+        if names[-1] == "kernel":
+            names[-1] = "weight"
+        sd[".".join(names)] = _torch_leaf(path[-1], value)
     return sd
 
 

@@ -4,8 +4,8 @@ Port of humangaussian_tpu/data/image.py: one fixed reference view (an
 RGBA image plus optional depth / normal sidecars, nearest-resized on the
 host, rgb premultiplied by the mask) placed by (elevation, azimuth,
 distance) in the z-up world and looking at the origin, with rays at pixel
-centres in the OpenGL convention (`get_rays`, the port's copy of the JAX
-package's nerf/renderer.py::get_rays), plus random novel-view camera
+centres in the OpenGL convention (`nerf/renderer.py::get_rays`, imported
+here as the JAX module imports it), plus random novel-view camera
 batches for the guidance term from data/cameras.py.
 
 Differences from the JAX module: the fixed batch holds CPU tensors;
@@ -28,6 +28,7 @@ from humangaussian_torch.data.cameras import (
     camera_batch_from_draws,
     camera_draws,
 )
+from humangaussian_torch.nerf.renderer import get_rays
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,21 +62,6 @@ class SingleImageBatch(NamedTuple):
     fovy: torch.Tensor  # [1] radians
     depth: Any = None  # [1,H,W,1] if requires_depth
     normal: Any = None  # [1,H,W,3] if requires_normal
-
-
-def get_rays(c2w: torch.Tensor, fovy: float, height: int, width: int):
-    """Per-pixel rays, OpenGL convention (the camera looks down -z), pixel
-    centres at +0.5. c2w: [4,4] or [3,4]. Returns (origins [H,W,3],
-    dirs [H,W,3]) on c2w's device."""
-    f32 = dict(dtype=torch.float32, device=c2w.device)
-    focal = 0.5 * height / torch.tan(torch.tensor(0.5 * fovy, **f32))
-    x = (torch.arange(width, **f32) + 0.5 - width / 2) / focal
-    y = (torch.arange(height, **f32) + 0.5 - height / 2) / focal
-    yy, xx = torch.meshgrid(y, x, indexing="ij")
-    dirs_cam = torch.stack([xx, -yy, -torch.ones_like(xx)], dim=-1)
-    dirs = dirs_cam @ c2w[:3, :3].T
-    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
-    return c2w[:3, 3].expand(dirs.shape), dirs
 
 
 def _camera_from_angles(elev_deg, azim_deg, distance):

@@ -1,1 +1,51 @@
-"""Mesh rasterization (the rest of the NeRF stack waits, ROADMAP item 21)."""
+"""The NeRF stack: the reference's stock geometry, renderer, material,
+background and system components (port of humangaussian_tpu/nerf).
+
+- implicit-volume geometry (hash-grid or frequency encoding + MLPs,
+  `geometry.py`, `encoding.py`) and the SDF family (`sdf.py`: implicit-sdf,
+  volume-grid, the NeuS renderer);
+- nerf-volume-renderer (`renderer.py`: static-shape stratified ray
+  marching with an optional importance pass);
+- the backgrounds and materials (`background.py`, `material.py`);
+- dreamfusion-system tying them to the SD guidance (`system.py`);
+- the mesh exporter with texture baking (`exporter.py`);
+- triangle-mesh rasterization (`explicit.py`: `rasterize_mesh`,
+  `face_normals`).
+
+Waiting (ROADMAP queue 1 item 21b): the rest of `nerf/explicit.py`
+(tetrahedral SDF grid, custom mesh, rasterizer renderers) and
+`nerf/gan.py`.
+"""
+from humangaussian_torch.nerf.background import (
+    NeuralEnvironmentMapBackground,
+    SolidColorBackground,
+)
+from humangaussian_torch.nerf.encoding import (
+    FrequencyEncoding,
+    HashGridEncoding,
+)
+from humangaussian_torch.nerf.geometry import (
+    ImplicitVolume,
+    ImplicitVolumeConfig,
+)
+from humangaussian_torch.nerf.material import (
+    DiffuseWithPointLightMaterial,
+    NoMaterial,
+)
+from humangaussian_torch.nerf.renderer import (
+    NerfVolumeRenderer,
+    RendererConfig,
+)
+
+__all__ = [
+    "FrequencyEncoding",
+    "HashGridEncoding",
+    "ImplicitVolume",
+    "ImplicitVolumeConfig",
+    "SolidColorBackground",
+    "NeuralEnvironmentMapBackground",
+    "NoMaterial",
+    "DiffuseWithPointLightMaterial",
+    "NerfVolumeRenderer",
+    "RendererConfig",
+]

@@ -3,8 +3,8 @@
 Port of `rasterize_mesh` and `face_normals` of
 humangaussian_tpu/nerf/explicit.py (the nvdiffrast rasterize + interpolate
 analogue that the viewer's "mesh" mode calls). The rest of that module,
-the tetrahedral SDF grid, the custom mesh and the rasterizer renderer, is
-ROADMAP queue 1 item 21 with the NeRF stack.
+the tetrahedral SDF grid, the custom mesh and the rasterizer renderers, is
+ROADMAP queue 1 item 21b.
 
 The z-buffer search runs over chunks of faces without gradient; the
 winning face's barycentrics are then re-derived differentiably, so

@@ -373,3 +373,49 @@ def dreamer_state_from_jax(state, seed=0, tile_cap=None):
         step=int(state.step),
         generator=torch.Generator().manual_seed(seed),
         tile_cap=tile_cap)
+
+
+# ---- the NeRF stack ------------------------------------------------------
+
+
+def nerf_leaves(params, seed=0, table_scale=0.5) -> dict:
+    """A Flax NeRF parameter tree as numpy leaves, moved off its init so
+    that a parity test exercises every part: biases jittered (`_jitter`),
+    a hash `table` redrawn uniform in +-`table_scale` (its init is +-1e-4,
+    which hides the encoding's arithmetic)."""
+    rs = np.random.RandomState(seed)
+
+    def move(tree):
+        out = {}
+        for k, v in tree.items():
+            if hasattr(v, "items"):
+                out[k] = move(v)
+            elif k == "table":
+                out[k] = rs.uniform(-table_scale, table_scale,
+                                    v.shape).astype(np.float32)
+            else:
+                out[k] = v
+        return out
+
+    return _jitter(move(flax_leaves(params)), rs)
+
+
+def jax_render_draws(key, rays, samples, importance=0) -> tuple:
+    """The unit uniforms `NerfVolumeRenderer.render_rays` of the JAX
+    package draws from `key`: (jitter [rays, samples], fine_u [rays,
+    importance] or None), as CPU tensors."""
+    k_coarse, k_fine = jax.random.split(key)
+    jitter = torch.from_numpy(np.array(
+        jax.random.uniform(k_coarse, (rays, samples)), np.float32))
+    fine = None
+    if importance:
+        fine = torch.from_numpy(np.array(
+            jax.random.uniform(k_fine, (rays, importance)), np.float32))
+    return jitter, fine
+
+
+def torch_camera_batch(cams):
+    """The port's CameraBatch holding a JAX CameraBatch's arrays."""
+    from humangaussian_torch.data.cameras import CameraBatch
+
+    return CameraBatch(*(torch.from_numpy(np.array(x)) for x in cams))

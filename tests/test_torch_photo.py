@@ -262,7 +262,8 @@ def test_launcher_end_to_end_on_the_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("override,error,match", [
     # the avatar system is ported: it asks for its SMPL-X file
     ("system.type=gaussiandreamer-system", KeyError, "smplx_path"),
-    ("system.type=dreamfusion-system", NotImplementedError, "item 21"),
+    # dreamfusion-system is ported: tests/test_torch_nerf_system.py runs it
+    # and holds its refusal of an unknown arch
     ("system.type=bogus", ValueError, "unknown system.type"),
     # co3d is ported: `data.dataroot` is the sequence, whose category
     # holds the annotations
