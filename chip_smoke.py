@@ -231,10 +231,42 @@ source, started together), writes the assets, then:
    ms per view; `export_implicit_volume` on phase 25's field at 64^3 with
    a 512^2 texture: the files written, the OBJ non-empty and inside the
    box, its seconds;
+27. `ControlNetGuidance`: seeded bfloat16 SD 1.5 `unet/` (`UNet2D(
+   SD15_CONFIG)`) and ControlNetModel files in diffusers layout, written and
+   read back through the launcher's loader, with phase 11's VAEConfig()
+   VAE, on the avatar's 8 training views at 1024^2 from phase 11's system
+   with their openpose skeleton images (512^2) and `dummy_encode_fn(77,
+   768)` prompts, differentiated to the render: finite loss and gradients,
+   launches exactly K1 1, K2 1, K3 / K3a once per norm of one UNet forward,
+   one ControlNet forward and one VAE encode (61 + 27 + 22 = 110), K5 / K5a
+   22, K4 0 (SD 1.5 keeps flash attention off); ms per call with its
+   backward, peak memory;
+28. `TetrahedraSDFGrid` (defaults: resolution 32, 393,216 triangle slots)
+   through `NVDiffRasterizer` at 256^2, forward and backward: finite,
+   non-zero gradients to sdf and deformation, the card against a CPU copy
+   (the winning face equal on all but 1e-3 of the pixels, elsewhere within
+   the renderer's limits), ms per view; `CustomMesh` on the SMPL-X
+   stand-in's template mesh at 512^2; `PatchRenderer` (patch 32,
+   downsample 4) at 256^2 over phase 25's full-width field (a fresh one at
+   its configuration under `--only`), card against CPU; no kernel launches;
+29. `GANVolumeRenderer(GANRendererConfig())` over the full-width field of
+   phase 25's configuration with `hybrid-rgb-latent-material` (11
+   features), 64^2 -> 256^2: each generator level with the generator and
+   discriminator losses differentiated (finite outputs and gradients to
+   the generator, the discriminator and the field), K3 / K3a and K5 / K5a
+   exactly once per GAN norm of the level's path (the discriminator's three
+   times); ms per render;
+30. `multihost_init` (NCCL at world size 1, torchrun's variables set by the
+   script) and `make_dp_train_step` on phase 11's system: one DP step
+   against `train_step` from copies of one state (loss within 2e-4
+   relative, means within 1e-5, max_radii2d and the generator's state
+   equal), launches exactly phase 11's; ms per DP step beside
+   `train_step`'s, in turns;
 and prints the `kernels` JSON line (all seven kernels, each with the
 launches of one `train_step` of phase 11, the main path, and
-`launches_deep_floyd_step` (phase 16, Perp-Neg off) and
-`launches_sample_cli` (phase 17); K1's row also
+`launches_deep_floyd_step` (phase 16, Perp-Neg off),
+`launches_sample_cli` (phase 17), `launches_controlnet_call` (phase 27)
+and `launches_dp_step` (phase 30); K1's row also
 carries `launches_serving_and_photo` (phases 4 to 6) and K2's
 `launches_photo` (phase 6); K1's and K2's rows also carry
 `ms_guidance_batch`, `bound_ms_guidance_batch` and
@@ -244,8 +276,8 @@ carries `launches_serving_and_photo` (phases 4 to 6) and K2's
 device JSON line. `--only GROUP[,GROUP]` (render, norm, attention,
 guidance (phases 11 and 15), sample, unet-backward, trainer, deep-floyd,
 sample-cli, sd-guidance, photo-data (phases 19 to 22), tools (phases 23
-and 24), nerf (phases 25 and 26)) runs some phase groups alone and prints
-no result lines.
+and 24), nerf (phases 25 and 26), controlnet (27), explicit (28), gan
+(29), dist (30)) runs some phase groups alone and prints no result lines.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Weights and data are random, made from fixed seeds.
@@ -730,7 +762,8 @@ def write_assets(tmp: str, seed: int = 0, n_avatar: int | None = None):
 
 PHASE_GROUPS = ("render", "norm", "attention", "guidance", "sample",
                 "unet-backward", "trainer", "deep-floyd", "sample-cli",
-                "sd-guidance", "photo-data", "tools", "nerf")
+                "sd-guidance", "photo-data", "tools", "nerf", "controlnet",
+                "explicit", "gan", "dist")
 AVATAR_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "avatar.yaml")
 PROMPT = "a person in a blue jacket"
@@ -2550,12 +2583,13 @@ def run(dev, only=()) -> int:
         rows.update(norm_phase(dev))
     if want("attention"):
         rows.update(attention_phase(dev))
-    if any(want(x) for x in ("guidance", "sample", "trainer", "deep-floyd",
-                             "sample-cli")):
+    avatar_groups = ("guidance", "sample", "controlnet", "dist")
+    if any(want(x) for x in avatar_groups + ("trainer", "deep-floyd",
+                                             "sample-cli")):
         overrides = write_prior_files(dev, tmp) + [
             f"system.smplx_path={assets[0]}"]
     unet = None
-    if want("guidance") or want("sample"):
+    if any(want(x) for x in avatar_groups):
         system = build_avatar_system(dev, overrides)
         if want("guidance"):
             counts, batch = train_step_phase(dev, system, assets)
@@ -2576,6 +2610,14 @@ def run(dev, only=()) -> int:
                         key + "_bound_visits"]
         if want("sample"):
             sample_phase(dev, system)
+        if want("controlnet"):
+            counts = controlnet_phase(dev, tmp, system, assets[0])
+            for name, row in rows.items():
+                row["launches_controlnet_call"] = counts[name]
+        if want("dist"):
+            counts = dist_phase(dev, system)
+            for name, row in rows.items():
+                row["launches_dp_step"] = counts[name]
         unet = system.guidance.unet
         del system
     if want("unet-backward"):
@@ -2591,13 +2633,19 @@ def run(dev, only=()) -> int:
             row["launches_sample_cli"] = cli_counts[name]
     if want("sd-guidance"):
         sd_guidance_phase(dev)
+    df_system = None
     if want("nerf"):
         df_counts, df_system = dreamfusion_phase(dev, tmp)
         neus_export_phase(dev, tmp, df_system)
-        del df_system
-        torch.cuda.empty_cache()
         for name, row in rows.items():
             row["launches_dreamfusion_step"] = df_counts[name]
+    if want("explicit"):
+        explicit_phase(dev, assets, df_system)
+    del df_system
+    torch.cuda.empty_cache()
+    if want("gan"):
+        gan_phase(dev)
+        torch.cuda.empty_cache()
     if want("deep-floyd"):
         if_counts = deep_floyd_phase(
             dev, tmp, [f"system.smplx_path={assets[0]}"])
@@ -4163,6 +4211,594 @@ def neus_export_phase(dev, tmp, system):
           f"{EXPORT_THRESHOLD}): {len(verts)} vertices, {n_faces} faces, "
           f"{export_s:.2f} s")
 
+
+# ---- slice 11: ControlNet SDS, explicit geometry, the GAN renderer, DP ----
+
+CN_TEXT = (77, 768)  # the SD 1.5 text encoder's stand-in width
+CN_REPS = 3  # timed ControlNet calls with their backward, after a warm-up
+CN_NORMS = 61 + 27 + 22  # UNet forward, ControlNet forward, VAE encode
+EXPLICIT_HW = 256  # the tetrahedral grid's NVDiffRasterizer view
+MESH_HW = 512  # CustomMesh on the SMPL-X stand-in
+PATCH_HW, PATCH_SIZE, PATCH_DOWNSAMPLE = 256, 32, 4
+GAN_HW = 256  # the GAN renderer's output; the NeRF renders GAN_HW / 4
+VIEW_REPS = 5  # timed views / renders, after a warm-up
+# card against CPU for the mesh rasterizer: the winning face may flip on
+# a few pixels where two faces' depths tie within rounding (FMA contraction
+# on the card); the rest within RENDER_TOL
+MESH_MISMATCH_FRACTION = 1e-3
+DP_LOSS_RTOL, DP_MEANS_TOL = 2e-4, 1e-5  # tests/test_torch_dist.py's
+DP_REPS = 3  # timed steps of each kind, in turns, after a warm-up of each
+
+
+def full_width_field(dev, n_features=3, seed=27):
+    """Phase 25's full-width field (DF_FULL_OVERRIDES: a 16 x 2^19 x 2 hash
+    grid from base 16, 64-neuron MLPs, 96 samples a ray, the diffuse
+    material and the neural environment map) as a NeRF renderer; with
+    `n_features` > 3, the hybrid rgb-latent material and a solid
+    background of that width instead (the GAN renderer's base)."""
+    from humangaussian_torch.nerf import background, geometry, material
+    from humangaussian_torch.nerf.encoding import HashGridConfig
+    from humangaussian_torch.nerf.renderer import (
+        NerfVolumeRenderer,
+        RendererConfig,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    geo = geometry.ImplicitVolume(geometry.ImplicitVolumeConfig(
+        hash_cfg=HashGridConfig(n_levels=16, log2_hashmap_size=19,
+                                base_resolution=16),
+        n_neurons=64, n_hidden_layers=1, n_feature_dims=n_features), dev, gen)
+    if n_features == 3:
+        mat = material.DiffuseWithPointLightMaterial()
+        bg = background.NeuralEnvironmentMapBackground(device=dev,
+                                                       generator=gen)
+    else:
+        mat = material.HybridRGBLatentMaterial()
+        bg = background.SolidColorBackground((1.0,) * n_features, device=dev)
+    return NerfVolumeRenderer(geo, mat, bg,
+                              RendererConfig(num_samples_per_ray=96))
+
+
+def write_controlnet_files(dev, tmp) -> tuple:
+    """Seeded bfloat16 SD 1.5 `unet/` (UNet2D(SD15_CONFIG)) and
+    ControlNetModel files in diffusers layout, read back through the
+    launcher's `load_state_dict_file` into fresh modules on the card."""
+    from humangaussian_torch.apps.launch import load_state_dict_file
+    from humangaussian_torch.guidance.controlnet import (
+        SD15_CONFIG,
+        ControlNet,
+        UNet2D,
+    )
+
+    t0 = time.perf_counter()
+    paths = {}
+    for name, fn, seed in (("unet", lambda: UNet2D(SD15_CONFIG), 27),
+                           ("controlnet", lambda: ControlNet(SD15_CONFIG),
+                            28)):
+        d = os.path.join(tmp, "sd15", name)
+        os.makedirs(d)
+        paths[name] = os.path.join(d, "diffusion_pytorch_model.bin")
+        sd = seeded_state_dict(fn, seed, dev)
+        if name == "controlnet":  # move the zero taps off zero
+            g = torch.Generator().manual_seed(seed)
+            sd = {k: (v.float() + 0.01 * torch.randn(v.shape, generator=g)
+                      ).to(torch.bfloat16)
+                  if k.startswith(("controlnet_down", "controlnet_mid",
+                                   "controlnet_cond_embedding.conv_out"))
+                  else v for k, v in sd.items()}
+        torch.save(sd, paths[name])
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        unet, net = UNet2D(SD15_CONFIG), ControlNet(SD15_CONFIG)
+    unet.load_state_dict(load_state_dict_file(paths["unet"]))
+    net.load_state_dict(load_state_dict_file(paths["controlnet"]))
+    unet.to(memory_format=torch.channels_last)
+    net.to(memory_format=torch.channels_last)
+    torch.cuda.synchronize()
+    print(f"  SD 1.5 unet/ and ControlNetModel files written in {write_s:.1f}"
+          f" s, loaded in {time.perf_counter() - t0:.1f} s")
+    return unet, net
+
+
+def controlnet_phase(dev, tmp, system, smplx_path) -> dict:
+    """Phase 27: ControlNetGuidance (SD 1.5 UNet and ControlNet from seeded
+    files, phase 11's VAEConfig() VAE) on the avatar's 8 views at SIZE^2
+    from phase 11's system, conditioned on their openpose skeletons (the
+    stand-in's openpose-style skeleton, as the launcher builds it without
+    texture_structure_joint), differentiated to the render. Returns the
+    launches of one call."""
+    from humangaussian_torch import kernels
+    from humangaussian_torch.guidance.controlnet import ControlNetGuidance
+    from humangaussian_torch.guidance.prompt import dummy_encode_fn
+    from humangaussian_torch.guidance.schedule import sd_eps_schedule
+    from humangaussian_torch.smplx.model import load_smplx_npz
+    from humangaussian_torch.smplx.pose_image import draw_openpose_pose
+    from humangaussian_torch.smplx.skeleton import Skeleton
+
+    print("phase 27: ControlNetGuidance (SD 1.5 + ControlNet, bf16) on the "
+          f"avatar's {system.camera_cfg.batch_size} views at "
+          f"{system.camera_cfg.height}^2 with openpose skeletons")
+    unet, net = write_controlnet_files(dev, tmp)
+    vae = system.guidance.vae
+    g = ControlNetGuidance(unet, net, vae, sd_eps_schedule(device=dev))
+    n_unet = sum(p.numel() for p in unet.parameters())
+    n_net = sum(p.numel() for p in net.parameters())
+    norms = (norms_in(unet), norms_in(net), norms_in(vae.encoder))
+    check(sum(norms) == CN_NORMS, f"norms {norms}, want 61 + 27 + 22")
+    want = launches(rasterize_fwd=1, rasterize_bwd=1,
+                    groupnorm_fwd_stats=sum(norms),
+                    groupnorm_fwd_apply=sum(norms),
+                    groupnorm_bwd_stats=norms[2], groupnorm_bwd_dx=norms[2])
+    state = system.init_state(0)
+    inputs = system.sample_step_inputs(state)
+    cams = inputs.cameras
+    b = cams.c2w.shape[0]
+    skel = Skeleton(style="openpose", apose=True).load_smplx(
+        load_smplx_npz(smplx_path)).scale(-10)
+    pose, _ = draw_openpose_pose(
+        torch.tensor(skel.points3d, dtype=torch.float32, device=dev),
+        cams.mvp_mtx, 512, 512, cams.azimuth.abs() > 120.0)
+    enc = dummy_encode_fn(*CN_TEXT)
+    text = torch.from_numpy(np.concatenate(
+        [enc([PROMPT])] * b + [enc([""])] * b)).to(dev)
+    t = torch.randint(20, 981, (b,), generator=state.generator, device=dev)
+
+    def call():
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in state.scene.params().items()}
+        out = system.render_batch(state.scene.replace_params(leaves), cams,
+                                  system.camera_cfg.height,
+                                  system.camera_cfg.width)
+        res = g(pose, out["image"], text, t, state.generator)
+        res["loss_sds"].backward()
+        return res, leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res, leaves = call()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = float(res["loss_sds"].detach())
+    check(math.isfinite(loss) and bool(torch.isfinite(res["grad"]).all()),
+          f"ControlNet loss {loss}")
+    for k, v in leaves.items():
+        check(v.grad is not None and bool(torch.isfinite(v.grad).all()),
+              f"ControlNet: d loss / d {k} not finite")
+    check(float(leaves["means"].grad.abs().max()) > 0,
+          "ControlNet: no gradient reached the render")
+    check(counts == want, f"ControlNet launches {counts}, want {want}")
+    times = []
+    for i in range(CN_REPS + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        if i:
+            times.append(start.elapsed_time(end))
+    print(f"  UNet2D {n_unet} parameters, ControlNet {n_net}; norms "
+          f"{' + '.join(map(str, norms))}; loss {loss:.6g}, grad norm "
+          f"{float(res['grad_norm']):.6g}, d loss / d means max "
+          f"{float(leaves['means'].grad.abs().max()):.3e}; render + call + "
+          f"backward {statistics.median(times):.3f} ms median over "
+          f"{CN_REPS} ({min(times):.3f}-{max(times):.3f}), CUDA events; "
+          f"peak {peak:.2f} GiB; launches {counts}")
+    del g, unet, net, res, leaves
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_views_agree(label, got, want):
+    """The mesh rasterizer's outputs on the card against the CPU's: the
+    winning face equal on all but MESH_MISMATCH_FRACTION of the pixels,
+    and there the outputs within RENDER_TOL of their max |value|."""
+    same = got["face"].cpu() == want["face"]
+    frac = 1.0 - float(same.float().mean())
+    check(frac <= MESH_MISMATCH_FRACTION,
+          f"{label}: the winning face differs on {frac:.2e} of the pixels")
+    worst = 0.0
+    for k in ("comp_rgb", "opacity", "depth", "comp_normal"):
+        g, w = got[k].detach().cpu()[same], want[k].detach()[same]
+        tol = RENDER_TOL.get(k, 1e-5) * max(float(w.abs().max()), 1e-6)
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+        check(err <= tol, f"{label}: {k} off by {err:.3e} (limit {tol:.3e})")
+        worst = max(worst, err / tol)
+    print(f"  {label}: card vs CPU, winning face differs on {frac:.2e} of "
+          f"the pixels, elsewhere within {worst:.3f} of the limits")
+    return worst
+
+
+def rasterize_faces(renderer, mvp):
+    """A render with the winning face index beside it (from the same
+    rasterization the renderer runs)."""
+    from humangaussian_torch.nerf import explicit
+
+    seen = {}
+    own = explicit.rasterize_mesh
+
+    def spy(*a, **k):
+        seen["out"] = own(*a, **k)
+        return seen["out"]
+
+    explicit.rasterize_mesh = spy
+    try:
+        out = renderer.render(mvp)
+    finally:
+        explicit.rasterize_mesh = own
+    out["face"] = seen["out"]["face"]
+    return out
+
+
+def explicit_phase(dev, assets, df_system=None):
+    """Phase 28: TetrahedraSDFGrid (defaults, resolution 32) through
+    NVDiffRasterizer at EXPLICIT_HW^2 forward and backward, card against
+    CPU; CustomMesh on the SMPL-X stand-in at MESH_HW^2; PatchRenderer over
+    phase 25's full-width field (or one built at its configuration)."""
+    import copy
+
+    from humangaussian_torch import kernels
+    from humangaussian_torch.core.camera import camera_from_c2w
+    from humangaussian_torch.nerf import background, explicit, material
+
+    print(f"phase 28: TetrahedraSDFGrid + NVDiffRasterizer at "
+          f"{EXPLICIT_HW}^2, CustomMesh at {MESH_HW}^2, PatchRenderer")
+    kernels.reset_launch_counts()
+    gen = torch.Generator().manual_seed(28)
+    geo = explicit.TetrahedraSDFGrid(explicit.TetSDFGridConfig(), dev, gen)
+    with torch.no_grad():  # a deformed, bumpy sphere
+        geo.deformation.normal_(0.0, 0.3, generator=torch.Generator(
+            device=dev).manual_seed(28))
+    r = explicit.NVDiffRasterizer(
+        geo, material.DiffuseWithPointLightMaterial(),
+        background.SolidColorBackground((0.2, 0.3, 0.4), device=dev),
+        EXPLICIT_HW, EXPLICIT_HW)
+    c2w = y_up_view(dev, 30.0)
+    cam = camera_from_c2w(c2w, torch.tensor(0.8, device=dev), EXPLICIT_HW,
+                          EXPLICIT_HW)
+    mvp = cam.full_proj
+    cot = torch.randn((EXPLICIT_HW, EXPLICIT_HW, 3), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    tris, mask = geo.isosurface()
+    out = rasterize_faces(r, mvp)
+    (out["comp_rgb"] * cot).sum().backward()
+    for name in ("sdf", "deformation"):
+        grad = getattr(geo, name).grad
+        check(grad is not None and bool(torch.isfinite(grad).all())
+              and float(grad.abs().max()) > 0,
+              f"tetrahedra grid: d loss / d {name} not finite or zero")
+    live = int(mask.sum())
+    cover = float(out["opacity"].mean())
+    check(live > 0 and 0.0 < cover < 1.0, f"{live} triangles, cover {cover}")
+    cpu_geo = copy.deepcopy(geo).to("cpu")
+    cpu_r = explicit.NVDiffRasterizer(
+        cpu_geo, material.DiffuseWithPointLightMaterial(),
+        background.SolidColorBackground((0.2, 0.3, 0.4), device="cpu"),
+        EXPLICIT_HW, EXPLICIT_HW)
+    with torch.no_grad():
+        want = rasterize_faces(cpu_r, mvp.cpu())
+    mesh_views_agree("tetrahedra grid view", out, want)
+
+    def fwd():
+        with torch.no_grad():
+            r.render(mvp)
+
+    def fwd_bwd():
+        geo.zero_grad(set_to_none=True)
+        (r.render(mvp)["comp_rgb"] * cot).sum().backward()
+
+    view_ms = cuda_ms(fwd, VIEW_REPS)
+    grad_ms = cuda_ms(fwd_bwd, VIEW_REPS)
+    print(f"  tetrahedra grid (resolution 32: {tris.shape[0]} triangle "
+          f"slots, {live} live), {cover:.3f} of the view covered; "
+          f"{view_ms:.3f} ms a view, {grad_ms:.3f} ms with the backward")
+    del geo, r, cpu_geo, cpu_r, out, want
+
+    # CustomMesh on the stand-in's template mesh, centred and scaled into
+    # the unit box
+    d = np.load(assets[0])
+    verts = d["v_template"].astype(np.float32)
+    verts = (verts - verts.mean(0)) / np.abs(verts - verts.mean(0)).max() \
+        * 0.9
+    mesh = explicit.CustomMesh(verts, d["f"].astype(np.int64),
+                               explicit.CustomMeshConfig(), dev, gen)
+    mr = explicit.NVDiffRasterizer(
+        mesh, material.DiffuseWithPointLightMaterial(),
+        background.SolidColorBackground((0.0, 0.0, 0.0), device=dev),
+        MESH_HW, MESH_HW)
+    mvp = camera_from_c2w(y_up_view(dev), torch.tensor(0.8, device=dev),
+                          MESH_HW, MESH_HW).full_proj
+    with torch.no_grad():
+        out = mr.render(mvp, camera_position=y_up_view(dev)[:3, 3],
+                        light_positions=torch.tensor([1.0, 2.0, 3.0],
+                                                     device=dev))
+    cover = float(out["opacity"].mean())
+    check(bool(torch.isfinite(out["comp_rgb"]).all()) and 0.0 < cover < 1.0,
+          f"CustomMesh view: cover {cover}")
+    mesh_ms = cuda_ms(lambda: mr.render(mvp), VIEW_REPS)
+    print(f"  CustomMesh ({verts.shape[0]} vertices, {d['f'].shape[0]} "
+          f"faces) at {MESH_HW}^2: {cover:.3f} covered, {mesh_ms:.3f} ms a "
+          f"view (no grad)")
+    del mesh, mr
+
+    # PatchRenderer over the full-width field
+    base = (df_system.renderer if df_system is not None
+            else full_width_field(dev))
+    pr = explicit.PatchRenderer(base, PATCH_SIZE, PATCH_DOWNSAMPLE)
+    c2w = y_up_view(dev, 15.0)
+    with torch.no_grad():
+        out = pr.render_image(c2w, 0.8, PATCH_HW, PATCH_HW,
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(28))
+        y0, x0 = out["patch_origin"]
+        check(out["global"]["comp_rgb"].shape == (
+            PATCH_HW // PATCH_DOWNSAMPLE, PATCH_HW // PATCH_DOWNSAMPLE, 3)
+            and out["patch"]["comp_rgb"].shape == (PATCH_SIZE, PATCH_SIZE, 3)
+            and all(bool(torch.isfinite(v).all()) for part in
+                    ("global", "patch") for v in out[part].values()),
+            "PatchRenderer outputs")
+        fixed = pr.render_image(c2w, 0.8, PATCH_HW, PATCH_HW,
+                                patch_origin=(y0, x0))
+        field = copy.deepcopy(base.field).to("cpu")
+        from humangaussian_torch.nerf.renderer import NerfVolumeRenderer
+
+        cpu = explicit.PatchRenderer(NerfVolumeRenderer(
+            field["geometry"], field["material"], field["background"],
+            base.cfg), PATCH_SIZE, PATCH_DOWNSAMPLE)
+        want = cpu.render_image(c2w.cpu(), 0.8, PATCH_HW, PATCH_HW,
+                                patch_origin=(y0, x0))
+    # the patch is a window of the image whose scale the global view
+    # gives: each output's limit is RENDER_TOL of the larger of the two
+    # parts' max |value|
+    worst = 0.0
+    for part in ("global", "patch"):
+        tol = {k: RENDER_TOL[k] * max(
+            float(want["global"][k].abs().max()),
+            float(want["patch"][k].abs().max()))
+            / max(float(want[part][k].abs().max()), 1e-30)
+            for k in RENDER_TOL if k in want[part]}
+        worst = max(worst, renders_agree(f"patch renderer {part}",
+                                         fixed[part], want[part], tol))
+    patch_ms = cuda_ms(lambda: pr.render_image(
+        c2w, 0.8, PATCH_HW, PATCH_HW, generator=torch.Generator(
+            device=dev).manual_seed(28)), VIEW_REPS)
+    print(f"  PatchRenderer ({'phase 25' if df_system else 'a fresh'} "
+          f"full-width field, {PATCH_HW}^2, patch {PATCH_SIZE} at "
+          f"({y0}, {x0}), global 1/{PATCH_DOWNSAMPLE}): card vs CPU within "
+          f"{worst:.3f} of the limits, {patch_ms:.3f} ms a render (no grad)")
+    counts = kernels.launch_counts()
+    check(set(counts.values()) == {0}, f"explicit phase launched {counts}")
+
+
+def gan_norm_launches(r, level: int) -> dict:
+    """The launches of one GAN render at `level` with the generator and
+    discriminator losses and their backwards, from the module trees: every
+    norm of the generator and the global encoder (and at level 2 the local
+    encoder) once, the discriminator's three times (the fake for the
+    generator loss, the real and the fake for its own), forward and
+    backward alike."""
+    n = (norms_in(r.generator) + norms_in(r.global_encoder)
+         + 3 * norms_in(r.discriminator)
+         + (norms_in(r.local_encoder) if level == 2 else 0))
+    return launches(groupnorm_fwd_stats=n, groupnorm_fwd_apply=n,
+                    groupnorm_bwd_stats=n, groupnorm_bwd_dx=n)
+
+
+def gan_phase(dev):
+    """Phase 29: GANVolumeRenderer(GANRendererConfig()) over the full-width
+    field of phase 25's configuration with the hybrid rgb-latent material
+    (3 + 2 x 4 features), GAN_HW / 4 -> GAN_HW: each generator level with
+    the generator and discriminator losses differentiated."""
+    from humangaussian_torch import kernels
+    from humangaussian_torch.nerf.gan import (
+        GANRendererConfig,
+        GANVolumeRenderer,
+        discriminator_loss,
+        generator_loss,
+    )
+
+    print(f"phase 29: GANVolumeRenderer {GAN_HW // 4}^2 -> {GAN_HW}^2 over "
+          "the full-width field (hybrid-rgb-latent-material)")
+    cfg = GANRendererConfig()
+    base = full_width_field(dev, 3 + 2 * cfg.z_channels, seed=29)
+    torch.manual_seed(29)
+    r = GANVolumeRenderer(base, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    gt = torch.rand((GAN_HW, GAN_HW, 3), generator=gen, device=dev)
+    c2w = y_up_view(dev, 45.0)
+    params = list(r.nets.parameters()) + list(base.field.parameters())
+    for level in (0, 1, 2):
+        for p in params:
+            p.grad = None
+        kernels.reset_launch_counts()
+        out = r.render_image(c2w, 0.8, GAN_HW, GAN_HW, generator=gen,
+                             gt_rgb=gt, multi_level_guidance=True,
+                             level=level)
+        fake = out["comp_gan_rgb"][None]
+        g_loss = generator_loss(r.discriminator, fake)
+        g_loss.backward()
+        d_loss = discriminator_loss(r.discriminator, gt[None], fake)
+        d_loss.backward()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check(out["generator_level"] == level
+              and tuple(out["comp_gan_rgb"].shape) == (GAN_HW, GAN_HW, 3)
+              and all(bool(torch.isfinite(out[k]).all()) for k in
+                      ("comp_gan_rgb", "comp_rgb", "comp_lr_rgb",
+                       "posterior_kl"))
+              and math.isfinite(float(g_loss.detach()))
+              and math.isfinite(float(d_loss.detach())),
+              f"GAN level {level} outputs")
+        for name, net in (("generator", r.generator),
+                          ("discriminator", r.discriminator),
+                          ("base field", base.field)):
+            grads = [p.grad for p in net.parameters() if p.grad is not None]
+            check(grads and all(bool(torch.isfinite(x).all())
+                                for x in grads)
+                  and max(float(x.abs().max()) for x in grads) > 0,
+                  f"GAN level {level}: {name} gradients")
+        want = gan_norm_launches(r, level)
+        check(counts == want, f"GAN level {level} launches {counts}, want "
+              f"{want}")
+        print(f"  level {level}: generator loss {float(g_loss.detach()):.6g}, "
+              f"discriminator loss {float(d_loss.detach()):.6g}, posterior KL "
+              f"{float(out['posterior_kl'].detach()):.6g}; launches "
+              f"{counts}")
+
+    def render():
+        with torch.no_grad():
+            r.render_image(c2w, 0.8, GAN_HW, GAN_HW)
+
+    ms = cuda_ms(render, VIEW_REPS)
+    print(f"  {norms_in(r.nets)} GroupNorms in the four networks; "
+          f"{ms:.3f} ms a render (mode path, no grad)")
+    del r, base
+
+
+def clone_state(state):
+    """A deep copy of a TrainState (the step updates parameters and
+    moments in place), the generator's state included."""
+    def c(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, dict):
+            return {k: c(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*[c(v) for v in x])
+        return x
+
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    return c(state._replace(generator=None))._replace(generator=gen)
+
+
+@contextlib.contextmanager
+def deterministic_step():
+    """Inside, a train_step computes the same bits every time: the
+    GroupNorm and attention wrappers and K2's wrapper take their plain
+    versions (torch reductions, no atomics) and torch's deterministic
+    algorithms are on (`index_add_` sorted, cuDNN's deterministic
+    convolutions). Only phase 30's comparison uses it."""
+    from humangaussian_torch.ops import rasterize_tiled
+
+    saved = rasterize_tiled.composite_backward
+    was = torch.are_deterministic_algorithms_enabled()
+    rasterize_tiled.composite_backward = \
+        rasterize_tiled.composite_backward_plain
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with plain_versions():
+            yield
+    finally:
+        rasterize_tiled.composite_backward = saved
+        torch.use_deterministic_algorithms(was)
+
+
+def step_diffs(a, b) -> tuple:
+    """(relative loss difference, max |means difference|, max_radii2d
+    equal, generator states equal) of two (state, metrics) step results."""
+    (sa, ma), (sb, mb) = a, b
+    la, lb = float(ma["loss"]), float(mb["loss"])
+    return (abs(la - lb) / abs(lb),
+            float((sa.scene.means - sb.scene.means).abs().max()),
+            torch.equal(sa.densify.max_radii2d, sb.densify.max_radii2d),
+            torch.equal(sa.generator.get_state(), sb.generator.get_state()))
+
+
+def dist_phase(dev, system) -> dict:
+    """Phase 30: `multihost_init` (NCCL, world size 1, torchrun's
+    variables set here) and `make_dp_train_step` on phase 11's system
+    against `train_step` from copies of one state: on the path (the
+    kernels) and in `deterministic_step`, where the DP step is held to
+    tests/test_torch_dist.py's limits. Returns the launches of one DP step
+    on the path."""
+    import socket
+
+    import torch.distributed as dist
+
+    from humangaussian_torch import kernels
+    from humangaussian_torch.dist.parallel import (
+        make_dp_train_step,
+        multihost_init,
+    )
+
+    print("phase 30: make_dp_train_step over NCCL at world size 1 on phase "
+          "11's system")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    for k, v in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port)),
+                 ("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+        os.environ.setdefault(k, v)
+    try:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        check(multihost_init() and dist.get_backend() == backend
+              and dist.get_world_size() == 1, f"{backend} process group")
+        dp_step = make_dp_train_step(system)
+        state0 = system.init_state(0)
+
+        # the path: K1 to K5 (atomics in K2 / K3 / K5: not bit-equal)
+        ref = system.train_step(clone_state(state0))
+        again = system.train_step(clone_state(state0))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        dp = dp_step(clone_state(state0))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = dual_branch_step_launches(system.guidance)
+        check(counts == want, f"DP step launches {counts}, want {want}")
+        check(all(math.isfinite(float(v)) for v in dp[1].values()),
+              "DP metrics not finite")
+        d_dp, d_again = step_diffs(dp, ref), step_diffs(again, ref)
+        check(d_dp[2] and d_dp[3], "DP max_radii2d or generator state")
+        print(f"  on the kernels: DP step against train_step: loss "
+              f"{float(dp[1]['loss']):.9g} vs {float(ref[1]['loss']):.9g} "
+              f"(relative {d_dp[0]:.3e}), means within {d_dp[1]:.3e}; "
+              f"train_step against itself: relative {d_again[0]:.3e}, means "
+              f"within {d_again[1]:.3e}; max_radii2d and the generator "
+              f"equal; launches {counts}")
+
+        # the deterministic configuration: the limits of test_torch_dist.py
+        with deterministic_step():
+            ref = system.train_step(clone_state(state0))
+            again = system.train_step(clone_state(state0))
+            dp = dp_step(clone_state(state0))
+        d_dp, d_again = step_diffs(dp, ref), step_diffs(again, ref)
+        print(f"  deterministic (plain GroupNorm, attention and K2 "
+              f"versions, torch's deterministic algorithms): DP against "
+              f"train_step: loss relative {d_dp[0]:.3e}, means within "
+              f"{d_dp[1]:.3e}; train_step against itself: loss relative "
+              f"{d_again[0]:.3e}, means within {d_again[1]:.3e}")
+        check(d_dp[0] <= DP_LOSS_RTOL, f"DP loss off by {d_dp[0]:.3e}")
+        check(d_dp[1] <= DP_MEANS_TOL, f"DP means off by {d_dp[1]:.3e}")
+        check(d_dp[2] and d_dp[3], "DP max_radii2d or generator state")
+
+        times = {"dp": [], "ref": []}
+        st = {"dp": clone_state(state0), "ref": clone_state(state0)}
+        fns = {"dp": dp_step, "ref": system.train_step}
+        for kind in ("dp", "ref"):
+            st[kind], _ = fns[kind](st[kind])
+        for kind in ("ref", "dp") * DP_REPS:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            st[kind], _ = fns[kind](st[kind])
+            end.record()
+            end.synchronize()
+            times[kind].append(start.elapsed_time(end))
+        print(f"  ms per step (median of {DP_REPS}, in turns, CUDA events): "
+              f"DP {statistics.median(times['dp']):.3f} "
+              f"({min(times['dp']):.3f}-{max(times['dp']):.3f}), train_step "
+              f"{statistics.median(times['ref']):.3f} "
+              f"({min(times['ref']):.3f}-{max(times['ref']):.3f})")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return counts
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -7,8 +7,9 @@ mapping or a NamedTuple of array-likes, into the port's GaussianScene;
 `adam_state_from_numpy`, `densify_state_from_numpy` and
 `photo_state_from_numpy` for the training state (JAX `AdamState`,
 `DensifyState`, `PhotoTrainState` given as numpy leaves); the
-`*_from_flax` functions carry Flax parameter trees (the UNet, the VAE,
-LPIPS, the NeRF modules) into the port's state dicts. The parity tests
+`*_from_flax` functions carry Flax parameter trees (the UNet, the
+ControlNet, the VAE, LPIPS, the NeRF modules, the tetrahedral grid and
+the custom mesh, the GAN networks) into the port's state dicts. The parity tests
 use them so that the two packages compute on identical state. Nothing
 here imports JAX: arrays are read through `numpy.asarray`.
 """
@@ -205,6 +206,38 @@ def unet_state_dict_from_flax(leaves: dict) -> dict:
     return sd
 
 
+def controlnet_state_dict_from_flax(leaves: dict) -> dict:
+    """A Flax `ControlNet` parameter tree (numpy leaves) as the port's
+    diffusers-named `ControlNet` state dict: the trunk (conv_in,
+    time_embedding, down_block_i, mid_block) as `unet_state_dict_from_flax`
+    names it, `cond_conv_in` / `cond_conv_out` as
+    `controlnet_cond_embedding.conv_in` / `conv_out`, `cond_block_{i}a` /
+    `b` as `controlnet_cond_embedding.blocks.{2i}` / `{2i + 1}`,
+    `controlnet_down_block_{i}` as `controlnet_down_blocks.{i}`. (The
+    embedding's shapes carry over where consecutive embedding widths are
+    equal: guidance/controlnet.py.)"""
+    params = _params(leaves)
+    trunk, sd = {}, {}
+    for top, sub in params.items():
+        m = re.fullmatch(r"cond_block_(\d+)([ab])", top)
+        if m:
+            name = ("controlnet_cond_embedding.blocks."
+                    f"{2 * int(m.group(1)) + (m.group(2) == 'b')}")
+        elif top in ("cond_conv_in", "cond_conv_out"):
+            name = f"controlnet_cond_embedding.{top[5:]}"
+        elif top.startswith("controlnet_down_block_"):
+            name = f"controlnet_down_blocks.{top[22:]}"
+        elif top == "controlnet_mid_block":
+            name = top
+        else:
+            trunk[top] = sub
+            continue
+        for leaf, value in sub.items():
+            sd[f"{name}.{_LEAF_NAMES[leaf]}"] = _torch_leaf(leaf, value)
+    sd.update(unet_state_dict_from_flax(trunk))
+    return sd
+
+
 def vae_state_dict_from_flax(leaves: dict) -> dict:
     """A Flax `AutoencoderKL` parameter tree (numpy leaves) as a
     diffusers-named state dict of float32 tensors."""
@@ -267,6 +300,91 @@ def nerf_state_dict_from_flax(leaves: dict) -> dict:
         if names[-1] == "kernel":
             names[-1] = "weight"
         sd[".".join(names)] = _torch_leaf(path[-1], value)
+    return sd
+
+
+# TetrahedraSDFGrid's tree ({sdf, deformation, encoding: {table},
+# feature_network: {hidden_i, out}}) and CustomMesh's ({encoding,
+# feature_network}) carry over by the same rules
+tet_sdf_state_dict_from_flax = nerf_state_dict_from_flax
+custom_mesh_state_dict_from_flax = nerf_state_dict_from_flax
+
+# Flax's automatic submodule names in the GAN networks -> the port's
+_GRES_NAMES = {"GroupNorm_0": "norm1", "Conv_0": "conv1",
+               "Dense_0": "temb_proj", "GroupNorm_1": "norm2",
+               "Conv_1": "conv2", "Conv_2": "nin_shortcut"}
+_BNECK_NAMES = {"Conv_0": "expand", "GroupNorm_0": "norm_expand",
+                "Conv_1": "depthwise", "GroupNorm_1": "norm_depthwise",
+                "Dense_0": "se_reduce", "Dense_1": "se_expand",
+                "Conv_2": "project", "GroupNorm_2": "norm_project"}
+_GLOBAL_NAMES = {"Conv_0": "conv_stem", "GroupNorm_0": "norm_stem",
+                 "Conv_1": "conv_head", "GroupNorm_1": "norm_head",
+                 "Dense_0": "fc1", "Dense_1": "fc2"}
+
+
+def _gan_names(kind: str, tree: dict) -> dict:
+    """Flax name of each direct submodule of a `kind` network -> the
+    port's attribute path."""
+    convs = sorted((k for k in tree if k.startswith("Conv_")),
+                   key=lambda k: int(k[5:]))
+    names = {}
+    for key in tree:
+        idx = int(key.rsplit("_", 1)[1])
+        if kind in ("generator", "local_encoder"):
+            if key.startswith("GResBlock_"):
+                names[key] = f"blocks.{idx}"
+            elif key == "GroupNorm_0":
+                names[key] = "norm_out"
+            elif key == convs[0]:
+                names[key] = "conv_in"
+            elif key == convs[-1]:
+                names[key] = "conv_out"
+            else:
+                names[key] = f"resamples.{idx - 1}"
+        elif kind == "global_encoder":
+            names[key] = (f"blocks.{idx}" if key.startswith("_Inverted")
+                          else _GLOBAL_NAMES[key])
+        elif kind == "discriminator":
+            if key.startswith("GroupNorm_"):
+                names[key] = f"norms.{idx}"
+            elif key == convs[0]:
+                names[key] = "conv_in"
+            elif key == convs[-1]:
+                names[key] = "conv_out"
+            else:
+                names[key] = f"convs.{idx - 1}"
+        else:
+            raise KeyError(f"unknown GAN network {kind!r}")
+    return names
+
+
+def gan_state_dict_from_flax(leaves: dict, kind: str | None = None) -> dict:
+    """The GAN networks' Flax trees (numpy leaves) as the port's state
+    dict: {generator, local_encoder, global_encoder, discriminator} trees
+    (as `GANVolumeRenderer.init_params` returns them, "base" ignored) for
+    `GANVolumeRenderer.nets`, or one network's tree with `kind` naming it
+    for that module. Flax's automatic names (`Conv_i`, `GroupNorm_i`,
+    `Dense_i`, `GResBlock_i`, `_InvertedResidual_i`) map to the port's
+    by their order of creation."""
+    if kind is None:
+        sd = {}
+        for name in ("generator", "local_encoder", "global_encoder",
+                     "discriminator"):
+            sd.update({f"{name}.{k}": v for k, v in gan_state_dict_from_flax(
+                leaves[name], name).items()})
+        return sd
+    tree = _params(leaves)
+    sd = {}
+    for key, name in _gan_names(kind, tree).items():
+        inner = {"GResBlock": _GRES_NAMES, "_InvertedResidual": _BNECK_NAMES}
+        sub_map = inner.get(key.rsplit("_", 1)[0])
+        for path, value in _flatten(tree[key]):
+            parts = [name]
+            if sub_map is not None:
+                parts.append(sub_map[path[0]])
+                path = path[1:]
+            parts.append(_LEAF_NAMES[path[-1]])
+            sd[".".join(parts)] = _torch_leaf(path[-1], value)
     return sd
 
 

@@ -178,6 +178,13 @@ class DeepFloydSystemGuidance:
     def device(self) -> torch.device:
         return self.df.device
 
+    def step_draws(self, b: int, generator=None) -> dict:
+        """The draw `__call__` makes for a batch of `b` (`noise`), as its
+        keyword argument (dist/parallel.py)."""
+        s = self.df.cfg.image_size
+        return {"noise": torch.randn((b, s, s, 3), generator=generator,
+                                     device=self.device)}
+
     def __call__(self, pose_image, rgb, depth, text_embeddings, t,
                  generator=None, grad_clip_val=None, elevation=None,
                  azimuth=None, camera_distances=None, noise=None):

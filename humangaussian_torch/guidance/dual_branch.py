@@ -35,8 +35,9 @@ Noise: every draw comes from a `torch.Generator` in a fixed order or is
 passed in (`noise=`, `depth_noise=`, `latent_eps=`), so a test can inject
 the reference's draws. This replaces the reference's `per_sample_normal`,
 which folds each sample's id into the key so that its draws do not depend
-on how a batch is sharded: a torch generator cannot replay JAX's keys, and
-the port's step runs unsharded.
+on how a batch is sharded: a torch generator cannot replay JAX's keys. The
+data-parallel step (dist/parallel.py) draws the whole batch's noise with
+`step_draws` and hands each rank its rows instead.
 
 Layout: images are `[B, H, W, 3]` in [0, 1], latents and `grad`
 `[B, h, w, C]`, as in the reference; the VAE and the UNet turn them
@@ -73,14 +74,16 @@ def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float):
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
 
 
-def resize_bilinear(x, size: int):
-    """[B, H, W, C] -> [B, size, size, C], bilinear with half-pixel centres
-    and, when shrinking, the triangle filter widened by the scale
-    (anti-aliasing), as `jax.image.resize(..., "bilinear")` does."""
-    if x.shape[1] == size and x.shape[2] == size:
+def resize_bilinear(x, size):
+    """[B, H, W, C] -> [B, size, size, C] (or [B, h, w, C] for `size` (h,
+    w)), bilinear with half-pixel centres and, when shrinking, the triangle
+    filter widened by the scale (anti-aliasing), as `jax.image.resize(...,
+    "bilinear")` does."""
+    hw = (size, size) if isinstance(size, int) else tuple(size)
+    if tuple(x.shape[1:3]) == hw:
         return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size),
-                      mode="bilinear", align_corners=False, antialias=True)
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=hw, mode="bilinear",
+                      align_corners=False, antialias=True)
     return y.permute(0, 2, 3, 1)
 
 
@@ -348,6 +351,24 @@ class DualBranchGuidance:
             (depth_latents - RGB_MEAN) / RGB_STD * DEPTH_STD + DEPTH_MEAN
         )
         return self.decode_latents(latents), self.decode_latents(depth_out)
+
+    def step_draws(self, b: int, generator=None) -> dict:
+        """The normal draws `__call__` makes for a batch of `b` from
+        `generator`, in its order, as the keyword arguments that replace
+        them ({latent_eps, noise, depth_noise}): what the data-parallel
+        step draws for the whole batch before it hands each rank its
+        rows."""
+        c = self.cfg
+        nb = self.branch_num
+        down = 2 ** (len(self.vae.cfg.block_out_channels) - 1)
+        shape = (b, c.image_size // down, c.image_size // down,
+                 self.vae.cfg.latent_channels)
+        keys = ["rgb", "depth", "pose"] + [f"depth{i}" for i in range(1, nb)]
+        eps = {key: self._normal(shape, generator) for key in keys}
+        noise = self._normal(shape, generator)
+        dnoise = [self._normal(shape, generator) for _ in range(nb)]
+        return {"latent_eps": eps, "noise": noise,
+                "depth_noise": dnoise[0] if nb == 1 else dnoise}
 
     # ---- the public step ---------------------------------------------------
     def __call__(self, pose_image, rgb, depth, text_embeddings, t,

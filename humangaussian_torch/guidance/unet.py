@@ -12,7 +12,10 @@ Port of humangaussian_tpu/guidance/unet.py: a Stable-Diffusion-2-base UNet
 - the branch's last up block(s) run on a copy of the shared feature with
   the branch's own skip stack (its stem skips, then the trunk's);
 - size micro-conditioning: 6 ids (original H x W, crop, target H x W)
-  through a 256-wide sinusoid and an MLP, added to the time embedding;
+  through a 256-wide sinusoid and an MLP, added to the time embedding
+  (`num_time_ids=0` builds no `add_embedding` and takes the time_ids
+  argument for nothing; the JAX module cannot initialize a zero-width
+  Dense, so no JAX configuration uses it);
 - the forward takes two 8-channel inputs (4 noisy latent + 4 pose latent
   channels each) and returns the channel-concat of the rgb and the depth
   prediction.
@@ -25,6 +28,8 @@ channel-concat of the stems). `SingleUNet` is the plain diffusers
 UNet2DConditionModel (no branch, no size micro-conditioning), with
 `encoder_hid_proj` when `encoder_hid_dim` is set (DeepFloyd IF's T5 width):
 the backbone of guidance/stable_diffusion.py and guidance/deep_floyd.py.
+`use_linear_projection` off gives SD 1.5's transformer projections, 1 x 1
+convolutions (guidance/controlnet.py).
 
 Kernels: every GroupNorm is `GroupNormAct` (ops/groupnorm.py, kernels K3
 and K3a forward, K5 backward) and self-attention with `flash_attention` on and a token count that is a
@@ -82,6 +87,7 @@ class UNetConfig:
     copy_first_n_block: int = 1
     copy_last_n_block: int = 1
     fusion: str = "avg"
+    use_linear_projection: bool = True  # False: SD 1.5's 1 x 1 convolutions
     flash_attention: bool = False  # kernel K4 for self-attention
     dtype: torch.dtype = torch.bfloat16
 
@@ -237,14 +243,23 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """Linear input and output projections (SD2's
-    `use_linear_projection`; the 1 x 1 convolution form is not ported)."""
+    """The norm, the input projection, one transformer block and the output
+    projection, with the residual. The projections are linear layers
+    (SD2's `use_linear_projection`, weights [C, C]) or, with
+    `use_linear_projection` off, 1 x 1 convolutions (SD 1.5, weights
+    [C, C, 1, 1]), as diffusers builds them."""
 
-    def __init__(self, dim, context_dim, heads, groups, use_flash=False):
+    def __init__(self, dim, context_dim, heads, groups, use_flash=False,
+                 use_linear_projection=True):
         super().__init__()
+        self.use_linear_projection = use_linear_projection
         self.norm = GroupNormAct(groups, dim, eps=1e-6)
-        self.proj_in = nn.Linear(dim, dim)
-        self.proj_out = nn.Linear(dim, dim)
+        if use_linear_projection:
+            self.proj_in = nn.Linear(dim, dim)
+            self.proj_out = nn.Linear(dim, dim)
+        else:
+            self.proj_in = nn.Conv2d(dim, dim, 1)
+            self.proj_out = nn.Conv2d(dim, dim, 1)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(dim, context_dim, heads, use_flash)]
         )
@@ -252,9 +267,18 @@ class Transformer2DModel(nn.Module):
     def forward(self, x, context):
         b, c, hh, ww = x.shape
         res = x
-        h = self.norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
-        h = self.transformer_blocks[0](self.proj_in(h), context)
-        h = self.proj_out(h).reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+        h = self.norm(x)
+        if not self.use_linear_projection:
+            h = self.proj_in(h)
+        h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, c)
+        if self.use_linear_projection:
+            h = self.proj_in(h)
+        h = self.transformer_blocks[0](h, context)
+        if self.use_linear_projection:
+            h = self.proj_out(h)
+        h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+        if not self.use_linear_projection:
+            h = self.proj_out(h)
         return h + res
 
 
@@ -344,7 +368,8 @@ class MidBlock(nn.Module):
 
 def _transformer(ch, heads, cfg: UNetConfig):
     return Transformer2DModel(ch, cfg.cross_attention_dim, heads,
-                              cfg.norm_num_groups, cfg.flash_attention)
+                              cfg.norm_num_groups, cfg.flash_attention,
+                              cfg.use_linear_projection)
 
 
 def cast_weights(module: nn.Module, dtype: torch.dtype,
@@ -438,10 +463,14 @@ class SingleUNet(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.conv_in.weight.dtype
 
-    def forward(self, sample, timesteps, encoder_hidden_states):
+    def forward(self, sample, timesteps, encoder_hidden_states,
+                down_residuals=None, mid_residual=None):
         """sample [B, h, w, in_channels], timesteps [B],
         encoder_hidden_states [B, L, encoder_hid_dim or
-        cross_attention_dim] -> [B, h, w, out_channels] float32."""
+        cross_attention_dim] -> [B, h, w, out_channels] float32.
+        `down_residuals` (one [B, h_i, w_i, C_i] per skip, conv_in's
+        first) and `mid_residual` are added to the skips and to the mid
+        block's output (ControlNet injection, guidance/controlnet.py)."""
         cfg = self.cfg
         dtype = self.dtype
         emb = self.time_embedding(sinusoidal_embedding(
@@ -455,6 +484,14 @@ class SingleUNet(nn.Module):
             h, rs = blk(h, emb, context)
             res += rs
         h = self.mid_block(h, emb, context)
+        if down_residuals is not None:
+            if len(down_residuals) != len(res):
+                raise ValueError(f"{len(down_residuals)} down residuals for "
+                                 f"{len(res)} skips")
+            res = [r + d.permute(0, 3, 1, 2).to(dtype)
+                   for r, d in zip(res, down_residuals)]
+        if mid_residual is not None:
+            h = h + mid_residual.permute(0, 3, 1, 2).to(dtype)
         for blk in self.up_blocks:
             h = blk(h, res, emb, context)
         out = self.conv_out(self.conv_norm_out(h)).float()
@@ -486,7 +523,8 @@ class DualBranchUNet(nn.Module):
         )
         self.time_embedding = TimestepEmbedding(chs[0], temb_dim)
         self.add_embedding = TimestepEmbedding(
-            cfg.addition_time_embed_dim * cfg.num_time_ids, temb_dim)
+            cfg.addition_time_embed_dim * cfg.num_time_ids, temb_dim
+        ) if cfg.num_time_ids else None
         if cfg.fusion == "learn":
             fused = chs[cfg.copy_first_n_block - 1]
             self.fusion_conv = nn.Conv2d((1 + bn) * fused, fused, 3,
@@ -539,10 +577,11 @@ class DualBranchUNet(nn.Module):
 
         emb = self.time_embedding(sinusoidal_embedding(
             timesteps, cfg.block_out_channels[0]).to(dtype))
-        size_emb = sinusoidal_embedding(
-            time_ids.reshape(-1), cfg.addition_time_embed_dim
-        ).reshape(b, cfg.num_time_ids * cfg.addition_time_embed_dim)
-        emb = emb + self.add_embedding(size_emb.to(dtype))
+        if self.add_embedding is not None:
+            size_emb = sinusoidal_embedding(
+                time_ids.reshape(-1), cfg.addition_time_embed_dim
+            ).reshape(b, cfg.num_time_ids * cfg.addition_time_embed_dim)
+            emb = emb + self.add_embedding(size_emb.to(dtype))
         context = encoder_hidden_states.to(dtype)
 
         h = self.conv_in(_stem(sample, dtype))

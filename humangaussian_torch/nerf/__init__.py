@@ -9,12 +9,10 @@ background and system components (port of humangaussian_tpu/nerf).
 - the backgrounds and materials (`background.py`, `material.py`);
 - dreamfusion-system tying them to the SD guidance (`system.py`);
 - the mesh exporter with texture baking (`exporter.py`);
-- triangle-mesh rasterization (`explicit.py`: `rasterize_mesh`,
-  `face_normals`).
-
-Waiting (ROADMAP queue 1 item 21b): the rest of `nerf/explicit.py`
-(tetrahedral SDF grid, custom mesh, rasterizer renderers) and
-`nerf/gan.py`.
+- the explicit geometries and mesh renderers (`explicit.py`:
+  tetrahedra-sdf-grid with marching tets, custom-mesh, nvdiff-rasterizer,
+  patch-renderer, `rasterize_mesh`);
+- the GAN renderer and its networks (`gan.py`: gan-volume-renderer).
 """
 from humangaussian_torch.nerf.background import (
     NeuralEnvironmentMapBackground,

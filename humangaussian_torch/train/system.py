@@ -43,8 +43,11 @@ by the live scene; `GaussianDreamerConfig` has no `remat_render` field,
 and the launcher's `_take` drops it. `guidance_eval_snapshot` draws from
 a generator of its own (seeded from the host step unless one is passed),
 so that a snapshot leaves the training stream as it was, as the JAX
-method leaves the state's key. Waiting: `batch_loss`'s shard arguments
-(`axis_name`, `n_shards`, `global_batch`, `sample_idx`; item 17).
+method leaves the state's key. `batch_loss`'s shard arguments are
+`group` (a torch.distributed process group, for the JAX `axis_name`),
+`n_shards` and `global_batch`; the JAX `sample_idx` has no counterpart:
+the data-parallel step (dist/parallel.py) draws the whole batch's inputs
+and noise and hands each rank its rows.
 """
 from __future__ import annotations
 
@@ -260,9 +263,15 @@ class GaussianDreamerSystem:
 
     # ---- loss --------------------------------------------------------------
     def batch_loss(self, params: dict, offset, scene_template, inputs,
-                   step: int, generator=None, tile_cap=None):
-        """(loss, aux) of the camera batch; `params` and `offset` are the
-        differentiated leaves."""
+                   step: int, generator=None, tile_cap=None, group=None,
+                   n_shards: int = 1, global_batch: int | None = None):
+        """(loss, aux) of the camera batch, or of one shard of it;
+        `params` and `offset` are the differentiated leaves. For a shard
+        (dist/parallel.py), `group` makes the depth maximum the whole
+        batch's (an all-reduce MAX over the process group), the SDS loss
+        is rescaled from the shard's batch to `global_batch`, and the mean
+        losses are divided by `n_shards`, so that the sum over the shards
+        of the loss and of its gradients is the whole batch's."""
         cfg = self.cfg
         scene = scene_template.replace_params(params)
         out = self.render_batch(scene, inputs.cameras,
@@ -270,9 +279,15 @@ class GaussianDreamerSystem:
                                 means2d_offset=offset, tile_cap=tile_cap)
         images = out["image"]  # [B,H,W,3]
         depths = out["depth"][..., None]  # [B,H,W,1]
+        local_b = images.shape[0]
+        global_batch = global_batch or local_b
 
         # "opacity": depth over the batch's maximum (a constant)
-        opacity = depths / (depths.max().detach() + 1e-5)
+        depth_max = depths.max().detach()
+        if group is not None:
+            torch.distributed.all_reduce(
+                depth_max, torch.distributed.ReduceOp.MAX, group=group)
+        opacity = depths / (depth_max + 1e-5)
         # the guidance's depth: per-image min-max, 3 channels
         dmin = depths.amin(dim=(1, 2, 3), keepdim=True)
         dmax = depths.amax(dim=(1, 2, 3), keepdim=True)
@@ -286,13 +301,13 @@ class GaussianDreamerSystem:
             grad_clip_val=C_schedule(cfg.grad_clip, step),
             elevation=cams.elevation, azimuth=cams.azimuth,
             camera_distances=cams.camera_distances, **draws)
-        loss_sds = g_out["loss_sds"]
+        loss_sds = g_out["loss_sds"] * (local_b / global_batch)
         loss = loss_sds * C_schedule(cfg.lambda_sds, step)
-        loss_sparsity = torch.sqrt(opacity ** 2 + 0.01).mean()
+        loss_sparsity = torch.sqrt(opacity ** 2 + 0.01).mean() / n_shards
         loss = loss + loss_sparsity * C_schedule(cfg.lambda_sparsity, step)
         oc = opacity.clamp(1e-3, 1.0 - 1e-3)
         loss_opaque = (-(oc * torch.log(oc)
-                         + (1 - oc) * torch.log(1 - oc))).mean()
+                         + (1 - oc) * torch.log(1 - oc))).mean() / n_shards
         loss = loss + loss_opaque * C_schedule(cfg.lambda_opaque, step)
         aux = {
             "radii": out["radii"].amax(dim=0),  # max over the cameras
@@ -305,15 +320,17 @@ class GaussianDreamerSystem:
         }
         return loss, aux
 
-    def loss_and_grads(self, state: TrainState, inputs: StepInputs):
-        """(loss, aux, parameter grads, means2d grad) of one step."""
+    def loss_and_grads(self, state: TrainState, inputs: StepInputs,
+                       **shard):
+        """(loss, aux, parameter grads, means2d grad) of one step; `shard`
+        (group, n_shards, global_batch) goes to `batch_loss`."""
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in state.scene.params().items()}
         offset = torch.zeros((self.cfg.capacity, 2), dtype=torch.float32,
                              device=self.device, requires_grad=True)
         loss, aux = self.batch_loss(leaves, offset, state.scene, inputs,
                                     state.step, state.generator,
-                                    state.tile_cap)
+                                    state.tile_cap, **shard)
         grads = torch.autograd.grad(loss, [*leaves.values(), offset])
         return (loss.detach(), aux, dict(zip(leaves, grads[:-1])),
                 grads[-1])
@@ -325,11 +342,15 @@ class GaussianDreamerSystem:
         may be injected. Updates the scene's parameters and the Adam
         moments in place. Returns (state, metrics); the metrics are
         tensors on the device."""
-        cfg = self.cfg
         if inputs is None:
             inputs = self.sample_step_inputs(state)
-        loss, aux, param_grads, means2d_grad = self.loss_and_grads(state,
-                                                                   inputs)
+        return self.apply_grads(state, *self.loss_and_grads(state, inputs))
+
+    def apply_grads(self, state: TrainState, loss, aux, param_grads,
+                    means2d_grad):
+        """The step after the gradients: the densify statistics, Adam, the
+        metrics. Returns (state, metrics)."""
+        cfg = self.cfg
         scene = state.scene
         visible = aux["radii"] > 0
         if cfg.disable_hand_densification:

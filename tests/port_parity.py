@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from humangaussian_torch.core.camera import Camera
+from port_parity_torch import tiny_prompt_arrays
 from humangaussian_tpu.core.camera import camera_from_c2w, look_at_c2w
 
 
@@ -284,16 +285,6 @@ def jax_camera_draws(key, b) -> dict:
                  fovy=u(8, (b,)), light_distance=u(9, (b,)),
                  light_dir=n(10, (b, 3)))
     return {k: torch.from_numpy(v) for k, v in draws.items()}
-
-
-def tiny_prompt_arrays(seed=0, n=7, d=32) -> dict:
-    """numpy PromptEmbeddings fields at the tiny prior's widths."""
-    rs = np.random.RandomState(seed)
-    return {"text_vd": rs.randn(4, n, d).astype(np.float32),
-            "uncond_vd": rs.randn(4, n, d).astype(np.float32),
-            "text": (0.1 * rs.randn(n, d)).astype(np.float32),
-            "uncond": (0.1 * rs.randn(n, d)).astype(np.float32),
-            "null": np.zeros((n, d), np.float32)}
 
 
 def tiny_system_pair(seed=0, capacity=2048, batch=2, tile_capacity=256,

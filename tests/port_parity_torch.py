@@ -114,3 +114,47 @@ def projected_composite_args(device="cpu", seed=0, n=600, hw=(96, 64),
             means, scales, quats, sh, opa, alive,
             [cameras[i] for i in range(cams)], 0, cfg)
     return (*args, t([0.2, 0.3, 0.4]), tx, ty), cfg
+
+
+def tiny_prompt_arrays(seed=0, n=7, d=32) -> dict:
+    """numpy PromptEmbeddings fields at the tiny prior's widths."""
+    rs = np.random.RandomState(seed)
+    return {"text_vd": rs.randn(4, n, d).astype(np.float32),
+            "uncond_vd": rs.randn(4, n, d).astype(np.float32),
+            "text": (0.1 * rs.randn(n, d)).astype(np.float32),
+            "uncond": (0.1 * rs.randn(n, d)).astype(np.float32),
+            "null": np.zeros((n, d), np.float32)}
+
+
+def tiny_port_system(seed=0, capacity=2048, batch=2, tile_capacity=256,
+                     max_tiles=16, **cfg):
+    """The port's GaussianDreamerSystem at the sizes of
+    `port_parity.tiny_system_pair` (64^2 renders, 500 points, the tiny
+    prior from torch's initializers under `seed`) on the CPU, without
+    JAX: every process that builds it with the same arguments holds the
+    same system."""
+    from humangaussian_torch.convert import prompt_embeddings_from_numpy
+    from humangaussian_torch.data.cameras import RandomCameraConfig
+    from humangaussian_torch.ops.projection import RasterizeConfig
+    from humangaussian_torch.smplx.model import toy_model
+    from humangaussian_torch.smplx.skeleton import Skeleton
+    from humangaussian_torch.train import system
+
+    sys_cfg = dict(
+        capacity=capacity, pts_num=500, pose_image_size=64,
+        tile_capacity=tile_capacity, densify_prune_start_step=2,
+        densify_prune_interval=3, densify_prune_end_step=100,
+        prune_only_start_step=100, prune_only_end_step=200,
+        prune_only_interval=3)
+    sys_cfg.update(cfg)
+    return system.GaussianDreamerSystem(
+        system.GaussianDreamerConfig(**sys_cfg),
+        Skeleton(style="humansd", apose=True).load_smplx(
+            toy_model()).scale(-10),
+        tiny_port_guidance(seed, remat_encode=True),
+        prompt_embeddings_from_numpy(tiny_prompt_arrays(seed), device="cpu"),
+        camera_cfg=RandomCameraConfig(
+            batch_size=batch, height=64, width=64, eval_height=64,
+            eval_width=64, n_val_views=2, n_test_views=3),
+        raster_cfg=RasterizeConfig(tile=32, max_tiles_per_gaussian=max_tiles),
+        device="cpu")
