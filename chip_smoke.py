@@ -56,23 +56,27 @@ source, started together), writes the assets, then:
    densify pass;
 8. profiles 4 animated frames, 2 orbit batches and 4 training steps with
    torch.profiler;
-9. holds K3 and K5 (csrc/groupnorm_stats.cu) against their plain versions
-   and against float64 sums at a small float32 shape, at the UNet's
-   extremes ([24, 4096, 320], [24, 4096, 960], [24, 64, 2560]) and at the
-   VAE encoder's shapes at batch 8 and 512^2 ([8, 262144, 128], [8, 65536,
+9. holds the GroupNorm forward kernel (csrc/groupnorm_fwd.cu, one
+   launch for the sums and the normalize pass: "K3 + K3a" below) and its
+   sums-only (K3) and normalize-only (K3a) modes, and K5
+   (csrc/groupnorm_stats.cu) and K5a (csrc/groupnorm_bwd_dx.cu), against
+   their plain versions at a small float32 shape, at the UNet's extremes
+   ([24, 4096, 320], [24, 4096, 960], [24, 64, 2560]) and at the VAE
+   encoder's shapes at batch 8 and 512^2 ([8, 262144, 128], [8, 65536,
    128], [8, 65536, 256], [8, 16384, 256], [8, 16384, 512], [8, 4096,
    512]), bfloat16: every sum within 1e-5 of the f64 sum of magnitudes of
-   its (sample, channel); K3a (csrc/groupnorm_apply.cu) against
-   `group_norm_apply_plain` and K5a (csrc/groupnorm_bwd_dx.cu) against
-   `group_norm_bwd_dx_plain` on the same sums, and the fused op
+   its (sample, channel), the forward's sums and y bit-equal on a second
+   launch; y (fused, and K3a alone) against `group_norm_apply_plain` and
+   K5a against `group_norm_bwd_dx_plain` on the same sums, and the op
    `group_norm_act` (forward K3 + K3a, backward K5 + K5a) against the
    plain op (the plain versions): in bfloat16 within one ulp on all but
    1e-4 of the outputs, in float32 within 1e-5 of the largest output;
-   times, bounds (bytes over 3.35 TB/s: the op's forward reads x twice and
-   writes y once, its backward reads x and dz twice and writes dx once)
-   and, as the library yardstick, `F.group_norm` + `F.silu` and its
-   autograd backward (on the same channels_last tensors, and the backward
-   also on contiguous channels-first copies);
+   times (and the device time of one fused forward: the profiler's
+   kernels and memsets), bounds (bytes over 3.35 TB/s: the op's forward
+   two passes, x read once and y written once; its backward reads x and dz twice and
+   writes dx once) and, as the library yardstick, `F.group_norm` +
+   `F.silu` and its autograd backward (on the same channels_last tensors,
+   and the backward also on contiguous channels-first copies);
 10. holds K4 (csrc/attention_fwd.cu) against its plain version at the
    UNet's self-attention shapes ((120, 4096, 64), (240, 1024, 64),
    (480, 256, 64) as (batch x heads, tokens, head dim), bfloat16) and at
@@ -100,7 +104,7 @@ source, started together), writes the assets, then:
    slots included; Adam moved alive rows and left every dead slot as it
    was; launches exactly K1 1, K2 1, K4 20 (10 self-attention sites at
    4096 tokens, 5 at 1024, 5 at 256) and, counted from the module trees,
-   K3 and K3a once per norm of one UNet forward (77) and of five VAE
+   K3 + K3a once per norm of one UNet forward (77) and of five VAE
    encoder passes (rgb, depth, pose, and the rgb and depth encoders
    recomputed in the backward under `remat_encode`: 5 x 22), K5 and K5a
    once per norm of the two differentiated encoders (2 x 22)); ms per
@@ -110,20 +114,20 @@ source, started together), writes the assets, then:
    (inputs, render, three encodes, `compute_grad`, loss + backward, Adam +
    statistics); one profiled step (device busy, idle share, top kernels by
    name and by launching operator and input shapes, K1's and K2's device
-   ms); peak memory; the densify statistic's quantiles; the pose images
+   ms and the GroupNorm forward's); peak memory; the densify statistic's quantiles; the pose images
    of 8 views timed with `_fma` and with plain float32 products (and the
    pixels where they differ); and a VAE encode with channels_last and with
    contiguous weights;
 12. runs `sample_joint` at batch 2 for 4 DDIM steps, conditioned on the
    skeleton drawn from two validation views: 512^2 images and depths
-   finite and in [0, 1], K3 and K3a launched once per norm of 4 UNet
+   finite and in [0, 1], K3 + K3a launched once per norm of 4 UNet
    forwards, one encode and two decodes, K4 4 x 20 times, K5 and K5a
    never;
 13. differentiates the full-width UNet with respect to its input latents
-   (batch 2, 64^2, bfloat16): K3, K3a, K5 and K5a launch once per norm
+   (batch 2, 64^2, bfloat16): K3 + K3a, K5 and K5a launch once per norm
    (77); then a float32 full-width UNet at 16^2 latents and a float32
-   full-width VAE at 64^2 images: the input gradient through K3 / K3a /
-   K5 / K5a within 1e-3 of max-|grad| of the gradient through their
+   full-width VAE at 64^2 images: the input gradient through K3 + K3a,
+   K5 and K5a within 1e-3 of max-|grad| of the gradient through their
    plain versions;
 14. runs the avatar CLI in-process, `apps.launch.main` with
    configs/avatar.yaml, `--train` and TRAINER_OVERRIDES at full width: 12
@@ -141,18 +145,18 @@ source, started together), writes the assets, then:
    mode `sjc` (finite metrics and gradients, Adam on alive rows only, the
    launches of phase 11's step), then `guidance_eval_snapshot` at 20 DDIM
    steps: its four decoded strips finite in [0, 1] at 512^2, the strip
-   PNG written, K1 once, K3 and K3a once per norm of 21 UNet forwards,
+   PNG written, K1 once, K3 + K3a once per norm of 21 UNet forwards,
    three encodes and four decodes, K4 21 x 20;
 16. the avatar trainer with DeepFloyd IF guidance through
    `apps.launch.build_system` (configs/avatar.yaml with
    `system.guidance.type=deep-floyd`, `arch=if-xl`,
-   `texture_structure_joint=false`): first K3 and K3a against their plain
-   versions at the IF UNet's shapes ([16, 4096, 704], 22 channels a
+   `texture_structure_joint=false`): first K3 + K3a, K3 and K3a against
+   their plain versions at the IF UNet's shapes ([16, 4096, 704], 22 channels a
    group; [16, 4096, 2112]; [16, 64, 5632]), then a seeded IF-I-XL
    `unet/` weight file in bfloat16 (6,831,512,518 parameters), written
    and read back through the launcher (mmap), and a prompt cache of
    `dummy_encode_fn(77, 4096)` T5 stand-ins; one checked step (as phase
-   11 checks, launches exactly K1 1, K2 1, K3 and K3a once per norm of one
+   11 checks, launches exactly K1 1, K2 1, K3 + K3a once per norm of one
    IF UNet forward (90), K4, K5 and K5a never), ms per step over 3 steps
    after a warm-up, the staged step, a profiled step; then Perp-Neg on:
    one checked step (the same launches: the four segments in one UNet
@@ -161,15 +165,15 @@ source, started together), writes the assets, then:
    `apps.launch.main --train` for 2 steps with a validation render and
    `finalize` (metrics.csv, the validation PNG, the orbit and last.ply
    written; K1 once a step and once per chunk of 8 views of the
-   validation and orbit renders, K2 once a step, K3 and K3a 90 a step);
+   validation and orbit renders, K2 once a step, K3 + K3a 90 a step);
 17. the sampling CLI, `apps.sample.main` on configs/avatar.yaml with
    phase 11's prior files at 50 DDIM steps: a 1536x512 PNG, finite
-   image and depth, K3 and K3a once per norm of 50 UNet forwards (the CFG
+   image and depth, K3 + K3a once per norm of 50 UNet forwards (the CFG
    pair in one batch), the pose encode and two decodes, K4 50 x 20;
 18. `StableDiffusionGuidance` at SD2_SINGLE_CONFIG width with VAEConfig()
    (seeded weights), batch 8 at 512^2: one SDS and one Perp-Neg call,
    each differentiated through the VAE encode (under checkpoint): finite
-   loss and render gradient, K3 and K3a once per norm of two encoder
+   loss and render gradient, K3 + K3a once per norm of two encoder
    passes and one UNet forward, K5 and K5a once per encoder norm, K4 once
    per UNet site that passes its gate (15);
 19. `ops.knn.mean_3nn_sq_dist` on the card at the avatar's 100,000 points
@@ -210,7 +214,7 @@ source, started together), writes the assets, then:
    each mode;
 25. the DreamFusion system through `apps.launch.main`: (a)
    configs/dreamfusion.yaml as shipped (the tiny prior, 200 steps): every
-   logged loss finite, `save/orbit.png` written, K3 / K3a once per norm of
+   logged loss finite, `save/orbit.png` written, K3 + K3a once per norm of
    one UNet forward and two encoder passes a step, K5 / K5a once per
    encoder norm, K4 never (float32, 8^2 latents); (b) at full width
    (`DF_FULL_OVERRIDES`: a 16 x 2^19 x 2 hash grid, 96 samples, the diffuse
@@ -218,7 +222,7 @@ source, started together), writes the assets, then:
    loaded from seeded bfloat16 files, the prompt cache filled by
    `dummy_encode_fn(77, 1024)`), batch 2 at 64^2: one checked step (finite
    loss and gradients, Adam moved the hash table, both MLPs and the
-   background, launches exactly K3 / K3a 105, K5 / K5a 22, K4 15, K1 / K2
+   background, launches exactly K3 + K3a 105, K5 / K5a 22, K4 15, K1 / K2
    0, from the module trees), ms per step over 10 steps after 2 warm-ups,
    the staged step, a profiled step with the hash grid's gather and
    scatter-add shares, the peak memory, one view of the trained field on
@@ -237,7 +241,7 @@ source, started together), writes the assets, then:
    VAE, on the avatar's 8 training views at 1024^2 from phase 11's system
    with their openpose skeleton images (512^2) and `dummy_encode_fn(77,
    768)` prompts, differentiated to the render: finite loss and gradients,
-   launches exactly K1 1, K2 1, K3 / K3a once per norm of one UNet forward,
+   launches exactly K1 1, K2 1, K3 + K3a once per norm of one UNet forward,
    one ControlNet forward and one VAE encode (61 + 27 + 22 = 110), K5 / K5a
    22, K4 0 (SD 1.5 keeps flash attention off); ms per call with its
    backward, peak memory;
@@ -253,7 +257,7 @@ source, started together), writes the assets, then:
    phase 25's configuration with `hybrid-rgb-latent-material` (11
    features), 64^2 -> 256^2: each generator level with the generator and
    discriminator losses differentiated (finite outputs and gradients to
-   the generator, the discriminator and the field), K3 / K3a and K5 / K5a
+   the generator, the discriminator and the field), K3 + K3a and K5 / K5a
    exactly once per GAN norm of the level's path (the discriminator's three
    times); ms per render;
 30. `multihost_init` (NCCL at world size 1, torchrun's variables set by the
@@ -799,18 +803,19 @@ IF_UNET_PARAMS = 6_831_512_518
 IF_STEP_REPS = 3  # timed IF steps with Perp-Neg off, after 1 warm-up
 IF_PERP_NEG_STEPS = 2  # timed IF steps with Perp-Neg on, after a checked one
 IF_CLI_STEPS = 2  # steps of the IF path through apps.launch.main
-# K3 / K3a at the IF UNet's shapes at batch 16 (the CFG pair of 8 views):
-# the first level's 64^2 rows at 704 channels (22 a group: K3a's 16-byte
-# vectors straddle groups), the 704 + 1408 concatenation at 2112 (66 a
+# the GroupNorm forward at the IF UNet's shapes at batch 16 (the CFG pair
+# of 8 views): the first level's 64^2 rows at 704 channels (22 a group: the
+# 16-byte vectors straddle groups), the 704 + 1408 concatenation at 2112 (66 a
 # group) and the 8^2 mid level's 2816 + 2816 concatenation at 5632
 IF_GN_SHAPES = ((16, 4096, 704), (16, 4096, 2112), (16, 64, 5632))
 SAMPLE_CLI_STEPS = 50  # phase 17: apps.sample's default
 SD_BATCH = 8  # phase 18: the SD guidance at 512^2 renders
 SNAPSHOT_STEPS = 20  # phase 15: guidance_eval_snapshot's DDIM steps
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate, H100 SXM data sheet
-# the main path's extremes for K3 / K3a / K5: [samples, rows, channels] at
-# batch 24 (3 x 8 latents): the first level's 64^2 rows at 320 and at the
-# widest concatenated input (960), and the 8^2 mid block's input at 2560
+# the main path's extremes for the GroupNorm kernels: [samples, rows,
+# channels] at batch 24 (3 x 8 latents): the first level's 64^2 rows at 320
+# and at the widest concatenated input (960), and the 8^2 mid block's input
+# at 2560
 GN_SHAPES = ((2, 37, 48), (24, 4096, 320), (24, 4096, 960), (24, 64, 2560),
              # the VAE encoder's norms at batch 8 and 512^2: 512^2 x 128,
              # 256^2 x 128 and 256, 128^2 x 256 and 512, 64^2 x 512
@@ -838,8 +843,9 @@ LIBRARY_NORM_VAE_MS = {"encode forward": 51.908,
 
 
 def norms_in(module) -> int:
-    """GroupNormAct modules in a module tree: each launches K3 and K3a once
-    a forward, K5 and K5a once a backward."""
+    """GroupNormAct modules in a module tree: each launches the GroupNorm
+    forward kernel (`groupnorm_fwd`, K3 + K3a) once a forward, K5 and K5a
+    once a backward."""
     from humangaussian_torch.ops.groupnorm import GroupNormAct
 
     return sum(isinstance(m, GroupNormAct) for m in module.modules())
@@ -852,9 +858,10 @@ def plain_versions():
     the comparisons use it; the paths never do."""
     from humangaussian_torch.ops import attention, groupnorm
 
-    saved = (groupnorm.group_norm_stats, groupnorm.group_norm_apply,
-             groupnorm.group_norm_bwd_stats, groupnorm.group_norm_bwd_dx,
-             attention._attention_forward)
+    saved = (groupnorm.group_norm_fwd, groupnorm.group_norm_stats,
+             groupnorm.group_norm_apply, groupnorm.group_norm_bwd_stats,
+             groupnorm.group_norm_bwd_dx, attention._attention_forward)
+    groupnorm.group_norm_fwd = groupnorm.group_norm_fwd_plain
     groupnorm.group_norm_stats = groupnorm.group_norm_stats_plain
     groupnorm.group_norm_apply = groupnorm.group_norm_apply_plain
     groupnorm.group_norm_bwd_stats = groupnorm.group_norm_bwd_stats_plain
@@ -863,9 +870,9 @@ def plain_versions():
     try:
         yield
     finally:
-        (groupnorm.group_norm_stats, groupnorm.group_norm_apply,
-         groupnorm.group_norm_bwd_stats, groupnorm.group_norm_bwd_dx,
-         attention._attention_forward) = saved
+        (groupnorm.group_norm_fwd, groupnorm.group_norm_stats,
+         groupnorm.group_norm_apply, groupnorm.group_norm_bwd_stats,
+         groupnorm.group_norm_bwd_dx, attention._attention_forward) = saved
 
 
 def bf16_ulp(x):
@@ -880,22 +887,36 @@ def sums_error(got, want64, scale64):
                   / scale64.clamp_min(1e-30)).max())
 
 
-def device_ms_per_call(fn, calls: int = 5) -> float:
-    """Device time per call of fn after a warm-up: the durations of the
-    kernels and memsets the profiler sees, summed."""
+def device_ms_per_call(fn, sessions: int = 7):
+    """Device time of one call of fn after a warm-up: the durations of the
+    kernels and memsets the profiler sees in one profiled call, summed.
+    The profiler can lose some of a session's device events (in a whole
+    run of this script it kept one call's kernels of five), so each of
+    `sessions` sessions profiles one call, and the median is taken over
+    the sessions that saw the most events; None where none saw any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    seen = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / calls / 1e3
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        seen.append((len(us), sum(us)))
+    most = max(n for n, _ in seen)
+    if most == 0:
+        return None
+    return statistics.median(us for n, us in seen if n == most) / 1e3
+
+
+def ms_text(ms) -> str:
+    """A device time as printed: 4 decimals, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def backward_host_cost(dev, shape=(24, 64, 2560), calls=100):
@@ -961,8 +982,10 @@ def backward_host_cost(dev, shape=(24, 64, 2560), calls=100):
 
 
 def norm_phase(dev) -> dict:
-    """Phase 9: K3 and K5 against their plain versions and f64 sums, K3a
-    and K5a against theirs, the whole op (forward and backward) against
+    """Phase 9: the GroupNorm forward kernel (K3 + K3a in one launch, and
+    its sums-only and normalize-only modes K3 and K3a) and K5 against
+    their plain versions and f64 sums, bit-equal reruns of the forward, K5a
+    against its plain version, the whole op (forward and backward) against
     the plain op, times, bounds and the library yardstick, at the UNet's
     and the VAE's shapes."""
     import torch.nn.functional as F
@@ -976,16 +999,17 @@ def norm_phase(dev) -> dict:
         group_norm_bwd_dx_plain,
         group_norm_bwd_stats,
         group_norm_bwd_stats_plain,
+        group_norm_fwd,
+        group_norm_fwd_plain,
         group_norm_stats,
         group_norm_stats_plain,
         group_stats,
-        rows_per_block,
     )
 
-    print("phase 9: K3, K3a, K5 and K5a (GroupNorm) vs plain")
+    print("phase 9: the GroupNorm forward (K3 + K3a, K3, K3a), K5 and K5a "
+          "vs plain")
     g = torch.Generator(device="cpu").manual_seed(9)
-    fwd = {"err": 0.0, "by_shape": {}}
-    app = {"err": 0.0, "by_shape": {}}
+    fwd = {"err": 0.0, "sums_err": 0.0, "by_shape": {}}
     bwd = {"err": 0.0, "by_shape": {}}
     bdx = {"err": 0.0, "by_shape": {}}
     for n, rows, c in GN_SHAPES:
@@ -997,7 +1021,7 @@ def norm_phase(dev) -> dict:
         beta = (0.2 * torch.randn(c, generator=g)).to(dev)
         label = f"[{n}, {rows}, {c}] {str(dtype)[6:]}"
 
-        # K3 against plain and against f64 sums
+        # K3 (the sums-only mode) against plain and against f64 sums
         got = group_norm_stats(x)
         again = group_norm_stats(x)
         torch.cuda.synchronize()
@@ -1006,14 +1030,14 @@ def norm_phase(dev) -> dict:
         want = torch.stack([x64.sum(1), (x64 * x64).sum(1)], 1)
         scale = torch.stack([x64.abs().sum(1), (x64 * x64).sum(1)], 1)
         e_k, e_p = sums_error(got, want, scale), sums_error(plain, want, scale)
-        e_rr = sums_error(again, got.double(), scale)
+        same = torch.equal(got, again)
         print(f"  K3 {label}: kernel vs f64 {e_k:.3e}, plain vs f64 "
               f"{e_p:.3e} (of the sum of magnitudes; limit "
-              f"{GN_STATS_TOL:g}); run to run {e_rr:.3e}; "
-              f"{rows_per_block(n, rows, c)} rows per block")
+              f"{GN_STATS_TOL:g}); two launches bit-equal: {same}")
         check(e_k <= GN_STATS_TOL, f"K3 {label}: {e_k} off the f64 sums")
         check(e_p <= GN_STATS_TOL, f"K3 plain {label}: {e_p}")
-        fwd["err"] = max(fwd["err"], float((got - plain).abs().max()))
+        check(same, f"K3 {label}: two launches differ")
+        fwd["sums_err"] = max(fwd["sums_err"], float((got - plain).abs().max()))
 
         def off_plain(got, want):
             """Share of outputs past the limit and the largest difference:
@@ -1028,6 +1052,30 @@ def norm_phase(dev) -> dict:
         limit = GN_BAD_FRACTION if dtype == torch.bfloat16 else GN_F32_TOL
         how_name = ("share over one ulp" if dtype == torch.bfloat16
                     else "of max |out|")
+
+        # K3 + K3a, one launch: its sums against f64, its y against plain
+        # on those sums, and a second launch bit for bit
+        for silu in (True, False):
+            y_f, s_f = group_norm_fwd(x, gamma, beta, groups, 1e-5, silu)
+            y_f2, s_f2 = group_norm_fwd(x, gamma, beta, groups, 1e-5, silu)
+            torch.cuda.synchronize()
+            e_f = sums_error(s_f, want, scale)
+            same = torch.equal(y_f, y_f2) and torch.equal(s_f, s_f2)
+            y_fp = group_norm_apply_plain(x, s_f, gamma, beta, groups, 1e-5,
+                                          silu)
+            how, ok, worst = off_plain(y_f, y_fp)
+            fwd["err"] = max(fwd["err"], worst)
+            fwd["sums_err"] = max(fwd["sums_err"],
+                                  float((s_f - plain).abs().max()))
+            print(f"  K3 + K3a {label} silu={silu}: sums vs f64 {e_f:.3e} "
+                  f"(limit {GN_STATS_TOL:g}); y {how_name} {how:.2e} (limit "
+                  f"{limit:g}), max difference {worst:.3e}; two launches "
+                  f"bit-equal (y and sums): {same}")
+            check(e_f <= GN_STATS_TOL, f"K3 + K3a {label}: sums {e_f}")
+            check(ok and bool(torch.isfinite(y_f).all()),
+                  f"K3 + K3a {label}: y")
+            check(same, f"K3 + K3a {label}: two launches differ")
+            del y_f, y_f2, s_f, s_f2, y_fp
 
         # K5 against plain and against f64 sums, K5a against plain on K5's
         # sums, with and without SiLU
@@ -1071,9 +1119,8 @@ def norm_phase(dev) -> dict:
             del dx_k, dx_p
         del x64, want, scale
 
-        # K3a alone on the kernel's sums, and the whole fused op (K3 + K3a
-        # forward, K5 + K5a backward) against the plain op (the plain
-        # versions)
+        # K3a alone on K3's sums, and the whole op (K3 + K3a forward, K5 +
+        # K5a backward) against the plain op (the plain versions)
         x4 = x.reshape(n, rows, 1, c)
         dz4 = dz.reshape(n, rows, 1, c)
         for silu in (True, False):
@@ -1082,7 +1129,7 @@ def norm_phase(dev) -> dict:
             y_ap = group_norm_apply_plain(x, got, gamma, beta, groups, 1e-5,
                                           silu)
             how, ok, worst = off_plain(y_a, y_ap)
-            app["err"] = max(app["err"], worst)
+            fwd["err"] = max(fwd["err"], worst)
             print(f"  K3a {label} silu={silu}: {how_name} {how:.2e}, max "
                   f"difference {worst:.3e}")
             check(ok and bool(torch.isfinite(y_a).all()), f"K3a {label}")
@@ -1104,10 +1151,16 @@ def norm_phase(dev) -> dict:
                       f"group_norm_act {what} {label}")
             del outs, y, dx, xg
 
-        # times (each over runs of back-to-back calls): the four kernels,
-        # their plain versions, the whole op, and the library's GroupNorm +
-        # SiLU (forward, and its autograd backward)
-        spin(lambda: group_norm_stats(x))
+        # times (each over runs of back-to-back calls): the kernels and
+        # the forward's modes, their plain versions, the whole op, and the
+        # library's GroupNorm + SiLU (forward, and its autograd backward)
+        spin(lambda: group_norm_fwd(x, gamma, beta, groups, 1e-5, True))
+        fwd_ms = cuda_ms(lambda: group_norm_fwd(
+            x, gamma, beta, groups, 1e-5, True), reps=10, inner=10)
+        fwd_dev = device_ms_per_call(lambda: group_norm_fwd(
+            x, gamma, beta, groups, 1e-5, True))
+        fwd_plain_ms = cuda_ms(lambda: group_norm_fwd_plain(
+            x, gamma, beta, groups, 1e-5, True), reps=3, inner=5)
         k3_ms = cuda_ms(lambda: group_norm_stats(x), reps=10, inner=10)
         k3_plain_ms = cuda_ms(lambda: group_norm_stats_plain(x), reps=3,
                               inner=5)
@@ -1161,9 +1214,10 @@ def norm_phase(dev) -> dict:
         # K3a: x and the sums, gamma, beta read once, y written once
         k3a_bound = ((2 * xbytes + sums_bytes + 2 * c * 4)
                      / H100_BYTES_PER_S * 1e3)
-        # the op: x read by both passes (it does not fit in L2 at the large
-        # shapes), y written once
-        op_bound = (3 * xbytes + 2 * c * 4) / H100_BYTES_PER_S * 1e3
+        # K3 + K3a and the op's forward: two passes, x and gamma, beta read
+        # once, y and the sums written once
+        op_bound = ((2 * xbytes + sums_bytes + 2 * c * 4)
+                    / H100_BYTES_PER_S * 1e3)
         # K5: x, dz, the forward's sums, gamma, beta read, the sums written
         k5_bound = ((2 * xbytes + 2 * sums_bytes + 2 * c * 4)
                     / H100_BYTES_PER_S * 1e3)
@@ -1173,9 +1227,16 @@ def norm_phase(dev) -> dict:
         # the op's backward: both kernels' bytes (x and dz do not stay in
         # L2 between them at the large shapes)
         op_bwd_bound = k5_bound + k5a_bound
-        print(f"  {label}: K3 {k3_ms:.4f} ms (plain {k3_plain_ms:.4f}, bound "
-              f"{k3_bound:.5f}), K3a {k3a_ms:.4f} ms (plain "
-              f"{k3a_plain_ms:.4f}, bound {k3a_bound:.5f}), K5 {k5_ms:.4f} "
+        dev_share = ("" if fwd_dev is None else
+                     f", {100 * op_bound / fwd_dev:.0f}% in device time")
+        print(f"  {label}: K3 + K3a {fwd_ms:.4f} ms (device "
+              f"{ms_text(fwd_dev)}; plain {fwd_plain_ms:.4f}, two-pass "
+              f"bound {op_bound:.5f}: {100 * op_bound / fwd_ms:.0f}% of "
+              f"it{dev_share}), K3 "
+              f"{k3_ms:.4f} ms "
+              f"(plain {k3_plain_ms:.4f}, bound {k3_bound:.5f}), K3a "
+              f"{k3a_ms:.4f} ms (plain {k3a_plain_ms:.4f}, bound "
+              f"{k3a_bound:.5f}), K5 {k5_ms:.4f} "
               f"ms (plain {k5_plain_ms:.4f}, bound {k5_bound:.5f}), K5a "
               f"{k5a_ms:.4f} ms (plain {k5a_plain_ms:.4f}, bound "
               f"{k5a_bound:.5f}), all by bytes")
@@ -1184,16 +1245,17 @@ def norm_phase(dev) -> dict:
               f"backward {op_bwd_ms:.4f} ms (bound {op_bwd_bound:.5f}) vs "
               f"the library's autograd {lib_bwd_ms:.4f} ms on the same "
               f"channels_last tensors, {lib_bwd['contiguous']:.4f} ms on "
-              f"contiguous ones; device time of a backward {op_bwd_dev:.4f} "
-              f"ms vs the library's {lib_bwd_dev:.4f}")
+              f"contiguous ones; device time of a backward "
+              f"{ms_text(op_bwd_dev)} ms vs the library's "
+              f"{ms_text(lib_bwd_dev)}")
         fwd["by_shape"][label] = {
-            "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-            "op_forward_ms": op_ms, "op_bound_ms": op_bound,
-            "library_ms": lib_ms}
-        app["by_shape"][label] = {
-            "ms": k3a_ms, "plain_ms": k3a_plain_ms, "bound_ms": k3a_bound,
-            "op_forward_ms": op_ms, "op_bound_ms": op_bound,
-            "library_ms": None, "op_library_ms": lib_ms}
+            "ms": fwd_ms, "device_ms": fwd_dev, "plain_ms": fwd_plain_ms,
+            "bound_ms": op_bound, "op_forward_ms": op_ms,
+            "library_ms": lib_ms,
+            "sums_only_ms": k3_ms, "sums_only_plain_ms": k3_plain_ms,
+            "sums_only_bound_ms": k3_bound, "normalize_only_ms": k3a_ms,
+            "normalize_only_plain_ms": k3a_plain_ms,
+            "normalize_only_bound_ms": k3a_bound}
         for acc, ms, plain_ms, bound in ((bwd, k5_ms, k5_plain_ms, k5_bound),
                                          (bdx, k5a_ms, k5a_plain_ms,
                                           k5a_bound)):
@@ -1212,13 +1274,9 @@ def norm_phase(dev) -> dict:
     out = {}
     whole_bwd = "autograd backward of F.group_norm + F.silu (the whole backward)"
     for kernel, acc, source, replaces, lib_note in (
-        (kernels.GROUPNORM_FWD_STATS, fwd, "groupnorm_stats.cu",
+        (kernels.GROUPNORM_FWD, fwd, "groupnorm_fwd.cu",
          "humangaussian_tpu/ops/groupnorm.py:70",
-         "F.group_norm + F.silu forward (the whole op, not the sums alone)"),
-        (kernels.GROUPNORM_FWD_APPLY, app, "groupnorm_apply.cu",
-         "humangaussian_tpu/ops/groupnorm.py:206",
-         "none: no one call normalizes from given sums (the whole op vs "
-         "F.group_norm + F.silu is op_library_ms)"),
+         "F.group_norm + F.silu forward (the same function)"),
         (kernels.GROUPNORM_BWD_STATS, bwd, "groupnorm_stats.cu",
          "humangaussian_tpu/ops/groupnorm.py:102", whole_bwd),
         (kernels.GROUPNORM_BWD_DX, bdx, "groupnorm_bwd_dx.cu",
@@ -1241,6 +1299,11 @@ def norm_phase(dev) -> dict:
             "shape": main,
             "by_shape": acc["by_shape"],
         }
+    row = out[kernels.GROUPNORM_FWD.name]
+    row["also_replaces"] = ("humangaussian_tpu/ops/groupnorm.py:206-213 "
+                            "(the XLA normalize of _gn_fwd :190)")
+    row["sums_max_abs_err"] = fwd["sums_err"]
+    row["device_ms"] = row["by_shape"][main]["device_ms"]
     return out
 
 
@@ -1477,8 +1540,7 @@ def guidance_batch_kernels(avatar, cams, rcfg, bg) -> dict:
 
 def launches(**counts) -> dict:
     """A full launch-count dict: the kernels named, the rest 0."""
-    out = dict.fromkeys(("rasterize_fwd", "rasterize_bwd",
-                         "groupnorm_fwd_stats", "groupnorm_fwd_apply",
+    out = dict.fromkeys(("rasterize_fwd", "rasterize_bwd", "groupnorm_fwd",
                          "groupnorm_bwd_stats", "groupnorm_bwd_dx",
                          "attention_fwd"), 0)
     out.update(counts)
@@ -1493,8 +1555,7 @@ def dual_branch_step_launches(guidance) -> dict:
     enc_norms = norms_in(guidance.vae.encoder)
     passes = 3 + (2 if guidance.cfg.remat_encode else 0)
     forward = norms_in(guidance.unet) + passes * enc_norms
-    return launches(rasterize_fwd=1, rasterize_bwd=1,
-                    groupnorm_fwd_stats=forward, groupnorm_fwd_apply=forward,
+    return launches(rasterize_fwd=1, rasterize_bwd=1, groupnorm_fwd=forward,
                     groupnorm_bwd_stats=2 * enc_norms,
                     groupnorm_bwd_dx=2 * enc_norms,
                     attention_fwd=ATTN_PER_UNET_FORWARD)
@@ -1720,7 +1781,8 @@ def train_step_phase(dev, system, assets):
 
     by_name = profile_device_time("1 train_step", step, top=16,
                                   by_shape=16) or {}
-    for label, key in (("K1", "rasterize_fwd"), ("K2", "rasterize_bwd")):
+    for label, key in (("K1", "rasterize_fwd"), ("K2", "rasterize_bwd"),
+                       ("the GroupNorm forward (K3 + K3a)", "groupnorm_fwd")):
         ms = sum(us for n, us in by_name.items() if key in n) / 1e3
         print(f"  {label} device time in the profiled step: {ms:.4f} ms")
 
@@ -1937,8 +1999,7 @@ def sample_phase(dev, system):
     # 4 UNet forwards, one pose encode, two decodes, no backward
     forward = (4 * norms_in(guidance.unet) + norms_in(guidance.vae.encoder)
                + 2 * norms_in(guidance.vae.decoder))
-    want = {"rasterize_fwd": 0, "rasterize_bwd": 0,
-            "groupnorm_fwd_stats": forward, "groupnorm_fwd_apply": forward,
+    want = {"rasterize_fwd": 0, "rasterize_bwd": 0, "groupnorm_fwd": forward,
             "groupnorm_bwd_stats": 0, "groupnorm_bwd_dx": 0,
             "attention_fwd": 4 * ATTN_PER_UNET_FORWARD}
     check(counts == want, f"sample_joint launches {counts}, want {want}")
@@ -1946,11 +2007,11 @@ def sample_phase(dev, system):
 
 def unet_backward_phase(dev, unet) -> dict:
     """Phase 13: the full-width UNet differentiated with respect to its
-    input latents (batch 2, 64^2, bfloat16): K3, K3a, K5 and K5a launch
+    input latents (batch 2, 64^2, bfloat16): K3 + K3a, K5 and K5a launch
     once per norm. Then a float32 UNet at 16^2 latents, matrix-product
     attention, and a float32 full-width VAE at 64^2 images: the input
-    gradient through K3 / K3a / K5 / K5a against the gradient through their
-    plain versions. Returns the launch counts of the first."""
+    gradient through K3 + K3a, K5 and K5a against the gradient through
+    their plain versions. Returns the launch counts of the first."""
     import dataclasses
 
     from humangaussian_torch import kernels
@@ -2003,8 +2064,7 @@ def unet_backward_phase(dev, unet) -> dict:
           "non-finite input gradient")
     check(all(float(x.abs().max()) > 0 for x in grads), "zero input gradient")
     norms = norms_in(unet)
-    want = {"rasterize_fwd": 0, "rasterize_bwd": 0,
-            "groupnorm_fwd_stats": norms, "groupnorm_fwd_apply": norms,
+    want = {"rasterize_fwd": 0, "rasterize_bwd": 0, "groupnorm_fwd": norms,
             "groupnorm_bwd_stats": norms, "groupnorm_bwd_dx": norms,
             "attention_fwd": ATTN_PER_UNET_FORWARD}
     check(counts == want, f"launches {counts}, want {want}")
@@ -2026,7 +2086,7 @@ def unet_backward_phase(dev, unet) -> dict:
     worst = 0.0
     for a, b_ in zip(got, want):
         worst = max(worst, float((a - b_).abs().max() / b_.abs().max()))
-    print(f"  float32, batch 2, 16^2: input gradient through K3 / K3a / K5 / "
+    print(f"  float32, batch 2, 16^2: input gradient through K3 + K3a, K5, "
           f"K5a vs through the plain versions {worst:.3e} of max |grad| "
           f"(limit {UNET_GRAD_TOL:g}); K5 launches {k5}, K5a {k5a}")
     check(worst <= UNET_GRAD_TOL, f"UNet input gradient off by {worst}")
@@ -2058,15 +2118,15 @@ def unet_backward_phase(dev, unet) -> dict:
         want = image_grad()
     worst = float((got - want).abs().max() / want.abs().max())
     enc = norms_in(vae.encoder)
-    print(f"  float32 VAE, batch 2, 64^2: d latents / d image through K3 / "
-          f"K3a / K5 / K5a vs through the plain versions {worst:.3e} of max "
+    print(f"  float32 VAE, batch 2, 64^2: d latents / d image through K3 + "
+          f"K3a, K5, K5a vs through the plain versions {worst:.3e} of max "
           f"|grad| {float(want.abs().max()):.3e} (limit {VAE_GRAD_TOL:g}); "
           f"launches {vae_counts}")
     check(bool(torch.isfinite(got).all()), "non-finite VAE input gradient")
     check(worst <= VAE_GRAD_TOL, f"VAE input gradient off by {worst}")
     check(all(vae_counts[k] == enc for k in (
-        "groupnorm_fwd_stats", "groupnorm_fwd_apply", "groupnorm_bwd_stats",
-        "groupnorm_bwd_dx")), f"VAE launches {vae_counts}, want {enc} each")
+        "groupnorm_fwd", "groupnorm_bwd_stats", "groupnorm_bwd_dx")),
+        f"VAE launches {vae_counts}, want {enc} each")
     return counts
 
 
@@ -2117,8 +2177,7 @@ def sjc_snapshot_phase(dev, system, tmp):
     norm_count = (forwards * norms_in(g.unet)
                   + 3 * norms_in(g.vae.encoder)
                   + 4 * norms_in(g.vae.decoder))
-    want = launches(rasterize_fwd=1, groupnorm_fwd_stats=norm_count,
-                    groupnorm_fwd_apply=norm_count,
+    want = launches(rasterize_fwd=1, groupnorm_fwd=norm_count,
                     attention_fwd=forwards * ATTN_PER_UNET_FORWARD)
     print(f"  guidance_eval_snapshot: {start.elapsed_time(end):.3f} ms; "
           f"launches {counts}")
@@ -2164,12 +2223,14 @@ def write_if_files(dev, tmp) -> tuple:
 
 
 def if_norm_shapes(dev):
-    """K3 and K3a against their plain versions at IF_GN_SHAPES (bfloat16,
-    32 groups): K3 within GN_STATS_TOL of the f64 sums, K3a within one
+    """The GroupNorm forward (fused, and its sums-only and normalize-only
+    modes K3 and K3a) against its plain versions at IF_GN_SHAPES (bfloat16,
+    32 groups): sums within GN_STATS_TOL of the f64 sums, y within one
     bfloat16 ulp of plain on all but GN_BAD_FRACTION of the outputs."""
     from humangaussian_torch.ops.groupnorm import (
         group_norm_apply,
         group_norm_apply_plain,
+        group_norm_fwd,
         group_norm_stats,
         group_norm_stats_plain,
     )
@@ -2201,6 +2262,22 @@ def if_norm_shapes(dev):
               f"one ulp {share:.2e}, max difference {float(err.max()):.3e}")
         check(share <= GN_BAD_FRACTION and bool(torch.isfinite(y).all()),
               f"K3a [{n}, {rows}, {c}]: {share}")
+        y_f, sums_f = group_norm_fwd(x, gamma, beta, 32, 1e-5, True)
+        torch.cuda.synchronize()
+        x64 = x.double()
+        e_f = sums_error(sums_f, torch.stack([x64.sum(1), (x64 * x64).sum(1)],
+                                             1),
+                         torch.stack([x64.abs().sum(1), (x64 * x64).sum(1)],
+                                     1))
+        del x64
+        y_fp = group_norm_apply_plain(x, sums_f, gamma, beta, 32, 1e-5, True)
+        err = (y_f.float() - y_fp.float()).abs()
+        share_f = float((err > bf16_ulp(y_fp)).float().mean())
+        print(f"  K3 + K3a [{n}, {rows}, {c}]: sums vs f64 {e_f:.3e}, y share "
+              f"over one ulp {share_f:.2e}")
+        check(e_f <= GN_STATS_TOL and share_f <= GN_BAD_FRACTION
+              and bool(torch.isfinite(y_f).all()),
+              f"K3 + K3a [{n}, {rows}, {c}]: {e_f}, {share_f}")
 
 
 def deep_floyd_phase(dev, tmp, base_overrides) -> dict:
@@ -2240,8 +2317,7 @@ def deep_floyd_phase(dev, tmp, base_overrides) -> dict:
     # differentiated through a norm
     norm_count = norms_in(unet)
     want = launches(rasterize_fwd=1, rasterize_bwd=1,
-                    groupnorm_fwd_stats=norm_count,
-                    groupnorm_fwd_apply=norm_count)
+                    groupnorm_fwd=norm_count)
     state = system.init_state(seed=0)
     state, _row, counts, peak, _ = checked_step(system, state, "IF step 1")
     print(f"  launches {counts}; expected {norm_count} UNet norms, K4 0")
@@ -2354,8 +2430,7 @@ def if_cli(dev, tmp, overrides, norm_count):
                + -(-cc.n_test_views // cc.batch_size))
     want = launches(rasterize_fwd=IF_CLI_STEPS + renders,
                     rasterize_bwd=IF_CLI_STEPS,
-                    groupnorm_fwd_stats=IF_CLI_STEPS * norm_count,
-                    groupnorm_fwd_apply=IF_CLI_STEPS * norm_count)
+                    groupnorm_fwd=IF_CLI_STEPS * norm_count)
     print(f"  apps.launch --train (deep-floyd), {IF_CLI_STEPS} steps: "
           f"{wall:.1f} s with build, validation and finalize; losses "
           f"{[round(float(r['loss']), 2) for r in rows]}; launches {counts}")
@@ -2409,8 +2484,7 @@ def sample_cli_phase(dev, tmp, overrides) -> dict:
     # encode and two decodes, from the module trees
     norm_count = (SAMPLE_CLI_STEPS * norms_in(g.unet)
                   + norms_in(g.vae.encoder) + 2 * norms_in(g.vae.decoder))
-    want = launches(groupnorm_fwd_stats=norm_count,
-                    groupnorm_fwd_apply=norm_count,
+    want = launches(groupnorm_fwd=norm_count,
                     attention_fwd=SAMPLE_CLI_STEPS * ATTN_PER_UNET_FORWARD)
     per_step = seen["ms"] / SAMPLE_CLI_STEPS
     print(f"  sample_joint {seen['ms']:.3f} ms ({per_step:.3f} ms a "
@@ -2463,8 +2537,7 @@ def sd_guidance_phase(dev):
     enc_norms = norms_in(vae.encoder)
     sites = flash_sites(unet, g.cfg.latent_size)
     forward = 2 * enc_norms + norms_in(unet)  # encode, its recomputation
-    want = launches(groupnorm_fwd_stats=forward, groupnorm_fwd_apply=forward,
-                    groupnorm_bwd_stats=enc_norms,
+    want = launches(groupnorm_fwd=forward, groupnorm_bwd_stats=enc_norms,
                     groupnorm_bwd_dx=enc_norms, attention_fwd=sites)
     for perp_neg in (False, True):
         g.cfg = dataclasses.replace(g.cfg, use_perp_neg=perp_neg)
@@ -3758,12 +3831,12 @@ def write_sd2_files(dev, tmp) -> list:
 def sd_step_launches(guidance, steps: int = 1) -> dict:
     """The launches of `steps` SD-guidance steps through the differentiated
     encode, from the module trees: one UNet forward and two encoder passes
-    (the encode and its recomputation under checkpoint) for K3 / K3a, one
+    (the encode and its recomputation under checkpoint) for K3 + K3a, one
     encoder backward for K5 / K5a, K4 at every gated UNet site."""
     enc = norms_in(guidance.vae.encoder)
     fwd = norms_in(guidance.unet) + 2 * enc
     return launches(
-        groupnorm_fwd_stats=steps * fwd, groupnorm_fwd_apply=steps * fwd,
+        groupnorm_fwd=steps * fwd,
         groupnorm_bwd_stats=steps * enc, groupnorm_bwd_dx=steps * enc,
         attention_fwd=steps * flash_sites(guidance.unet,
                                           guidance.cfg.latent_size))
@@ -4004,7 +4077,7 @@ def dreamfusion_phase(dev, tmp) -> tuple:
           f"build and the orbit; launches {counts}")
     check(counts == want, f"shipped DreamFusion launches {counts}, want "
           f"{want}")
-    check(want["groupnorm_fwd_stats"] > 0 and want["groupnorm_bwd_dx"] > 0
+    check(want["groupnorm_fwd"] > 0 and want["groupnorm_bwd_dx"] > 0
           and want["attention_fwd"] == 0, f"tiny prior launches {want}")
 
     # -- (b) full width -----------------------------------------------------
@@ -4327,8 +4400,7 @@ def controlnet_phase(dev, tmp, system, smplx_path) -> dict:
     norms = (norms_in(unet), norms_in(net), norms_in(vae.encoder))
     check(sum(norms) == CN_NORMS, f"norms {norms}, want 61 + 27 + 22")
     want = launches(rasterize_fwd=1, rasterize_bwd=1,
-                    groupnorm_fwd_stats=sum(norms),
-                    groupnorm_fwd_apply=sum(norms),
+                    groupnorm_fwd=sum(norms),
                     groupnorm_bwd_stats=norms[2], groupnorm_bwd_dx=norms[2])
     state = system.init_state(0)
     inputs = system.sample_step_inputs(state)
@@ -4583,8 +4655,8 @@ def gan_norm_launches(r, level: int) -> dict:
     n = (norms_in(r.generator) + norms_in(r.global_encoder)
          + 3 * norms_in(r.discriminator)
          + (norms_in(r.local_encoder) if level == 2 else 0))
-    return launches(groupnorm_fwd_stats=n, groupnorm_fwd_apply=n,
-                    groupnorm_bwd_stats=n, groupnorm_bwd_dx=n)
+    return launches(groupnorm_fwd=n, groupnorm_bwd_stats=n,
+                    groupnorm_bwd_dx=n)
 
 
 def gan_phase(dev):
@@ -4741,7 +4813,7 @@ def dist_phase(dev, system) -> dict:
         dp_step = make_dp_train_step(system)
         state0 = system.init_state(0)
 
-        # the path: K1 to K5 (atomics in K2 / K3 / K5: not bit-equal)
+        # the path: K1 to K5 (atomics in K2 / K5: not bit-equal)
         ref = system.train_step(clone_state(state0))
         again = system.train_step(clone_state(state0))
         torch.cuda.synchronize()

@@ -4,8 +4,8 @@
 // replaces the elementwise XLA code that follows the Pallas backward
 // statistics kernel in humangaussian_tpu/ops/groupnorm.py::_gn_bwd (:215,
 // lines :251-268 after the sums). For x, dz[N, R, C] (channel-minor, bf16 or
-// f32), the forward's sums[N, 2, C] (K3's) and K5's sums[N, 2, C] (S1 =
-// sum_r dy, S2 = sum_r dy * xhat per (sample, channel), f32):
+// f32), the forward's sums[N, 2, C] (groupnorm_fwd.cu's) and K5's sums[N,
+// 2, C] (S1 = sum_r dy, S2 = sum_r dy * xhat per (sample, channel), f32):
 //
 //   per (n, group g of C / G channels), m = R C / G:
 //     mu, rstd as the forward formed them (groupnorm_group.cuh),
@@ -25,7 +25,7 @@
 // and one reciprocal per element with SiLU stay under the card's 20
 // operations a byte of the 6 bytes an element moves.
 //
-// Design, as K3a's (groupnorm_apply.cu). A block serves one sample: it first
+// Design, as the first K3a's. A block serves one sample: it first
 // forms the sample's group mean and rstd from the forward's sums and the
 // group means of gamma S1 and gamma S2 (one warp per group), and lays out
 // per channel mu, rstd, gamma, beta, mean1 and mean2 in shared memory; so

@@ -1,13 +1,14 @@
 // The group statistics of GroupNorm from its channel sums, shared by the
-// backward kernels K5 (groupnorm_stats.cu) and K5a (groupnorm_bwd_dx.cu).
+// forward (groupnorm_fwd.cu) and the backward kernels K5
+// (groupnorm_stats.cu) and K5a (groupnorm_bwd_dx.cu).
 //
 // For one (sample, group) of m = R C / G elements, from the forward's
-// per-channel sum s1 and sum of squares s2 (K3's output):
+// per-channel sum s1 and sum of squares s2 (the forward's sums):
 //
 //   mean = sum_g s1 / m,  var = max(sum_g s2 / m - mean^2, 0),
 //   rstd = 1 / sqrt(var + eps)
 //
-// with K3a's arithmetic (groupnorm_apply.cu): one warp strides the group's
+// with K3a's arithmetic (groupnorm_fwd.cu): one warp strides the group's
 // channels by lane and adds the lanes with an xor butterfly, then the
 // divisions and the square root round to nearest. So the backward sees
 // bit for bit the mean and rstd that the forward normalized with.

@@ -19,9 +19,9 @@ prompt embeddings.
 
 IF_I_XL_CONFIG leaves `flash_attention` off, as the reference does, so
 its self-attention takes the UNet's chunked matrix-product branch
-(guidance/unet.py), not kernel K4; its GroupNorms run K3 and K3a. The
-UNet runs without gradients: the render's gradient flows back through the
-resize alone. The noise comes from a `torch.Generator` or is injected
+(guidance/unet.py), not kernel K4; its GroupNorms run the fused forward
+kernel. The UNet runs without gradients: the render's gradient flows back
+through the resize alone. The noise comes from a `torch.Generator` or is injected
 (`noise=`); the reference's per-sample key folding has no counterpart
 (guidance/dual_branch.py says why).
 """

@@ -31,8 +31,8 @@ the backbone of guidance/stable_diffusion.py and guidance/deep_floyd.py.
 `use_linear_projection` off gives SD 1.5's transformer projections, 1 x 1
 convolutions (guidance/controlnet.py).
 
-Kernels: every GroupNorm is `GroupNormAct` (ops/groupnorm.py, kernels K3
-and K3a forward, K5 backward) and self-attention with `flash_attention` on and a token count that is a
+Kernels: every GroupNorm is `GroupNormAct` (ops/groupnorm.py, the fused
+forward kernel, K5 backward) and self-attention with `flash_attention` on and a token count that is a
 multiple of 128 is `self_attention` (ops/attention.py, kernel K4).
 Cross-attention, the 8 x 8 mid block (64 tokens) and every site of a
 configuration without `flash_attention` (IF_I_XL_CONFIG) take the

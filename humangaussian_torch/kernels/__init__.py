@@ -106,6 +106,7 @@ class Kernel:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 
 RASTERIZE_FWD = Kernel(
     "rasterize_fwd", "rasterize_fwd.cu", "hg_rasterize_fwd",
@@ -124,10 +125,13 @@ RASTERIZE_BWD = Kernel(
      _P],
 )
 
-GROUPNORM_FWD_STATS = Kernel(
-    "groupnorm_fwd_stats", "groupnorm_stats.cu", "hg_groupnorm_fwd_stats",
-    # x, samples, rows, channels, rows_per_block, is_bf16, out, stream
-    [_P, _I, _I, _I, _I, _I, _P, _P],
+GROUPNORM_FWD = Kernel(
+    "groupnorm_fwd", "groupnorm_fwd.cu", "hg_groupnorm_fwd",
+    # x, sums_in, gamma, beta, samples, rows, channels, groups, eps,
+    # is_bf16, silu, mode, block_vectors, splits, blocks, vector, y,
+    # sums_out, partials, partial_floats, sync, sync_words, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P,
+     _P, _P, _LL, _P, _LL, _P],
 )
 
 GROUPNORM_BWD_STATS = Kernel(
@@ -144,22 +148,14 @@ GROUPNORM_BWD_DX = Kernel(
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P],
 )
 
-GROUPNORM_FWD_APPLY = Kernel(
-    "groupnorm_fwd_apply", "groupnorm_apply.cu", "hg_groupnorm_fwd_apply",
-    # x, sums, gamma, beta, samples, rows, channels, groups, eps, is_bf16,
-    # silu, out, stream
-    [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P],
-)
-
 ATTENTION_FWD = Kernel(
     "attention_fwd", "attention_fwd.cu", "hg_attention_fwd",
     # q, k, v, out, batch, seq_q, seq_k, heads, scale, stream
     [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 )
 
-KERNELS = (RASTERIZE_FWD, RASTERIZE_BWD, GROUPNORM_FWD_STATS,
-           GROUPNORM_FWD_APPLY, GROUPNORM_BWD_STATS, GROUPNORM_BWD_DX,
-           ATTENTION_FWD)
+KERNELS = (RASTERIZE_FWD, RASTERIZE_BWD, GROUPNORM_FWD, GROUPNORM_BWD_STATS,
+           GROUPNORM_BWD_DX, ATTENTION_FWD)
 
 
 def build_all() -> None:

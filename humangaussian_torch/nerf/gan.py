@@ -26,7 +26,8 @@ What the port does differently:
 - Every GroupNorm (Flax `GroupNorm`, eps 1e-6, the JAX module's group
   count: min(32, C) lowered until it divides C) is the port's
   `GroupNormAct`, with the SiLU fused where a swish follows: on the card
-  its forward launches kernels K3 and K3a and its backward K5 and K5a.
+  its forward launches the GroupNorm forward kernel once and its
+  backward K5 and K5a.
 - Flax's convolutions pad "SAME": (k - 1) split with the smaller half
   first, after the stride is accounted for. For a stride-2 3 x 3 conv on
   an even size that is (0, 1), not torch's (1, 1); the discriminator's 4

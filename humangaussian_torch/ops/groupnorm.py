@@ -4,21 +4,23 @@ backward.
 Port of humangaussian_tpu/ops/groupnorm.py. The op normalizes over the
 channel-minor axis of `[N, ..., C]` (the reference's layout, kept here so
 both packages see the same arrays), per (sample, group), with f32
-statistics; the output is cast back to `x.dtype`. The forward is two
-kernels:
+statistics; the output is cast back to `x.dtype`. The forward of a CUDA
+tensor is one launch of one kernel (csrc/groupnorm_fwd.cu,
+`group_norm_fwd`):
 
-  statistics (kernel K3, csrc/groupnorm_stats.cu): per (sample, channel)
-      sum and sum of squares over the R = prod(...) rows of `[N, R, C]`
-      into a zeroed [N, 2, C];
-  normalize (+SiLU) (kernel K3a, csrc/groupnorm_apply.cu): each block
-      forms its sample's group mean and rstd (variance as E[x^2] - mean^2,
-      clamped at 0) and per-channel a = gamma * rstd, b = beta - mu * a in
-      shared memory, then writes y = act(x * a + b) 16 bytes a thread.
+  sums (K3's work): per (sample, channel) sum and sum of squares over the
+      R = prod(...) rows of `[N, R, C]`, as per-split partials added in a
+      fixed order into [N, 2, C] (no atomics, no zero-fill: bit-equal from
+      run to run);
+  normalize (+SiLU) (K3a's work): per (sample, group) mean and rstd from
+      those sums (variance as E[x^2] - mean^2, clamped at 0), per-channel
+      a = gamma * rstd, b = beta - mu * a, then y = act(x * a + b).
 
-So the forward of a CUDA tensor is K3, one zero-fill and K3a. Under
-autograd the op saves the sums, and the backward is two kernels, each of
-which forms the group mean and rstd from the saved sums as K3a did (so no
-torch code runs for them):
+K3 and K3a alone (`group_norm_stats`, `group_norm_apply`) are the
+kernel's sums-only and normalize-only modes. Under autograd the op saves
+the sums, and the backward is two kernels, each of which forms the group
+mean and rstd from the saved sums as the forward did (so no torch code
+runs for them):
 
   backward sums (kernel K5, csrc/groupnorm_stats.cu): per (sample,
       channel) S1 = sum(dy) and S2 = sum(dy * xhat) into [N, 2, C], which
@@ -34,19 +36,22 @@ So the backward of a CUDA tensor is K5 (after a memset) and K5a; dgamma
 and dbias (the sums of S2 and S1 over samples) are computed only when
 asked for.
 
-Dispatch: a CUDA tensor launches K3 / K3a / K5 / K5a, a CPU tensor takes
-the plain versions (`group_norm_stats_plain`, `group_norm_apply_plain`,
-`group_norm_bwd_stats_plain`, `group_norm_bwd_dx_plain`); nothing else
-decides, and nothing falls back from a kernel to a plain version.
+Dispatch: a CUDA tensor launches the kernels, a CPU tensor takes the plain
+versions (`group_norm_fwd_plain`, `group_norm_stats_plain`,
+`group_norm_apply_plain`, `group_norm_bwd_stats_plain`,
+`group_norm_bwd_dx_plain`); nothing else decides, and nothing falls back
+from a kernel to a plain version.
 
 Dropped from the reference: `_pick_block_rows` and the pure-XLA route for
 row counts no block divides (the CUDA kernels take any row count), the
-revisited `[2, C]` output block (blocks have no order on a GPU; partial
-sums meet through atomicAdd) and `FORCE_PALLAS_INTERPRET`.
+revisited `[2, C]` output block (blocks have no order on a GPU) and
+`FORCE_PALLAS_INTERPRET`.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -54,30 +59,138 @@ from torch import nn
 from humangaussian_torch.kernels import (
     GROUPNORM_BWD_DX,
     GROUPNORM_BWD_STATS,
-    GROUPNORM_FWD_APPLY,
-    GROUPNORM_FWD_STATS,
+    GROUPNORM_FWD,
 )
 
-# the kernels' block: 64 channels wide, 8 rows per step
-_CHANNELS_PER_BLOCK = 64
-_ROWS_PER_STEP = 8
-# blocks a launch should reach where the rows allow it (132 SMs x 8)
-_TARGET_BLOCKS = 1056
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# the forward kernel (csrc/groupnorm_fwd.cu): its block, the vectors a
+# channel block spans at most, the rows a thread loads at once, and the
+# persistent blocks it keeps on each SM
+_THREADS = 256
+_MAX_BLOCK_VECTORS = 64
+_UNROLL = 8
+_BLOCKS_PER_SM = 3
+_FUSED, _SUMS_ONLY, _APPLY_ONLY = 0, 1, 2
 
 
-def rows_per_block(samples: int, rows: int, channels: int) -> int:
-    """Rows each block of K3 (the forward statistics) reduces: the whole of
-    `rows` when samples x channel blocks already fill the card, else split
-    (in multiples of the 8 rows a block takes per step, at least 32) so
-    that the launch reaches about `_TARGET_BLOCKS` blocks. (K5's entry
-    point sizes its own slices by its occupancy.)"""
-    base = samples * math.ceil(channels / _CHANNELS_PER_BLOCK)
-    splits = max(1, min(math.ceil(_TARGET_BLOCKS / max(base, 1)),
-                        rows // (4 * _ROWS_PER_STEP)))
-    per = math.ceil(rows / splits)
-    return max(_ROWS_PER_STEP,
-               math.ceil(per / _ROWS_PER_STEP) * _ROWS_PER_STEP)
+def fwd_block_vectors(vectors: int) -> tuple:
+    """(channel blocks across C, vectors across a block, rows a block
+    covers at once) of the forward kernel, for C of `vectors` vectors. A C
+    narrower than a warp is one block rounded up to a power of two; a
+    wider one is cut into blocks of 32 to 64 vectors (the last may be
+    narrower), the width that leaves the fewest of the blocks' threads
+    idle (the widest among equals)."""
+    if vectors < 32:
+        cbv = 1 << max(0, (vectors - 1).bit_length())
+        return 1, cbv, _THREADS // cbv
+    best = (-1.0, 0)
+    for cbv in range(min(_MAX_BLOCK_VECTORS, vectors), 31, -1):
+        nbc = math.ceil(vectors / cbv)
+        busy = vectors * (_THREADS // cbv) / (nbc * _THREADS)
+        if busy > best[0] + 1e-9:
+            best = (busy, cbv)
+    cbv = best[1]
+    return math.ceil(vectors / cbv), cbv, _THREADS // cbv
+
+
+def fwd_row_splits(samples: int, rows: int, channel_blocks: int, deep: int,
+                   target_blocks: int) -> int:
+    """Row splits per (sample, channel block): the fewest that keep the
+    `target_blocks` persistent blocks at least 95% busy over the tiles
+    (each block takes every target-th tile, so a last round that few
+    blocks take costs a whole round), at most four tiles a block, each
+    tile at least one step of the block's rows and none empty; else the
+    busiest."""
+    per_split = samples * channel_blocks
+    most = max(1, min(4 * target_blocks // per_split,
+                      rows // (deep * _UNROLL)))
+    best = (0.0, 1)
+    for splits in range(1, most + 1):
+        if (splits - 1) * math.ceil(rows / splits) >= rows:
+            continue  # the last split would hold no row
+        tiles = per_split * splits
+        busy = tiles / (target_blocks * math.ceil(tiles / target_blocks))
+        if busy >= 0.95:
+            return splits
+        if busy > best[0] + 1e-9:
+            best = (busy, splits)
+    return best[1]
+
+
+class _FwdLaunch(NamedTuple):
+    vector: bool
+    block_vectors: int
+    splits: int
+    blocks: int
+    sync_words: int
+    partial_floats: int
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_launch(sms: int, samples: int, rows: int, channels: int,
+                itemsize: int, aligned: bool) -> _FwdLaunch:
+    """The forward kernel's numbers for one shape on a card of `sms` SMs:
+    16-byte vectors where C and the pointers allow them, the channel
+    blocks, the row splits, the persistent blocks and the scratch sizes."""
+    vec = 16 // itemsize
+    vector = aligned and channels % vec == 0
+    nbc, cbv, deep = fwd_block_vectors(channels // (vec if vector else 1))
+    target = sms * _BLOCKS_PER_SM
+    splits = fwd_row_splits(samples, rows, nbc, deep, target)
+    tiles = samples * nbc * splits
+    blocks = max(1, min(target, tiles))
+    return _FwdLaunch(vector, cbv, splits, blocks, 1 + blocks + tiles,
+                      samples * splits * 2 * channels)
+
+
+# per (card, stream): 32-bit words that carry the forward kernel's
+# readiness flags and generation from eager launch to launch (zeroed once)
+_SYNC: dict = {}
+
+
+def _sync_words(device: torch.device, stream, words: int) -> torch.Tensor:
+    """The forward kernel's flag words for a launch on `stream`. Eager
+    launches on one stream share a buffer that is never reset (the kernel
+    keeps a generation in it). A launch under stream capture takes words
+    of its own, zeroed in the graph: a graph's replay then never meets the
+    flags of another graph's or of an eager launch."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(words, dtype=torch.int32, device=device)
+    key = (device.index, stream.cuda_stream)
+    buf = _SYNC.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(max(words, 4096), dtype=torch.int32,
+                          device=device)
+        _SYNC[key] = buf
+    return buf
+
+
+def _launch_fwd(mode, x3, sums_in, gamma, beta, groups, eps, silu, y,
+                sums_out):
+    n, rows, c = x3.shape
+    aligned = x3.data_ptr() % 16 == 0 and (y is None or
+                                            y.data_ptr() % 16 == 0)
+    with torch.cuda.device(x3.device):
+        index = torch.cuda.current_device()
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        how = _fwd_launch(sms, n, rows, c, x3.element_size(), aligned)
+        stream = torch.cuda.current_stream(x3.device)
+        partials = sync = None
+        if mode != _APPLY_ONLY:
+            partials = torch.empty(how.partial_floats, dtype=torch.float32,
+                                   device=x3.device)
+            sync = _sync_words(x3.device, stream, how.sync_words)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        GROUPNORM_FWD.launch(
+            x3.data_ptr(), ptr(sums_in), ptr(gamma), ptr(beta), n, rows, c,
+            groups, eps, int(x3.dtype == torch.bfloat16), int(silu), mode,
+            how.block_vectors, how.splits, how.blocks, int(how.vector),
+            ptr(y), ptr(sums_out), ptr(partials),
+            0 if partials is None else partials.numel(), ptr(sync),
+            0 if sync is None else sync.numel(), stream.cuda_stream)
 
 
 def _check_x3(name, x3):
@@ -116,26 +229,24 @@ def _check_groups(channels: int, groups: int):
 
 
 def group_norm_stats_plain(x3: torch.Tensor) -> torch.Tensor:
-    """K3's function in plain torch: [N, R, C] -> [N, 2, C] f32."""
+    """The sums' function (K3's) in plain torch: [N, R, C] -> [N, 2, C]
+    f32."""
     xf = x3.to(torch.float32)
     return torch.stack([xf.sum(dim=1), (xf * xf).sum(dim=1)], dim=1)
 
 
 def group_norm_stats(x3: torch.Tensor) -> torch.Tensor:
     """Per (sample, channel) sum and sum of squares of `x3` [N, R, C]
-    (contiguous) as f32 [N, 2, C]: K3 for a CUDA tensor, the plain version
-    for a CPU tensor."""
+    (contiguous) as f32 [N, 2, C]: the forward kernel's sums-only mode (K3)
+    for a CUDA tensor, the plain version for a CPU tensor."""
     _check_x3("x3", x3)
     if x3.device.type == "cpu":
         return group_norm_stats_plain(x3)
     _check_kernel_input("x3", x3)
-    n, rows, c = x3.shape
-    out = torch.zeros((n, 2, c), dtype=torch.float32, device=x3.device)
-    with torch.cuda.device(x3.device):
-        GROUPNORM_FWD_STATS.launch(
-            x3.data_ptr(), n, rows, c, rows_per_block(n, rows, c),
-            int(x3.dtype == torch.bfloat16), out.data_ptr(),
-            torch.cuda.current_stream(x3.device).cuda_stream)
+    n, _, c = x3.shape
+    out = torch.empty((n, 2, c), dtype=torch.float32, device=x3.device)
+    # the sums know no groups: one group a channel
+    _launch_fwd(_SUMS_ONLY, x3, None, None, None, c, 0.0, False, None, out)
     return out
 
 
@@ -180,16 +291,40 @@ def group_norm_apply(x3, sums, gamma, beta, groups: int, eps: float,
         return group_norm_apply_plain(x3, sums, gamma, beta, groups, eps,
                                       silu)
     _check_kernel_input("x3", x3)
-    if rows * c >= 2**31:
-        raise ValueError(f"{rows} x {c} elements per sample exceed 2^31")
     out = torch.empty_like(x3)
-    with torch.cuda.device(x3.device):
-        GROUPNORM_FWD_APPLY.launch(
-            x3.data_ptr(), sums.contiguous().data_ptr(),
-            gamma.contiguous().data_ptr(), beta.contiguous().data_ptr(), n,
-            rows, c, groups, eps, int(x3.dtype == torch.bfloat16), int(silu),
-            out.data_ptr(), torch.cuda.current_stream(x3.device).cuda_stream)
+    _launch_fwd(_APPLY_ONLY, x3, sums.contiguous(), gamma.contiguous(),
+                beta.contiguous(), groups, eps, silu, out, None)
     return out
+
+
+def group_norm_fwd_plain(x3, gamma, beta, groups: int, eps: float,
+                         silu: bool) -> tuple:
+    """The fused forward's function in plain torch: (y, sums) =
+    (`group_norm_apply_plain` on `group_norm_stats_plain`'s sums, those
+    sums)."""
+    sums = group_norm_stats_plain(x3)
+    return (group_norm_apply_plain(x3, sums, gamma, beta, groups, eps, silu),
+            sums)
+
+
+def group_norm_fwd(x3, gamma, beta, groups: int, eps: float,
+                   silu: bool) -> tuple:
+    """GroupNorm(+SiLU) of `x3` [N, R, C] (contiguous) with gamma, beta [C]
+    f32: (y in x3's dtype, the f32 [N, 2, C] sums the backward reads). One
+    launch of the forward kernel for a CUDA tensor, the plain version for a
+    CPU tensor."""
+    _check_x3("x3", x3)
+    n, _, c = x3.shape
+    _check_f32_args(x3, ("gamma", gamma, (c,)), ("beta", beta, (c,)))
+    _check_groups(c, groups)
+    if x3.device.type == "cpu":
+        return group_norm_fwd_plain(x3, gamma, beta, groups, eps, silu)
+    _check_kernel_input("x3", x3)
+    y = torch.empty_like(x3)
+    sums = torch.empty((n, 2, c), dtype=torch.float32, device=x3.device)
+    _launch_fwd(_FUSED, x3, None, gamma.contiguous(), beta.contiguous(),
+                groups, eps, silu, y, sums)
+    return y, sums
 
 
 def _dy_xhat(x3, dz3, mu_c, rstd_c, gamma, beta, silu):
@@ -313,8 +448,7 @@ class _GroupNormAct(torch.autograd.Function):
         x3 = _as_rows(x.contiguous())
         gamma = scale.to(torch.float32)
         beta = bias.to(torch.float32)
-        sums = group_norm_stats(x3)
-        y = group_norm_apply(x3, sums, gamma, beta, groups, eps, silu)
+        y, sums = group_norm_fwd(x3, gamma, beta, groups, eps, silu)
         ctx.save_for_backward(x3, scale, bias, sums)
         ctx.cfg = (groups, eps, silu, x.shape)
         return y.reshape(x.shape)

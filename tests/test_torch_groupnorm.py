@@ -39,7 +39,7 @@ def pallas(monkeypatch):
 
 @pytest.mark.parametrize("shape", [(2, 16, 16, 32), (3, 8, 4, 16)])
 def test_stats_match_pallas_kernel(pallas, shape):
-    """K3's plain version against `_fwd_stats` (interpret): 2e-5 of the
+    """The sums' (K3's) plain version against `_fwd_stats` (interpret): 2e-5 of the
     largest sum."""
     x, *_ = _inputs(shape)
     n, c = shape[0], shape[-1]
@@ -249,24 +249,165 @@ def test_apply_plain_matches_jax_forward(pallas, shape, groups, dtype,
         1e-5, silu), got)
 
 
-@pytest.mark.parametrize("n,rows,c,want_blocks", [
-    (24, 4096, 320, 1080),  # 5 channel blocks x 24 samples x 9 row slices
-    (24, 64, 2560, 1920),
-    (2, 37, 48, 2),
-    (1, 7, 3, 1),
+H100_SMS = 132  # streaming multiprocessors of the H100 SXM
+# (samples, rows, channels, itemsize): the UNet's and the VAE's main-path
+# shapes, the IF UNet's, the tiny configs', an odd one and the GAN
+# renderer's norms (float32)
+LAUNCH_SHAPES = [
+    (2, 37, 48, 4), (24, 4096, 320, 2), (24, 4096, 960, 2), (24, 64, 2560, 2),
+    (8, 262144, 128, 2), (8, 65536, 128, 2), (8, 65536, 256, 2),
+    (8, 16384, 256, 2), (8, 16384, 512, 2), (8, 4096, 512, 2),
+    (16, 4096, 704, 2), (16, 4096, 2112, 2), (16, 64, 5632, 2), (1, 7, 3, 4),
+    (1, 4096, 576, 4), (1, 65536, 16, 4),
+]
+
+
+@pytest.mark.parametrize("n,rows,c,itemsize", LAUNCH_SHAPES)
+@pytest.mark.parametrize("sms", [H100_SMS, 8])
+def test_fwd_launch_covers_each_element_once(n, rows, c, itemsize, sms):
+    """The forward kernel's launch numbers (`_fwd_launch`): channel blocks
+    of a width the kernel takes (a power of two below 32 vectors, else 32
+    to 64, the busiest such width) cover every channel once; row splits
+    cover every row once, none empty; the splits keep the persistent
+    blocks 95% busy or are the busiest allowed; the blocks are at most
+    three an SM and no more than the tiles; the scratch sizes are what the
+    kernel checks."""
+    how = port_gn._fwd_launch(sms, n, rows, c, itemsize, True)
+    vec = 16 // itemsize
+    assert how.vector == (c % vec == 0)
+    vectors = c // vec if how.vector else c
+    nbc, cbv, deep = port_gn.fwd_block_vectors(vectors)
+    assert cbv == how.block_vectors and deep == 256 // cbv
+    assert 1 <= cbv <= 64 and (cbv >= 32 or cbv & (cbv - 1) == 0)
+    cover = np.zeros(vectors, np.int64)
+    for cb in range(nbc):
+        cover[cb * cbv:(cb + 1) * cbv] += 1
+    assert (cover == 1).all() and (nbc - 1) * cbv < vectors
+    if vectors >= 32:  # no width of 32 to 64 leaves fewer threads idle
+        busy = vectors * deep / (nbc * 256)
+        assert all(vectors * (256 // w) / (-(-vectors // w) * 256)
+                   <= busy + 1e-9 for w in range(32, min(64, vectors) + 1))
+    else:  # the narrowest power of two that holds C
+        assert cbv >= vectors and (cbv == 1 or cbv // 2 < vectors)
+    splits, per = how.splits, -(-rows // how.splits)
+    assert 1 <= splits <= rows and (splits - 1) * per < rows
+    tiles = n * nbc * splits
+    target = 3 * sms
+    assert how.blocks == min(target, tiles)
+
+    def busy(s):
+        t = n * nbc * s
+        return t / (target * -(-t // target))
+
+    most = max(1, min(4 * target // (n * nbc), rows // (deep * 8)))
+    assert splits <= most
+    assert busy(splits) >= 0.95 or all(
+        busy(s) <= busy(splits) + 1e-9 for s in range(1, most + 1)
+        if (s - 1) * -(-rows // s) < rows)
+    assert how.sync_words == 1 + how.blocks + tiles
+    assert how.partial_floats == n * splits * 2 * c
+    # a pointer off 16 bytes takes the scalar tiles
+    assert not port_gn._fwd_launch(sms, n, rows, c, itemsize, False).vector
+
+
+def _kernel_order_sums(x3, sms):
+    """The forward kernel's sums of a float32 `x3` in plain torch, in the
+    order of its float32 additions at `_fwd_launch`'s numbers: each thread
+    adds its rows of a split one after another (every `deep`-th row), the
+    threads of a block meet (a warp's lanes by an xor butterfly where a
+    block is at most 32 vectors wide, then slot by slot), and every tile
+    adds the splits in order."""
+    n, rows, c = x3.shape
+    how = port_gn._fwd_launch(sms, n, rows, c, 4, True)
+    _, cbv, deep = port_gn.fwd_block_vectors(c // 4 if how.vector else c)
+    per = -(-rows // how.splits)
+    both = torch.stack([x3, x3 * x3], 1)  # [n, 2, rows, c]
+    out = torch.zeros((n, 2, c), dtype=torch.float32)
+    for s in range(how.splits):
+        part = both[:, :, s * per:(s + 1) * per]
+        part = torch.nn.functional.pad(part, (0, 0, 0, -part.shape[2] % deep))
+        lanes = part.reshape(n, 2, -1, deep, c)
+        acc = torch.zeros((n, 2, deep, c), dtype=torch.float32)
+        for k in range(lanes.shape[2]):
+            acc = acc + lanes[:, :, k]
+        if cbv <= 32:  # 8 warps of 32 / cbv row lanes each
+            r = 32 // cbv
+            w = acc.reshape(n, 2, 8, r, c)
+            k = 1
+            while k < r:
+                w = w + w[:, :, :, torch.arange(r) ^ k]
+                k *= 2
+            acc = w[:, :, :, 0]
+        tile = torch.zeros((n, 2, c), dtype=torch.float32)
+        for y in range(acc.shape[2]):
+            tile = tile + acc[:, :, y]
+        out = out + tile
+    return out
+
+
+@pytest.mark.parametrize("n,rows,c", [
+    (2, 37, 48),  # one split, 12 vectors: one 16-lane block
+    (3, 2048, 64),
+    (4, 300, 160),  # 40 vectors: a block wider than a warp
+    (1, 65536, 16),  # 128 splits of 512 rows
 ])
-def test_rows_per_block_fills_the_card(n, rows, c, want_blocks):
-    per = port_gn.rows_per_block(n, rows, c)
-    assert per % 8 == 0 and per >= 8
-    slices = -(-rows // per)
-    assert n * -(-c // 64) * slices == want_blocks
-    assert (slices - 1) * per < rows  # no empty slice
+def test_kernel_order_sums_within_tolerance(n, rows, c):
+    """The forward kernel's fixed-order float32 sums (emulated in plain
+    torch at the H100's launch numbers) stay within 1e-5 of the float64
+    sum of magnitudes (GN_STATS_TOL of chip_smoke.py) of the exact sums."""
+    rng = np.random.RandomState(8)
+    x3 = torch.from_numpy(
+        (rng.randn(n, rows, c) * 1.5 + 0.7).astype(np.float32))
+    got = _kernel_order_sums(x3, H100_SMS)
+    x64 = x3.double()
+    want = torch.stack([x64.sum(1), (x64 * x64).sum(1)], 1)
+    scale = torch.stack([x64.abs().sum(1), (x64 * x64).sum(1)], 1)
+    assert float(((got.double() - want).abs() / scale).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,groups", [((2, 16, 16, 32), 8),
+                                          ((2, 5, 7, 24), 4)])
+def test_fwd_plain_matches_jax_forward(pallas, shape, groups, dtype, silu):
+    """The fused forward's plain version against the JAX `group_norm_act`
+    forward (Pallas statistics in interpret mode where the rows allow): y
+    within float32 2e-5 / bfloat16 0.05, the sums within 2e-5 of the
+    largest of the JAX `_fwd_stats` (or of its XLA route's sums)."""
+    x, scale, bias, _ = _inputs(shape, seed=9)
+    n, c = shape[0], shape[-1]
+    jx = jnp.asarray(x).astype(jnp.dtype(dtype))
+    want = np.asarray(jax_gn.group_norm_act(
+        jx, jnp.asarray(scale), jnp.asarray(bias), groups, 1e-5,
+        silu).astype(jnp.float32))
+    jx3 = jx.reshape(n, -1, c)
+    br = jax_gn._pick_block_rows(jx3.shape[1], c)
+    if br:
+        want_sums = np.asarray(jax_gn._fwd_stats(jx3, br))
+    else:
+        xf = jx3.astype(jnp.float32)
+        want_sums = np.asarray(jnp.stack([xf.sum(1), (xf * xf).sum(1)], 1))
+    x3 = torch.from_numpy(x).to(getattr(torch, dtype)).reshape(n, -1, c)
+    gamma, beta = torch.from_numpy(scale), torch.from_numpy(bias)
+    y, sums = port_gn.group_norm_fwd_plain(x3, gamma, beta, groups, 1e-5,
+                                           silu)
+    assert y.dtype == x3.dtype and sums.dtype == torch.float32
+    np.testing.assert_allclose(y.float().numpy().reshape(shape), want,
+                               atol=F32_TOL if dtype == "float32"
+                               else BF16_TOL)
+    np.testing.assert_allclose(sums.numpy(), want_sums,
+                               atol=F32_TOL * np.abs(want_sums).max())
+    # the wrapper's CPU path is the plain version
+    y2, sums2 = port_gn.group_norm_fwd(x3, gamma, beta, groups, 1e-5, silu)
+    assert torch.equal(y2, y) and torch.equal(sums2, sums)
 
 
 @pytest.mark.parametrize("bad", ["groups", "scale", "ndim", "rank3",
                                  "noncontig", "dz", "mu", "apply_sums",
                                  "apply_groups", "apply_gamma", "dx_sums",
-                                 "dx_groups", "dx_dz"])
+                                 "dx_groups", "dx_dz", "fwd_groups",
+                                 "fwd_gamma", "fwd_beta", "fwd_rank3",
+                                 "fwd_noncontig", "fwd_not_tensor"])
 def test_wrappers_reject_bad_arguments(bad):
     x = torch.zeros(2, 4, 4, 8)
     scale, bias = torch.ones(8), torch.zeros(8)
@@ -308,3 +449,16 @@ def test_wrappers_reject_bad_arguments(bad):
         elif bad == "dx_dz":
             port_gn.group_norm_bwd_dx(x3, x3.double(), sums, scale, bias,
                                       sums, 4, 1e-5, True)
+        elif bad == "fwd_groups":
+            port_gn.group_norm_fwd(x3, scale, bias, 3, 1e-5, True)
+        elif bad == "fwd_gamma":
+            port_gn.group_norm_fwd(x3, scale.double(), bias, 4, 1e-5, True)
+        elif bad == "fwd_beta":
+            port_gn.group_norm_fwd(x3, scale, torch.zeros(4), 4, 1e-5, True)
+        elif bad == "fwd_rank3":
+            port_gn.group_norm_fwd(x, scale, bias, 4, 1e-5, True)
+        elif bad == "fwd_noncontig":
+            port_gn.group_norm_fwd(torch.zeros(2, 8, 16).transpose(1, 2),
+                                   scale, bias, 4, 1e-5, True)
+        elif bad == "fwd_not_tensor":
+            port_gn.group_norm_fwd(x3.tolist(), scale, bias, 4, 1e-5, True)

@@ -1,5 +1,5 @@
 """The port's kernel plumbing: import isolation, wrapper checks, and the
-seven kernels against their plain versions on a card.
+kernels against their plain versions on a card.
 
 The kernel-vs-plain tests need an NVIDIA GPU (marker `cuda`) and skip
 without one; on the card they hold K1 to `composite_plain` at 1e-4 absolute
@@ -7,11 +7,13 @@ on image and alpha and 1e-3 on depth, with at most 1e-4 of the pixels
 allowed past that (the 1e-4 saturation knife-edge and exp rounding), and
 K2 to `composite_backward_plain` at 1e-4 of each column's max-|grad|, with
 at most 1e-3 of the rows past that (a pair flipped at the knife-edge moves
-a row by its whole contribution; atomics sum in no fixed order); K3 and K5
-to `group_norm_stats_plain` / `group_norm_bwd_stats_plain` at 1e-5 of the
-largest sum; K3a to `group_norm_apply_plain` and K5a to
-`group_norm_bwd_dx_plain` within one bfloat16 ulp on all but 1e-4 of the
-outputs (bfloat16) or 1e-5 of the largest output (float32); K4 to
+a row by its whole contribution; atomics sum in no fixed order); the
+GroupNorm forward kernel's sums (alone or fused) and K5 to
+`group_norm_stats_plain` / `group_norm_bwd_stats_plain` at 1e-5 of the
+largest sum, its y (alone as K3a or fused) to `group_norm_apply_plain` and
+K5a to `group_norm_bwd_dx_plain` within one bfloat16 ulp on all but 1e-4
+of the outputs (bfloat16) or 1e-5 of the largest output (float32), its
+reruns bit-equal; K4 to
 `self_attention_plain` at 2^-7 of the largest output (one bfloat16 ulp at
 the peak).
 """
@@ -170,10 +172,14 @@ def test_guidance_wrappers_take_plain_on_the_cpu_and_do_not_count():
     assert torch.equal(attention.self_attention(q, k, v),
                        attention.self_attention_plain(q, k, v, 0.25))
     assert set(kernels.launch_counts().values()) == {0}
+    y, fsums = groupnorm.group_norm_fwd(x3, gamma, beta, 8, 1e-5, True)
+    want_y, want_sums = groupnorm.group_norm_fwd_plain(x3, gamma, beta, 8,
+                                                       1e-5, True)
+    assert torch.equal(y, want_y) and torch.equal(fsums, want_sums)
+    assert set(kernels.launch_counts().values()) == {0}
     assert set(kernels.launch_counts()) == {
-        "rasterize_fwd", "rasterize_bwd", "groupnorm_fwd_stats",
-        "groupnorm_fwd_apply", "groupnorm_bwd_stats", "groupnorm_bwd_dx",
-        "attention_fwd"}
+        "rasterize_fwd", "rasterize_bwd", "groupnorm_fwd",
+        "groupnorm_bwd_stats", "groupnorm_bwd_dx", "attention_fwd"}
 
 
 def test_group_norm_bwd_dx_takes_plain_on_the_cpu_and_does_not_count():
@@ -234,6 +240,8 @@ def test_guidance_wrappers_never_fall_back_off_the_cpu():
         groupnorm.group_norm_act(x3, gamma, beta, 8, 1e-5, True)
     with pytest.raises(ValueError, match="no GroupNorm kernel"):
         groupnorm.group_norm_apply(x3, sums, gamma, beta, 8, 1e-5, True)
+    with pytest.raises(ValueError, match="no GroupNorm kernel"):
+        groupnorm.group_norm_fwd(x3, gamma, beta, 8, 1e-5, True)
     q, k, v = random_qkv(device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="no attention kernel"):
         attention.self_attention(q, k, v)
@@ -242,8 +250,7 @@ def test_guidance_wrappers_never_fall_back_off_the_cpu():
 @pytest.mark.parametrize("kernel,stem", [
     (kernels.RASTERIZE_FWD, "rasterize_fwd"),
     (kernels.RASTERIZE_BWD, "rasterize_bwd"),
-    (kernels.GROUPNORM_FWD_STATS, "groupnorm_stats"),
-    (kernels.GROUPNORM_FWD_APPLY, "groupnorm_apply"),
+    (kernels.GROUPNORM_FWD, "groupnorm_fwd"),
     (kernels.GROUPNORM_BWD_STATS, "groupnorm_stats"),
     (kernels.GROUPNORM_BWD_DX, "groupnorm_bwd_dx"),
     (kernels.ATTENTION_FWD, "attention_fwd"),
@@ -369,7 +376,7 @@ def test_groupnorm_kernels_match_plain(cuda_device, n, rows, c, dtype):
             want5.abs().max())
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert counts["groupnorm_fwd_stats"] == 1
+    assert counts["groupnorm_fwd"] == 1
     assert counts["groupnorm_bwd_stats"] == 2
 
 
@@ -400,7 +407,115 @@ def test_groupnorm_apply_kernel_matches_plain(cuda_device, n, rows, c,
             assert float((err > ulp).float().mean()) <= 1e-4
         else:
             assert float(err.max()) <= 1e-5 * float(want.abs().max())
-    assert kernels.launch_counts()["groupnorm_fwd_apply"] == 2
+    assert kernels.launch_counts()["groupnorm_fwd"] == 2
+
+
+def _within_one_ulp(got, want, dtype):
+    """bfloat16: all but 1e-4 of the outputs within one ulp of plain;
+    float32: within 1e-5 of the largest output."""
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(want.float().abs().clamp_min(2.0 ** -126))
+        ulp = torch.ldexp(torch.ones_like(err), e - 8)
+        assert float((err > ulp).float().mean()) <= 1e-4
+    else:
+        assert float(err.max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,c,groups,dtype,offset", [
+    (2, 37, 48, 8, torch.float32, 0),  # odd rows
+    (3, 50, 33, 3, torch.float32, 0),  # no 16-byte vectors
+    (4, 1024, 320, 32, torch.bfloat16, 0),
+    (2, 64, 2560, 32, torch.bfloat16, 0),
+    (6, 256, 320, 32, torch.bfloat16, 0),
+    (2, 4096, 128, 32, torch.bfloat16, 0),
+    # x and y 4 bytes off 16: the scalar tiles at a vector-wide C
+    (2, 2048, 96, 32, torch.float32, 1),
+])
+def test_group_norm_fwd_kernel_matches_plain(cuda_device, n, rows, c, groups,
+                                             dtype, offset):
+    """The fused forward (one launch) against its plain version: sums
+    within 1e-5 of the largest, y within one bfloat16 ulp (or 1e-5 in
+    float32); a second launch gives the same bits."""
+    x3, _, gamma, beta = random_groupnorm_args(cuda_device, 5, n, rows, c,
+                                               dtype)
+    if offset:  # the same values at an address off 16 bytes
+        flat = torch.empty(x3.numel() + offset, dtype=dtype,
+                           device=cuda_device)
+        flat[offset:] = x3.reshape(-1)
+        x3 = flat[offset:].view(n, rows, c)
+        assert x3.data_ptr() % 16
+    kernels.reset_launch_counts()
+    for silu in (True, False):
+        y, sums = groupnorm.group_norm_fwd(x3, gamma, beta, groups, 1e-5,
+                                           silu)
+        y2, sums2 = groupnorm.group_norm_fwd(x3, gamma, beta, groups, 1e-5,
+                                             silu)
+        torch.cuda.synchronize()
+        want_y, want_sums = groupnorm.group_norm_fwd_plain(
+            x3, gamma, beta, groups, 1e-5, silu)
+        assert float((sums - want_sums).abs().max()) <= 1e-5 * float(
+            want_sums.abs().max())
+        assert torch.equal(sums, sums2) and torch.equal(y, y2)
+        # y against plain on the kernel's own sums
+        _within_one_ulp(y, groupnorm.group_norm_apply_plain(
+            x3, sums, gamma, beta, groups, 1e-5, silu), dtype)
+    assert kernels.launch_counts()["groupnorm_fwd"] == 4
+
+
+@pytest.mark.cuda
+def test_group_norm_fwd_replays_from_cuda_graphs(cuda_device):
+    """The fused forward captured in two CUDA graphs and replayed, with
+    eager launches on the same inputs in between, then the two graphs
+    replayed on two streams at once: every replay gives the eager launch's
+    bits (each captured launch has flag words of its own)."""
+    args = [random_groupnorm_args(cuda_device, seed, 8, 1024, 320,
+                                  torch.bfloat16) for seed in (7, 8)]
+    eager = [groupnorm.group_norm_fwd(x3, gamma, beta, 32, 1e-5, True)
+             for x3, _, gamma, beta in args]
+    torch.cuda.synchronize()
+    graphs, outs = [], []
+    for x3, _, gamma, beta in args:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(groupnorm.group_norm_fwd(x3, gamma, beta, 32, 1e-5,
+                                                 True))
+        graphs.append(graph)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+
+    def agree():
+        torch.cuda.synchronize()
+        for (y, sums), (want_y, want_sums) in zip(outs, eager):
+            assert torch.equal(y, want_y) and torch.equal(sums, want_sums)
+            y.zero_()
+            sums.zero_()
+        torch.cuda.synchronize()  # the zeros land before the next replays
+
+    for _ in range(3):
+        for graph, (x3, _, gamma, beta) in zip(graphs, args):
+            graph.replay()
+            groupnorm.group_norm_fwd(x3, gamma, beta, 32, 1e-5, True)
+        agree()
+    for _ in range(5):
+        for graph, stream in zip(graphs, streams):
+            with torch.cuda.stream(stream):
+                graph.replay()
+        agree()
+
+
+@pytest.mark.cuda
+def test_group_norm_fwd_sums_and_modes_agree(cuda_device):
+    """The sums-only mode gives the same bits twice; the normalize-only
+    mode on the fused launch's sums gives the fused launch's y."""
+    x3, _, gamma, beta = random_groupnorm_args(cuda_device, 6, 4, 1024, 320,
+                                               torch.bfloat16)
+    a = groupnorm.group_norm_stats(x3)
+    assert torch.equal(a, groupnorm.group_norm_stats(x3))
+    y, sums = groupnorm.group_norm_fwd(x3, gamma, beta, 32, 1e-5, True)
+    assert torch.equal(groupnorm.group_norm_apply(x3, sums, gamma, beta, 32,
+                                                  1e-5, True), y)
 
 
 @pytest.mark.cuda
@@ -485,7 +600,8 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda_device, bad):
 def test_controlnet_guidance_on_the_card_matches_the_plain_versions(
         cuda_device, monkeypatch):
     """The ControlNet guidance at TINY_SD_CONFIG in float32 (its UNet,
-    ControlNet and VAE norms on K3 / K3a, the differentiated encode's on
+    ControlNet and VAE norms on the GroupNorm forward kernel, the
+    differentiated encode's on
     K5 / K5a) against the same call through the GroupNorm plain versions:
     loss within 1e-5 relative, render gradient within 1e-4 of its max."""
     from humangaussian_torch.guidance import controlnet, vae
@@ -518,8 +634,8 @@ def test_controlnet_guidance_on_the_card_matches_the_plain_versions(
     loss, grad = run()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert counts["groupnorm_fwd_stats"] > 0 and counts["groupnorm_bwd_dx"] > 0
-    for name in ("stats", "apply", "bwd_stats", "bwd_dx"):
+    assert counts["groupnorm_fwd"] > 0 and counts["groupnorm_bwd_dx"] > 0
+    for name in ("fwd", "bwd_stats", "bwd_dx"):
         monkeypatch.setattr(groupnorm, f"group_norm_{name}",
                             getattr(groupnorm, f"group_norm_{name}_plain"))
     want_loss, want_grad = run()
