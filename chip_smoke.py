@@ -9,16 +9,18 @@ source, started together), writes the assets, then:
 
 1. prints the card (name, power limit), torch and CUDA versions and the
    kernels' build time;
-2. holds K1 (csrc/rasterize_fwd.cu) and K2 (csrc/rasterize_bwd.cu) against
-   their plain torch versions on the same inputs: a small random scene at
-   96x64, then a 100k-Gaussian avatar at one 1024^2 view. K1's limits:
-   1e-4 absolute on image and alpha, 1e-3 on depth, at most 1e-4 of the
-   pixels past them (the 1e-4 saturation knife-edge and exp rounding).
-   K2's: with random cotangents for image, depth and alpha, every column
-   of the feature-row gradient within 1e-4 of the column's max-|grad|, at
-   most 1e-4 of the rows past that (a pair flipped at the knife-edge moves
-   a row by its whole contribution); the largest difference between two
-   K2 launches on the same input is printed (atomics are unordered);
+2. holds K1 (csrc/rasterize_fwd.cu) and K2 + K2b (csrc/rasterize_bwd.cu:
+   each pair's gradient sums, then each Gaussian's pair rows added in
+   candidate order) against their plain torch versions on the same
+   inputs: a small random scene at 96x64, then a 100k-Gaussian avatar at
+   one 1024^2 view. K1's limits: 1e-4 absolute on image and alpha, 1e-3 on
+   depth, at most 1e-4 of the pixels past them (the 1e-4 saturation
+   knife-edge and exp rounding). K2 + K2b's: with random cotangents for
+   image, depth and alpha, every column of the feature-row gradient within
+   1e-4 of the column's max-|grad|, at most 1e-4 of the rows past that (a
+   pair flipped at the knife-edge moves a row by its whole contribution);
+   a second launch of K2 + K2b bit-equal to the first, and K2b alone on
+   K2's pair rows bit-equal to its plain version;
 3. holds the whole tiled render against the brute-force oracle at 20k
    Gaussians and 256^2: outputs with K1's limits, and the six gradients
    (means, scales, quats, sh, opacities, the means2d tap) through K1 + K2
@@ -44,8 +46,10 @@ source, started together), writes the assets, then:
    the last 5 steps be below that of the first 5, a density-control pass
    raise the number of alive Gaussians, `last.ply` load with finite
    parameters; the test PSNR is printed;
-7. times with CUDA events (medians after a warm-up) K1 and K2 per 1024^2
-   avatar view (shape a) and at the first training view (shape b), with
+7. times with CUDA events (medians after a warm-up) K1, K2, K2b and the
+   whole backward K2 + K2b per 1024^2 avatar view (shape a) and at the
+   first training view (shape b) (K2b beside its bound and `index_add_` of
+   the same pair rows), with
    their busy tiles, largest segment, the share of pair x pixel slots
    that the sub-tile skip removes (`subtile_pair_mask`) and two bounds:
    from the contributions alone (`needed_bounds`, the `kernels` line's
@@ -65,9 +69,10 @@ source, started together), writes the assets, then:
    encoder's shapes at batch 8 and 512^2 ([8, 262144, 128], [8, 65536,
    128], [8, 65536, 256], [8, 16384, 256], [8, 16384, 512], [8, 4096,
    512]), bfloat16: every sum within 1e-5 of the f64 sum of magnitudes of
-   its (sample, channel), the forward's sums and y bit-equal on a second
-   launch; y (fused, and K3a alone) against `group_norm_apply_plain` and
-   K5a against `group_norm_bwd_dx_plain` on the same sums, and the op
+   its (sample, channel), the forward's sums and y, K5's sums and K5a's dx
+   bit-equal on a second launch; y (fused, and K3a alone) against
+   `group_norm_apply_plain` and K5a against `group_norm_bwd_dx_plain` on
+   the same sums, and the op
    `group_norm_act` (forward K3 + K3a, backward K5 + K5a) against the
    plain op (the plain versions): in bfloat16 within one ulp on all but
    1e-4 of the outputs, in float32 within 1e-5 of the largest output;
@@ -94,15 +99,16 @@ source, started together), writes the assets, then:
    the avatar system with `apps.launch.build_system` from
    configs/avatar.yaml at full width, pointed at those files, the cache
    and phase 4's SMPL-X stand-in (899,719,048 UNet parameters, capacity
-   524,288, 100,000 initial points); holds K1 and K2 against their plain
-   versions (phase 2's limits) on the step's own batch shape (shape c: 8
+   524,288, 100,000 initial points); holds K1 and K2 + K2b against their
+   plain versions (phase 2's limits and reruns) on the step's own batch
+   shape (shape c: 8
    orbit views of the avatar PLY at 1024^2 with the training rasterizer,
    tile 32 and a 2x2 tile rect) and times them there beside their bounds;
    then drives `GaussianDreamerSystem.train_step` from `init_state`: one
    checked step (cameras, pose images, timesteps and text drawn from the
    state's generator; the metrics and every gradient row finite, the dead
    slots included; Adam moved alive rows and left every dead slot as it
-   was; launches exactly K1 1, K2 1, K4 20 (10 self-attention sites at
+   was; launches exactly K1 1, K2 1, K2b 1, K4 20 (10 self-attention sites at
    4096 tokens, 5 at 1024, 5 at 256) and, counted from the module trees,
    K3 + K3a once per norm of one UNet forward (77) and of five VAE
    encoder passes (rgb, depth, pose, and the rgb and depth encoders
@@ -113,9 +119,10 @@ source, started together), writes the assets, then:
    system's and the guidance's own methods, wrapped on the instances
    (inputs, render, three encodes, `compute_grad`, loss + backward, Adam +
    statistics); one profiled step (device busy, idle share, top kernels by
-   name and by launching operator and input shapes, K1's and K2's device
-   ms and the GroupNorm forward's); peak memory; the densify statistic's quantiles; the pose images
-   of 8 views timed with `_fma` and with plain float32 products (and the
+   name and by launching operator and input shapes, K1's, K2's and K2b's
+   device ms and the GroupNorm forward's); peak memory; the densify
+   statistic's quantiles; the pose images of 8 views timed with `_fma`
+   and with plain float32 products (and the
    pixels where they differ); and a VAE encode with channels_last and with
    contiguous weights;
 12. runs `sample_joint` at batch 2 for 4 DDIM steps, conditioned on the
@@ -138,8 +145,9 @@ source, started together), writes the assets, then:
    orbit video (120 views, 15 K1 launches), `metrics.csv` and `ckpts/last`
    exist, `last.ply` reads back through `load_ply` with the run's alive
    count, K1 launches once a step and once per chunk of a render_eval and
-   K2 once a step; then `--resume <save>/ckpts/last trainer.max_steps=13`
-   takes exactly one step. Prints the phase's wall seconds, the seconds
+   K2 and K2b once a step; then `--resume <save>/ckpts/last
+   trainer.max_steps=13` takes exactly one step. Prints the phase's wall
+   seconds, the seconds
    a step inside the loop and `finalize`'s seconds;
 15. (with phase 11, on its system) one `train_step` with the guidance in
    mode `sjc` (finite metrics and gradients, Adam on alive rows only, the
@@ -261,20 +269,27 @@ source, started together), writes the assets, then:
    exactly once per GAN norm of the level's path (the discriminator's three
    times); ms per render;
 30. `multihost_init` (NCCL at world size 1, torchrun's variables set by the
-   script) and `make_dp_train_step` on phase 11's system: one DP step
-   against `train_step` from copies of one state (loss within 2e-4
-   relative, means within 1e-5, max_radii2d and the generator's state
-   equal), launches exactly phase 11's; ms per DP step beside
-   `train_step`'s, in turns;
-and prints the `kernels` JSON line (all seven kernels, each with the
+   script) and `make_dp_train_step` on phase 11's system, every kernel on
+   the path and torch's deterministic algorithms on (no wrapper swapped):
+   `train_step` against itself from copies of one state bit-equal (loss
+   relative 0, means 0.0, max_radii2d and the generator's state equal),
+   one DP step against `train_step` (loss within 2e-4 relative, means
+   within 1e-5, max_radii2d and the generator's state equal), launches
+   exactly phase 11's; the ops that warned they have no deterministic
+   implementation; what still differs from run to run with the flag off,
+   and with cuDNN's deterministic convolutions alone; ms per DP step
+   beside `train_step`'s, in turns;
+and prints the `kernels` JSON line (all eight kernels, each with the
 launches of one `train_step` of phase 11, the main path, and
 `launches_deep_floyd_step` (phase 16, Perp-Neg off),
 `launches_sample_cli` (phase 17), `launches_controlnet_call` (phase 27)
 and `launches_dp_step` (phase 30); K1's row also
-carries `launches_serving_and_photo` (phases 4 to 6) and K2's
-`launches_photo` (phase 6); K1's and K2's rows also carry
-`ms_guidance_batch`, `bound_ms_guidance_batch` and
-`bound_ms_guidance_batch_visits`, shape c), and `launches_photo_data`
+carries `launches_serving_and_photo` (phases 4 to 6), K2's and K2b's
+`launches_photo` (phase 6); K1's, K2's and K2b's rows also carry
+`ms_guidance_batch` and `bound_ms_guidance_batch` (K1's and K2's also
+`bound_ms_guidance_batch_visits`), shape c; K2's row the whole
+backward's (K2 + K2b) `ms_with_k2b`, `ms_avatar_view_with_k2b` and
+`ms_guidance_batch_with_k2b`), and `launches_photo_data`
 (phases 20 and 21), K1's `launches_viewer` (phase 24), and every row's
 `launches_dreamfusion_step` (phase 25b's checked step)) and, last, the
 device JSON line. `--only GROUP[,GROUP]` (render, norm, attention,
@@ -302,6 +317,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -335,6 +351,7 @@ OPS_PER_CONTRIB_BWD = 39
 TOL = {"image": 1e-4, "alpha": 1e-4, "depth": 1e-3}
 MAX_BAD_FRACTION = 1e-4
 GRAD_TOL = 1e-4  # K2 vs plain, of each column's max-|grad|
+K2B_TOL = 0.0  # K2b vs plain on the same pair rows: the same arithmetic
 ORACLE_GRAD_TOL = 2e-4  # K1 + K2 vs autograd through the oracle
 FEATURE_NAMES = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "r",
                  "g", "b", "opacity", "depth")
@@ -441,26 +458,105 @@ def compare_grads(name, got, want, names, tol, max_bad_fraction=0.0):
     return worst_abs, worst_rel
 
 
-def k2_vs_plain(name, kargs, bg, tiles, cfg, fwd, plain_fwd, seed):
-    """K2 on K1's saved outputs against the plain backward on the plain
-    forward's, and K2's run-to-run difference. Returns the errors, the
-    cotangents and K2's gradient."""
+def k2_vs_plain(name, kargs, routing, bg, tiles, cfg, fwd, plain_fwd, seed):
+    """K2 + K2b on K1's saved outputs against the plain backward on the
+    plain forward's; a second launch of both must give the same bits, and
+    K2b alone on K2's sub-tile rows its plain version's bits. Returns K2's
+    errors, the cotangents, the gradient, K2b's max abs error and the
+    number of sub-tile rows K2 wrote."""
     from humangaussian_torch.ops.rasterize_tiled import (
         composite_backward,
+        composite_backward_pairs,
         composite_backward_plain,
+        feature_row_grads,
+        feature_row_grads_plain,
     )
 
     cot = random_cotangents(fwd, seed)
-    got = composite_backward(*kargs, bg, fwd, cot, *tiles, cfg)
-    again = composite_backward(*kargs, bg, fwd, cot, *tiles, cfg)
+    got = composite_backward(*kargs, bg, fwd, cot, *tiles, cfg, routing)
+    again = composite_backward(*kargs, bg, fwd, cot, *tiles, cfg, routing)
     torch.cuda.synchronize()
-    want = composite_backward_plain(*kargs, bg, plain_fwd, cot, *tiles, cfg)
+    check(torch.equal(got, again), f"{name}: K2 + K2b differ on a rerun")
+    want = composite_backward_plain(*kargs, bg, plain_fwd, cot, *tiles, cfg,
+                                    routing)
     errs = compare_grads(name, got.unbind(1), want.unbind(1), FEATURE_NAMES,
                          GRAD_TOL, MAX_BAD_FRACTION)
-    scale = want.abs().amax(dim=0).clamp_min(1e-20)
-    print(f"  {name}: K2 run-to-run max difference / max|grad| = "
-          f"{float(((got - again).abs() / scale).max()):.3e}")
-    return errs, cot, got
+    rows, mask = composite_backward_pairs(*kargs, bg, fwd, cot, *tiles, cfg)
+    rows_err = float((feature_row_grads(rows, mask, *routing, kargs[0])
+                      - feature_row_grads_plain(rows, mask, *routing,
+                                                kargs[0])).abs().max())
+    written = int(mask[routing[0][routing[0] >= 0].to(torch.int64)].sum())
+    print(f"  {name}: K2 + K2b bit-equal on a rerun; K2 wrote {written} "
+          f"sub-tile rows; K2b vs plain on them max_abs_err={rows_err:.3e} "
+          f"(limit {K2B_TOL:g})")
+    check(rows_err <= K2B_TOL, f"{name}: K2b differs from plain")
+    return errs, cot, got, rows_err, written
+
+
+def k2b_bound(kargs, routing, written):
+    """(bound ms, bound by) of K2b on these inputs: the routing, the mask
+    of the counted pairs and the `written` sub-tile rows, the conic of
+    each row that has a pair read once, every gradient row written once,
+    over the memory rate (its few adds a row are far under the
+    instruction rate)."""
+    feats = kargs[0]
+    cand_pos, row_starts = routing
+    kept = int((cand_pos >= 0).sum())
+    rows = feats.shape[0]
+    with_pairs = int((row_starts[1:] > row_starts[:-1]).sum())
+    n_bytes = ((rows + 1) * 4 + cand_pos.numel() * 4 + kept * 16
+               + written * 40 + with_pairs * 12 + rows * 40)
+    return n_bytes / H100_BYTES_PER_S * 1e3, "bytes"
+
+
+def k2_times(label, kargs, routing, bg, tiles, cfg, fwd, cot, plain=True):
+    """ms (CUDA events, medians after a warm-up) of K2 alone
+    (`composite_backward_pairs`), K2b alone on K2's sub-tile rows
+    (`feature_row_grads`), the whole backward K2 + K2b
+    (`composite_backward`, what the parent tree's K2 timing covered), with
+    `plain` their plain versions, K2b's bound and the library call for
+    K2b's sums (`index_add_` of the masked sub-tile rows of the counted
+    pairs into zeroed rows, without the per-row transform and in no fixed
+    order)."""
+    from humangaussian_torch.ops.rasterize_tiled import (
+        composite_backward,
+        composite_backward_pairs,
+        composite_backward_pairs_plain,
+        feature_row_grads,
+        feature_row_grads_plain,
+    )
+
+    feats, gids = kargs[0], kargs[1]
+    rows, mask = composite_backward_pairs(*kargs, bg, fwd, cot, *tiles, cfg)
+    out = {
+        "k2": cuda_ms(lambda: composite_backward_pairs(
+            *kargs, bg, fwd, cot, *tiles, cfg), reps=20),
+        "k2b": cuda_ms(lambda: feature_row_grads(rows, mask, *routing,
+                                                 feats), reps=20, inner=5),
+        "both": cuda_ms(lambda: composite_backward(
+            *kargs, bg, fwd, cot, *tiles, cfg, routing), reps=20),
+    }
+    kept = routing[0][routing[0] >= 0].to(torch.int64)
+    pair, sub = (mask[kept] != 0).nonzero(as_tuple=True)
+    lib_rows = rows[kept[pair], sub]
+    lib_gids = gids[kept[pair]].to(torch.int64)
+    acc = torch.zeros_like(feats)
+    out["k2b_library"] = cuda_ms(
+        lambda: acc.index_add_(0, lib_gids, lib_rows), reps=20, inner=5)
+    out["k2b_bound"] = k2b_bound(kargs, routing, lib_rows.shape[0])[0]
+    del kept, pair, sub, lib_rows, lib_gids, acc
+    if plain:
+        out["k2_plain"] = cuda_ms(lambda: composite_backward_pairs_plain(
+            *kargs, bg, fwd, cot, *tiles, cfg), reps=3)
+        out["k2b_plain"] = cuda_ms(lambda: feature_row_grads_plain(
+            rows, mask, *routing, feats), reps=3)
+    print(f"  {label}: K2 {out['k2']:.4f} ms, K2b {out['k2b']:.4f} ms "
+          f"(bound {out['k2b_bound']:.5f} ms by bytes; index_add_ of the "
+          f"sub-tile rows {out['k2b_library']:.4f} ms), K2 + K2b "
+          f"{out['both']:.4f} ms" + (
+              f" (plain K2 {out['k2_plain']:.3f} ms, K2b "
+              f"{out['k2b_plain']:.3f} ms)" if plain else ""))
+    return out
 
 
 def last_contributor_account(name, got, plain):
@@ -476,19 +572,21 @@ def last_contributor_account(name, got, plain):
           f"{elsewhere:.3e}")
 
 
-def k2_bound(kargs, tiles, fwd, contribs, visits=None):
+def k2_bound(kargs, tiles, fwd, contribs, written, visits=None):
     """(bound ms, bound by, bytes ms, ops ms, visits) of K2 on these
     inputs: every input read once (feature rows, pair ids, segment table,
-    the four saved images, the three cotangents) and the gradient rows
-    written once, over the memory rate; the pair-pixel visits and the
+    the four saved images, the three cotangents) and its outputs written
+    once (the 16 mask bytes of every counted pair and the `written`
+    sub-tile rows), over the memory rate; the pair-pixel visits and the
     contributions over the instruction rate. `visits` defaults to the
     replayed visits of the plain walk (up to each pixel's last
     contributor); given `contribs`, only the work any implementation must
     do is counted (see `needed_bounds`)."""
-    feats, gids = kargs[0], kargs[1]
+    feats, gids, counts = kargs[0], kargs[1], kargs[3]
     pixels = fwd["depth"].numel()
-    n_bytes = (2 * feats.numel() * 4 + gids.numel() * 4
-               + 2 * tiles[0] * tiles[1] * 4 + pixels * (6 + 5) * 4)
+    n_bytes = (feats.numel() * 4 + gids.numel() * 4
+               + 2 * tiles[0] * tiles[1] * 4 + pixels * (6 + 5) * 4
+               + int(counts.sum()) * 16 + written * 40)
     if visits is None:
         visits = int(fwd["n_contrib"].sum())
     bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
@@ -537,7 +635,7 @@ def raster_work(kargs, tiles, cfg, fwd):
     }
 
 
-def needed_bounds(kargs, tiles, fwd, contribs):
+def needed_bounds(kargs, tiles, fwd, contribs, written):
     """K1's and K2's bounds counted from the contributions alone: a pair
     that passes the alpha gate at a pixel before the pixel saturates is
     work every implementation does (its power term, exp and blend in K1,
@@ -547,7 +645,8 @@ def needed_bounds(kargs, tiles, fwd, contribs):
     pixels = fwd["depth"].numel()
     b1 = k1_bound(kargs, tiles, pixels, contribs, contribs)
     b1 = (*b1[:3], max(b1[3], b1[4]))
-    return b1, k2_bound(kargs, tiles, fwd, contribs, visits=contribs)
+    return b1, k2_bound(kargs, tiles, fwd, contribs, written,
+                        visits=contribs)
 
 
 def bound_text(needed, visits_bound):
@@ -984,10 +1083,10 @@ def backward_host_cost(dev, shape=(24, 64, 2560), calls=100):
 def norm_phase(dev) -> dict:
     """Phase 9: the GroupNorm forward kernel (K3 + K3a in one launch, and
     its sums-only and normalize-only modes K3 and K3a) and K5 against
-    their plain versions and f64 sums, bit-equal reruns of the forward, K5a
-    against its plain version, the whole op (forward and backward) against
-    the plain op, times, bounds and the library yardstick, at the UNet's
-    and the VAE's shapes."""
+    their plain versions and f64 sums, bit-equal reruns of the forward, K5
+    and K5a, K5a against its plain version, the whole op (forward and
+    backward) against the plain op, times, bounds and the library
+    yardstick, at the UNet's and the VAE's shapes."""
     import torch.nn.functional as F
 
     from humangaussian_torch import kernels
@@ -1084,7 +1183,12 @@ def norm_phase(dev) -> dict:
         for silu in (True, False):
             got5 = group_norm_bwd_stats(x, dz, plain, gamma, beta, groups,
                                         1e-5, silu)
+            again5 = group_norm_bwd_stats(x, dz, plain, gamma, beta, groups,
+                                          1e-5, silu)
             torch.cuda.synchronize()
+            check(torch.equal(got5, again5),
+                  f"K5 {label}: two launches differ")
+            del again5
             plain5 = group_norm_bwd_stats_plain(x, dz, plain, gamma, beta,
                                                 groups, 1e-5, silu)
             xh = (x64 - mu_c.double()[:, None]) * rstd_c.double()[:, None]
@@ -1100,7 +1204,7 @@ def norm_phase(dev) -> dict:
             e_k = sums_error(got5, want5, scale5)
             e_p = sums_error(plain5, want5, scale5)
             print(f"  K5 {label} silu={silu}: kernel vs f64 {e_k:.3e}, plain "
-                  f"vs f64 {e_p:.3e}")
+                  f"vs f64 {e_p:.3e}; two launches bit-equal")
             check(e_k <= GN_STATS_TOL, f"K5 {label}: {e_k} off the f64 sums")
             check(e_p <= GN_STATS_TOL, f"K5 plain {label}: {e_p}")
             bwd["err"] = max(bwd["err"], float((got5 - plain5).abs().max()))
@@ -1108,13 +1212,19 @@ def norm_phase(dev) -> dict:
 
             dx_k = group_norm_bwd_dx(x, dz, plain, gamma, beta, got5, groups,
                                      1e-5, silu)
+            dx_k2 = group_norm_bwd_dx(x, dz, plain, gamma, beta, got5,
+                                      groups, 1e-5, silu)
             torch.cuda.synchronize()
+            check(torch.equal(dx_k, dx_k2),
+                  f"K5a {label}: two launches differ")
+            del dx_k2
             dx_p = group_norm_bwd_dx_plain(x, dz, plain, gamma, beta, got5,
                                            groups, 1e-5, silu)
             how, ok, worst = off_plain(dx_k, dx_p)
             bdx["err"] = max(bdx["err"], worst)
             print(f"  K5a {label} silu={silu}: {how_name} {how:.2e} (limit "
-                  f"{limit:g}), max difference {worst:.3e}")
+                  f"{limit:g}), max difference {worst:.3e}; two launches "
+                  f"bit-equal")
             check(ok and bool(torch.isfinite(dx_k).all()), f"K5a {label}")
             del dx_k, dx_p
         del x64, want, scale
@@ -1486,14 +1596,13 @@ def build_avatar_system(dev, overrides):
 
 
 def guidance_batch_kernels(avatar, cams, rcfg, bg) -> dict:
-    """Shape (c): K1 and K2 on the guidance step's own batch (the orbit
-    views of phase 11 at SIZE^2, the training rect) against their plain
-    versions with phase 2's limits, timed (CUDA events, medians after a
-    warm-up) beside their bounds, with the work the sub-tile skip
-    removes."""
+    """Shape (c): K1, K2 and K2b on the guidance step's own batch (the
+    orbit views of phase 11 at SIZE^2, the training rect) against their
+    plain versions with phase 2's limits (K2 + K2b bit-equal on a rerun),
+    timed (CUDA events, medians after a warm-up) beside their bounds, with
+    the work the sub-tile skip removes."""
     from humangaussian_torch.ops.rasterize_tiled import (
         composite,
-        composite_backward,
         composite_inputs,
         composite_plain,
     )
@@ -1510,37 +1619,37 @@ def guidance_batch_kernels(avatar, cams, rcfg, bg) -> dict:
     plain = composite_plain(*kargs, bg, *tiles, rcfg)
     k1_err = compare(label, got, plain)
     last_contributor_account(label, got, plain)
-    k2_err, cot, _ = k2_vs_plain(label, kargs, bg, tiles, rcfg, got, plain,
-                                 seed=16)
+    routing = (pairs.cand_pos, pairs.row_starts)
+    k2_err, cot, _, k2b_err, written = k2_vs_plain(
+        label, kargs, routing, bg, tiles, rcfg, got, plain, seed=16)
     visits, contribs = int(plain["visits"]), int(plain["contribs"])
     del plain
     fwd = {k: got[k] for k in ("image", "depth", "final_t", "n_contrib")}
 
-    def k1():
-        composite(*kargs, bg, *tiles, rcfg)
-
-    def k2():
-        composite_backward(*kargs, bg, fwd, cot, *tiles, rcfg)
-
-    k1_ms = cuda_ms(k1, reps=20)
-    k2_ms = cuda_ms(k2, reps=20)
+    k1_ms = cuda_ms(lambda: composite(*kargs, bg, *tiles, rcfg), reps=20)
+    times = k2_times(label, kargs, routing, bg, tiles, rcfg, fwd, cot,
+                     plain=False)
     b1 = k1_bound(kargs, tiles, got["depth"].numel(), visits, contribs)
-    b2 = k2_bound(kargs, tiles, fwd, contribs)
-    n1, n2 = needed_bounds(kargs, tiles, fwd, contribs)
+    b2 = k2_bound(kargs, tiles, fwd, contribs, written)
+    n1, n2 = needed_bounds(kargs, tiles, fwd, contribs, written)
     print(f"  {label}: pairs={int(pairs.gids.numel())} overflow="
           f"{int(pairs.overflow)} pair-pixel visits={visits} contributions="
           f"{contribs}; {work_line(raster_work(kargs, tiles, rcfg, fwd))}")
     print(f"  K1 {label}: {k1_ms:.4f} ms, {bound_text(n1, b1)}")
-    print(f"  K2 {label}: {k2_ms:.4f} ms, replays {b2[4]} visits, "
+    print(f"  K2 {label}: {times['k2']:.4f} ms, replays {b2[4]} visits, "
           f"{bound_text(n2, b2)}")
-    return {"k1_err": k1_err, "k2_err": k2_err, "k1_ms": k1_ms,
-            "k1_bound": n1[0], "k1_bound_visits": b1[0], "k2_ms": k2_ms,
-            "k2_bound": n2[0], "k2_bound_visits": b2[0]}
+    return {"k1_err": k1_err, "k2_err": k2_err, "k2b_err": k2b_err,
+            "k1_ms": k1_ms, "k1_bound": n1[0], "k1_bound_visits": b1[0],
+            "k2_ms": times["k2"], "k2_bound": n2[0],
+            "k2_bound_visits": b2[0], "k2_k2b_ms": times["both"],
+            "k2b_ms": times["k2b"], "k2b_bound": times["k2b_bound"],
+            "k2b_library_ms": times["k2b_library"]}
 
 
 def launches(**counts) -> dict:
     """A full launch-count dict: the kernels named, the rest 0."""
-    out = dict.fromkeys(("rasterize_fwd", "rasterize_bwd", "groupnorm_fwd",
+    out = dict.fromkeys(("rasterize_fwd", "rasterize_bwd",
+                         "rasterize_bwd_rows", "groupnorm_fwd",
                          "groupnorm_bwd_stats", "groupnorm_bwd_dx",
                          "attention_fwd"), 0)
     out.update(counts)
@@ -1555,7 +1664,8 @@ def dual_branch_step_launches(guidance) -> dict:
     enc_norms = norms_in(guidance.vae.encoder)
     passes = 3 + (2 if guidance.cfg.remat_encode else 0)
     forward = norms_in(guidance.unet) + passes * enc_norms
-    return launches(rasterize_fwd=1, rasterize_bwd=1, groupnorm_fwd=forward,
+    return launches(rasterize_fwd=1, rasterize_bwd=1, rasterize_bwd_rows=1,
+                    groupnorm_fwd=forward,
                     groupnorm_bwd_stats=2 * enc_norms,
                     groupnorm_bwd_dx=2 * enc_norms,
                     attention_fwd=ATTN_PER_UNET_FORWARD)
@@ -1781,7 +1891,8 @@ def train_step_phase(dev, system, assets):
 
     by_name = profile_device_time("1 train_step", step, top=16,
                                   by_shape=16) or {}
-    for label, key in (("K1", "rasterize_fwd"), ("K2", "rasterize_bwd"),
+    for label, key in (("K1", "rasterize_fwd"), ("K2", "rasterize_bwd_kernel"),
+                       ("K2b", "rasterize_bwd_rows_kernel"),
                        ("the GroupNorm forward (K3 + K3a)", "groupnorm_fwd")):
         ms = sum(us for n, us in by_name.items() if key in n) / 1e3
         print(f"  {label} device time in the profiled step: {ms:.4f} ms")
@@ -1932,7 +2043,8 @@ def trainer_phase(dev, tmp, overrides):
           f"{val_launches} for the validation renders + {orbit_launches} "
           f"orbit batches of {cc.batch_size})")
     check(launches["rasterize_fwd"] == want_fwd
-          and launches["rasterize_bwd"] == TRAINER_STEPS,
+          and launches["rasterize_bwd"] == TRAINER_STEPS
+          and launches["rasterize_bwd_rows"] == TRAINER_STEPS,
           f"trainer launches {launches}")
     final = load_ply(os.path.join(save, "last.ply"), device=dev)
     last_alive = alive[TRAINER_STEPS]
@@ -1999,9 +2111,8 @@ def sample_phase(dev, system):
     # 4 UNet forwards, one pose encode, two decodes, no backward
     forward = (4 * norms_in(guidance.unet) + norms_in(guidance.vae.encoder)
                + 2 * norms_in(guidance.vae.decoder))
-    want = {"rasterize_fwd": 0, "rasterize_bwd": 0, "groupnorm_fwd": forward,
-            "groupnorm_bwd_stats": 0, "groupnorm_bwd_dx": 0,
-            "attention_fwd": 4 * ATTN_PER_UNET_FORWARD}
+    want = launches(groupnorm_fwd=forward,
+                    attention_fwd=4 * ATTN_PER_UNET_FORWARD)
     check(counts == want, f"sample_joint launches {counts}, want {want}")
 
 
@@ -2064,9 +2175,9 @@ def unet_backward_phase(dev, unet) -> dict:
           "non-finite input gradient")
     check(all(float(x.abs().max()) > 0 for x in grads), "zero input gradient")
     norms = norms_in(unet)
-    want = {"rasterize_fwd": 0, "rasterize_bwd": 0, "groupnorm_fwd": norms,
-            "groupnorm_bwd_stats": norms, "groupnorm_bwd_dx": norms,
-            "attention_fwd": ATTN_PER_UNET_FORWARD}
+    want = launches(groupnorm_fwd=norms, groupnorm_bwd_stats=norms,
+                    groupnorm_bwd_dx=norms,
+                    attention_fwd=ATTN_PER_UNET_FORWARD)
     check(counts == want, f"launches {counts}, want {want}")
     del unet, grads, args
 
@@ -2316,7 +2427,7 @@ def deep_floyd_phase(dev, tmp, base_overrides) -> dict:
     # Perp-Neg's four segments, in one batch); no flash attention; nothing
     # differentiated through a norm
     norm_count = norms_in(unet)
-    want = launches(rasterize_fwd=1, rasterize_bwd=1,
+    want = launches(rasterize_fwd=1, rasterize_bwd=1, rasterize_bwd_rows=1,
                     groupnorm_fwd=norm_count)
     state = system.init_state(seed=0)
     state, _row, counts, peak, _ = checked_step(system, state, "IF step 1")
@@ -2430,6 +2541,7 @@ def if_cli(dev, tmp, overrides, norm_count):
                + -(-cc.n_test_views // cc.batch_size))
     want = launches(rasterize_fwd=IF_CLI_STEPS + renders,
                     rasterize_bwd=IF_CLI_STEPS,
+                    rasterize_bwd_rows=IF_CLI_STEPS,
                     groupnorm_fwd=IF_CLI_STEPS * norm_count)
     print(f"  apps.launch --train (deep-floyd), {IF_CLI_STEPS} steps: "
           f"{wall:.1f} s with build, validation and finalize; losses "
@@ -2647,6 +2759,9 @@ def run(dev, only=()) -> int:
                 rows[name]["launches_photo_data"] = photo["counts"][name]
                 rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                                 photo[key])
+        if "rasterize_bwd_rows" in rows:
+            rows["rasterize_bwd_rows"]["launches_photo_data"] = photo[
+                "counts"]["rasterize_bwd_rows"]
     if want("tools"):
         viewer_launches = tools_phases(dev, tmp, assets)
         if "rasterize_fwd" in rows:
@@ -2681,6 +2796,15 @@ def run(dev, only=()) -> int:
                         key + "_bound"]
                     rows[name]["bound_ms_guidance_batch_visits"] = batch[
                         key + "_bound_visits"]
+            if "rasterize_bwd" in rows:
+                rows["rasterize_bwd"]["ms_guidance_batch_with_k2b"] = batch[
+                    "k2_k2b_ms"]
+            if "rasterize_bwd_rows" in rows:
+                row = rows["rasterize_bwd_rows"]
+                row["max_abs_err"] = max(row["max_abs_err"], batch["k2b_err"])
+                row["ms_guidance_batch"] = batch["k2b_ms"]
+                row["bound_ms_guidance_batch"] = batch["k2b_bound"]
+                row["library_ms_guidance_batch"] = batch["k2b_library_ms"]
         if want("sample"):
             sample_phase(dev, system)
         if want("controlnet"):
@@ -2744,7 +2868,7 @@ def run(dev, only=()) -> int:
 
 def render_phases(dev, tmp, assets) -> dict:
     """Phases 2 to 8 (the render paths: serving and photo training);
-    returns the `kernels` rows of K1 and K2."""
+    returns the `kernels` rows of K1, K2 and K2b."""
     from humangaussian_torch import kernels
     from humangaussian_torch.apps import animate
     from humangaussian_torch.core.camera import camera_from_c2w
@@ -2757,8 +2881,6 @@ def render_phases(dev, tmp, assets) -> dict:
     from humangaussian_torch.ops.rasterize_ref import rasterize_reference
     from humangaussian_torch.ops.rasterize_tiled import (
         composite,
-        composite_backward,
-        composite_backward_plain,
         composite_inputs,
         composite_plain,
         rasterize_tiled,
@@ -2771,7 +2893,8 @@ def render_phases(dev, tmp, assets) -> dict:
 
     def raster_counts():
         counts = kernels.launch_counts()
-        return {k: counts[k] for k in ("rasterize_fwd", "rasterize_bwd")}
+        return {k: counts[k] for k in ("rasterize_fwd", "rasterize_bwd",
+                                       "rasterize_bwd_rows")}
 
     # -- phase 2a: K1 vs plain, small random scene ----------------------
     print("phase 2: K1 and K2 vs plain")
@@ -2791,8 +2914,9 @@ def render_phases(dev, tmp, assets) -> dict:
     torch.cuda.synchronize()
     plain = composite_plain(*kargs, bg, tx, ty, cfg)
     k1_err = compare("small 96x64", got, plain)
-    k2_err, _, _ = k2_vs_plain("small 96x64", kargs, bg, (tx, ty), cfg, got,
-                               plain, seed=3)
+    k2_err, _, _, k2b_err, _ = k2_vs_plain(
+        "small 96x64", kargs, (pairs.cand_pos, pairs.row_starts), bg,
+        (tx, ty), cfg, got, plain, seed=3)
 
     # -- the avatar feeds phase 2b, 4 and 5 ------------------------------
     smplx_path, ply, motion, _ = assets
@@ -2822,13 +2946,16 @@ def render_phases(dev, tmp, assets) -> dict:
           f"{int(busy.max())}")
     check(float(got["alpha"].max()) > 0.9, "avatar not in view")
     last_contributor_account("avatar view", got, plain)
-    errs, avatar_cot, _ = k2_vs_plain(
-        f"avatar {SIZE}x{SIZE}", kargs, black, (tx, ty), cfg, got, plain,
-        seed=4)
+    avatar_routing = (pairs.cand_pos, pairs.row_starts)
+    errs, avatar_cot, _, rows_err, avatar_written = k2_vs_plain(
+        f"avatar {SIZE}x{SIZE}", kargs, avatar_routing, black, (tx, ty), cfg,
+        got, plain, seed=4)
     k2_err = tuple(max(a, b) for a, b in zip(k2_err, errs))
+    k2b_err = max(k2b_err, rows_err)
     avatar_fwd = {k: got[k] for k in ("image", "depth", "final_t",
                                       "n_contrib")}
-    avatar_k2_bound = k2_bound(kargs, (tx, ty), got, contribs)
+    avatar_k2_bound = k2_bound(kargs, (tx, ty), got, contribs,
+                               avatar_written)
     print(f"  avatar view: K2 replays {avatar_k2_bound[4]} pair-pixel "
           f"visits")
 
@@ -2857,7 +2984,8 @@ def render_phases(dev, tmp, assets) -> dict:
     kernels.reset_launch_counts()
     got_grads = scene_grads(rasterize_tiled, tile_capacity=N_ORACLE)
     torch.cuda.synchronize()
-    check(raster_counts() == {"rasterize_fwd": 1, "rasterize_bwd": 1},
+    check(raster_counts() == {"rasterize_fwd": 1, "rasterize_bwd": 1,
+                              "rasterize_bwd_rows": 1},
           f"gradient launches {kernels.launch_counts()}")
     compare_grads(
         f"{N_ORACLE} Gaussians {ORACLE_SIZE}^2 vs the oracle", got_grads,
@@ -2973,7 +3101,8 @@ def render_phases(dev, tmp, assets) -> dict:
           f"{alive_counts[-1]} (max {max(alive_counts)})")
     check(len(steps) == TRAIN_STEPS, f"{len(steps)} steps logged")
     check(train_launches == {"rasterize_fwd": TRAIN_STEPS + TEST_VIEWS,
-                             "rasterize_bwd": TRAIN_STEPS},
+                             "rasterize_bwd": TRAIN_STEPS,
+                             "rasterize_bwd_rows": TRAIN_STEPS},
           f"training launches {train_launches}")
     check(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
           "the loss did not fall")
@@ -2997,17 +3126,14 @@ def render_phases(dev, tmp, assets) -> dict:
     k1_visits_bound = k1_bound(kargs, (tx, ty), SIZE * SIZE, visits,
                                contribs)
     k1_needed, k2_avatar_needed = needed_bounds(kargs, (tx, ty), avatar_fwd,
-                                                contribs)
+                                                contribs, avatar_written)
     print(f"  K1 {SIZE}^2 avatar view: {k1_ms:.4f} ms (plain {plain_ms:.3f} "
           f"ms), {n_pairs} pairs, {bound_text(k1_needed, k1_visits_bound)}")
-    k2_avatar_ms = cuda_ms(
-        lambda: composite_backward(*kargs, black, avatar_fwd, avatar_cot, tx,
-                                   ty, cfg), reps=20)
-    k2_avatar_plain_ms = cuda_ms(
-        lambda: composite_backward_plain(*kargs, black, avatar_fwd,
-                                         avatar_cot, tx, ty, cfg), reps=3)
+    avatar_times = k2_times(f"{SIZE}^2 avatar view", kargs, avatar_routing,
+                            black, (tx, ty), cfg, avatar_fwd, avatar_cot)
+    k2_avatar_ms = avatar_times["k2"]
     print(f"  K2 {SIZE}^2 avatar view: {k2_avatar_ms:.4f} ms (plain "
-          f"{k2_avatar_plain_ms:.3f} ms), "
+          f"{avatar_times['k2_plain']:.3f} ms), "
           f"{bound_text(k2_avatar_needed, avatar_k2_bound)}")
     print(f"  avatar view: {work_line(raster_work(kargs, (tx, ty), cfg, avatar_fwd))}")
 
@@ -3028,10 +3154,12 @@ def render_phases(dev, tmp, assets) -> dict:
     torch.cuda.synchronize()
     tplain = composite_plain(*targs, black, ttx, tty, trainer.raster_cfg)
     k1_err = max(k1_err, compare("first training view", tfwd, tplain))
-    errs, tcot, _ = k2_vs_plain("first training view", targs, black,
-                                (ttx, tty), trainer.raster_cfg, tfwd, tplain,
-                                seed=6)
+    t_routing = (tpairs.cand_pos, tpairs.row_starts)
+    errs, tcot, _, rows_err, t_written = k2_vs_plain(
+        "first training view", targs, t_routing, black, (ttx, tty),
+        trainer.raster_cfg, tfwd, tplain, seed=6)
     k2_err = tuple(max(a, b) for a, b in zip(k2_err, errs))
+    k2b_err = max(k2b_err, rows_err)
     t_visits, t_contribs = int(tplain["visits"]), int(tplain["contribs"])
     busy = tpairs.counts[tpairs.counts > 0].to(torch.float64)
     print(f"  first training view: pairs={int(tpairs.gids.numel())} "
@@ -3044,14 +3172,12 @@ def render_phases(dev, tmp, assets) -> dict:
     k1_train_bound = k1_bound(targs, (ttx, tty), SIZE * SIZE, t_visits,
                               t_contribs)
     k1_train_needed, k2_needed = needed_bounds(targs, (ttx, tty), tfwd,
-                                               t_contribs)
-    k2_ms = cuda_ms(
-        lambda: composite_backward(*targs, black, tfwd, tcot, ttx, tty,
-                                   trainer.raster_cfg), reps=20)
-    k2_plain_ms = cuda_ms(
-        lambda: composite_backward_plain(*targs, black, tfwd, tcot, ttx, tty,
-                                         trainer.raster_cfg), reps=3)
-    k2_visits_bound = k2_bound(targs, (ttx, tty), tfwd, t_contribs)
+                                               t_contribs, t_written)
+    t_times = k2_times("first training view", targs, t_routing, black,
+                       (ttx, tty), trainer.raster_cfg, tfwd, tcot)
+    k2_ms, k2_plain_ms = t_times["k2"], t_times["k2_plain"]
+    k2_visits_bound = k2_bound(targs, (ttx, tty), tfwd, t_contribs,
+                               t_written)
     print(f"  K1 first training view: {k1_train_ms:.4f} ms, "
           f"{bound_text(k1_train_needed, k1_train_bound)}")
     print(f"  K2 first training view: {k2_ms:.4f} ms (plain "
@@ -3210,6 +3336,31 @@ def render_phases(dev, tmp, assets) -> dict:
             "bound_ms_visits": k2_visits_bound[0],
             "library_ms": None,
             "ms_avatar_view": k2_avatar_ms,
+            # the whole backward, K2 + K2b (`composite_backward`)
+            "ms_with_k2b": t_times["both"],
+            "ms_avatar_view_with_k2b": avatar_times["both"],
+        },
+        {
+            "name": "rasterize_bwd_rows",
+            "route": "cuda",
+            "source": "humangaussian_torch/csrc/rasterize_bwd.cu",
+            "replaces": "humangaussian_tpu/ops/rasterize_tiled.py:956",
+            "launches": 0,  # phase 11's train_step sets it
+            "launches_photo": train_launches["rasterize_bwd_rows"],
+            "max_abs_err": k2b_err,
+            "ms": t_times["k2b"],
+            "plain_ms": t_times["k2b_plain"],
+            "bound_ms": t_times["k2b_bound"],
+            "bound_by": "bytes",
+            "library_ms": t_times["k2b_library"],
+            "library_call": "index_add_ of the masked sub-tile rows of the "
+                            "counted pairs into zeroed rows (the sums "
+                            "without the per-row transform, in no fixed "
+                            "order)",
+            "ms_avatar_view": avatar_times["k2b"],
+            "plain_ms_avatar_view": avatar_times["k2b_plain"],
+            "bound_ms_avatar_view": avatar_times["k2b_bound"],
+            "library_ms_avatar_view": avatar_times["k2b_library"],
         },
     ]}
 
@@ -3388,7 +3539,8 @@ def capture_cli(dev, label, overrides, n_test):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    counts = {k: counts[k] for k in ("rasterize_fwd", "rasterize_bwd")}
+    counts = {k: counts[k] for k in ("rasterize_fwd", "rasterize_bwd",
+                                     "rasterize_bwd_rows")}
     steps = re.findall(r"photo step (\d+): loss=([0-9.eE+-]+) alive=(\d+)",
                        log.getvalue())
     losses = [float(x[1]) for x in steps]
@@ -3403,7 +3555,8 @@ def capture_cli(dev, label, overrides, n_test):
           f"{psnr_line.group(1) if psnr_line else '?'}")
     check(len(steps) == CAPTURE_STEPS, f"{label}: {len(steps)} steps logged")
     check(counts == {"rasterize_fwd": CAPTURE_STEPS + n_test,
-                     "rasterize_bwd": CAPTURE_STEPS},
+                     "rasterize_bwd": CAPTURE_STEPS,
+                     "rasterize_bwd_rows": CAPTURE_STEPS},
           f"{label}: launches {counts}")
     check(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
           f"{label}: the loss did not fall")
@@ -3447,8 +3600,10 @@ def trainer_first_view(dev, label, overrides, bg, seed):
           f"{int(pairs.gids.numel())} on {busy.numel()} of "
           f"{tiles[0] * tiles[1]} tiles (max {int(busy.max())})")
     k1_err = compare(f"{label} first training view", got, plain)
-    k2_errs, _, _ = k2_vs_plain(f"{label} first training view", kargs, bg,
-                                tiles, rcfg, got, plain, seed=seed)
+    k2_errs, _, _, _, _ = k2_vs_plain(
+        f"{label} first training view", kargs,
+        (pairs.cand_pos, pairs.row_starts), bg, tiles, rcfg, got, plain,
+        seed=seed)
     del got, plain
 
     def step():
@@ -3503,8 +3658,9 @@ def photo_data_phases(dev, tmp, assets) -> dict:
           f"{int((got['alpha'] > 0.5).sum())}")
     check(float(got["alpha"].max()) > 0.9, f"avatar not in the {w}x{h} view")
     k1_err = compare(f"{w}x{h} view", got, plain)
-    k2_err, _, _ = k2_vs_plain(f"{w}x{h} view", kargs, black, tiles, cfg,
-                               got, plain, seed=13)
+    k2_err, _, _, _, _ = k2_vs_plain(
+        f"{w}x{h} view", kargs, (pairs.cand_pos, pairs.row_starts), black,
+        tiles, cfg, got, plain, seed=13)
     del got, plain
 
     t0 = time.perf_counter()
@@ -4399,7 +4555,7 @@ def controlnet_phase(dev, tmp, system, smplx_path) -> dict:
     n_net = sum(p.numel() for p in net.parameters())
     norms = (norms_in(unet), norms_in(net), norms_in(vae.encoder))
     check(sum(norms) == CN_NORMS, f"norms {norms}, want 61 + 27 + 22")
-    want = launches(rasterize_fwd=1, rasterize_bwd=1,
+    want = launches(rasterize_fwd=1, rasterize_bwd=1, rasterize_bwd_rows=1,
                     groupnorm_fwd=sum(norms),
                     groupnorm_bwd_stats=norms[2], groupnorm_bwd_dx=norms[2])
     state = system.init_state(0)
@@ -4749,24 +4905,28 @@ def clone_state(state):
 
 @contextlib.contextmanager
 def deterministic_step():
-    """Inside, a train_step computes the same bits every time: the
-    GroupNorm and attention wrappers and K2's wrapper take their plain
-    versions (torch reductions, no atomics) and torch's deterministic
-    algorithms are on (`index_add_` sorted, cuDNN's deterministic
-    convolutions). Only phase 30's comparison uses it."""
-    from humangaussian_torch.ops import rasterize_tiled
-
-    saved = rasterize_tiled.composite_backward
+    """Inside, torch's deterministic algorithms are on (cuDNN's
+    deterministic convolutions, `index_add_` sorted) with `warn_only`: an
+    op without a deterministic implementation warns and runs; the context
+    yields the caught warnings. No wrapper is swapped: every kernel of the
+    port stays on the path (each adds in a fixed order). Only phase 30's
+    comparison uses it."""
     was = torch.are_deterministic_algorithms_enabled()
-    rasterize_tiled.composite_backward = \
-        rasterize_tiled.composite_backward_plain
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        with plain_versions():
-            yield
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
     finally:
-        rasterize_tiled.composite_backward = saved
         torch.use_deterministic_algorithms(was)
+
+
+def nondeterministic_ops(caught) -> list:
+    """The ops named by torch's "does not have a deterministic
+    implementation" warnings."""
+    return sorted({str(w.message).split(" does not have")[0]
+                   for w in caught
+                   if "does not have a deterministic" in str(w.message)})
 
 
 def step_diffs(a, b) -> tuple:
@@ -4783,10 +4943,12 @@ def step_diffs(a, b) -> tuple:
 def dist_phase(dev, system) -> dict:
     """Phase 30: `multihost_init` (NCCL, world size 1, torchrun's
     variables set here) and `make_dp_train_step` on phase 11's system
-    against `train_step` from copies of one state: on the path (the
-    kernels) and in `deterministic_step`, where the DP step is held to
-    tests/test_torch_dist.py's limits. Returns the launches of one DP step
-    on the path."""
+    against `train_step` from copies of one state, every kernel on the
+    path: in `deterministic_step` `train_step` must repeat itself bit for
+    bit and the DP step is held to tests/test_torch_dist.py's limits; with
+    torch's deterministic algorithms off, and with cuDNN's deterministic
+    convolutions alone, what still differs from run to run is printed.
+    Returns the launches of one DP step."""
     import socket
 
     import torch.distributed as dist
@@ -4813,41 +4975,50 @@ def dist_phase(dev, system) -> dict:
         dp_step = make_dp_train_step(system)
         state0 = system.init_state(0)
 
-        # the path: K1 to K5 (atomics in K2 / K5: not bit-equal)
-        ref = system.train_step(clone_state(state0))
-        again = system.train_step(clone_state(state0))
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        dp = dp_step(clone_state(state0))
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
         want = dual_branch_step_launches(system.guidance)
+        # every kernel on the path, torch's deterministic algorithms on
+        with deterministic_step() as caught:
+            ref = system.train_step(clone_state(state0))
+            again = system.train_step(clone_state(state0))
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            dp = dp_step(clone_state(state0))
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
         check(counts == want, f"DP step launches {counts}, want {want}")
         check(all(math.isfinite(float(v)) for v in dp[1].values()),
               "DP metrics not finite")
         d_dp, d_again = step_diffs(dp, ref), step_diffs(again, ref)
-        check(d_dp[2] and d_dp[3], "DP max_radii2d or generator state")
-        print(f"  on the kernels: DP step against train_step: loss "
-              f"{float(dp[1]['loss']):.9g} vs {float(ref[1]['loss']):.9g} "
-              f"(relative {d_dp[0]:.3e}), means within {d_dp[1]:.3e}; "
-              f"train_step against itself: relative {d_again[0]:.3e}, means "
-              f"within {d_again[1]:.3e}; max_radii2d and the generator "
-              f"equal; launches {counts}")
-
-        # the deterministic configuration: the limits of test_torch_dist.py
-        with deterministic_step():
-            ref = system.train_step(clone_state(state0))
-            again = system.train_step(clone_state(state0))
-            dp = dp_step(clone_state(state0))
-        d_dp, d_again = step_diffs(dp, ref), step_diffs(again, ref)
-        print(f"  deterministic (plain GroupNorm, attention and K2 "
-              f"versions, torch's deterministic algorithms): DP against "
-              f"train_step: loss relative {d_dp[0]:.3e}, means within "
-              f"{d_dp[1]:.3e}; train_step against itself: loss relative "
-              f"{d_again[0]:.3e}, means within {d_again[1]:.3e}")
+        print(f"  on the kernels, torch's deterministic algorithms on: "
+              f"train_step against itself: loss relative {d_again[0]:.3e}, "
+              f"means within {d_again[1]:.3e}; DP step against train_step: "
+              f"loss {float(dp[1]['loss']):.9g} vs "
+              f"{float(ref[1]['loss']):.9g} (relative {d_dp[0]:.3e}), means "
+              f"within {d_dp[1]:.3e}; ops without a deterministic "
+              f"implementation (warned, ran): "
+              f"{nondeterministic_ops(caught) or 'none'}; launches {counts}")
+        check(d_again[0] == 0.0 and d_again[1] == 0.0 and d_again[2]
+              and d_again[3], "train_step does not repeat itself bit for bit "
+              "on the kernels")
         check(d_dp[0] <= DP_LOSS_RTOL, f"DP loss off by {d_dp[0]:.3e}")
         check(d_dp[1] <= DP_MEANS_TOL, f"DP means off by {d_dp[1]:.3e}")
         check(d_dp[2] and d_dp[3], "DP max_radii2d or generator state")
+
+        # what still differs without the flag: all of it off, then cuDNN's
+        # deterministic convolutions alone
+        off = step_diffs(system.train_step(clone_state(state0)),
+                         system.train_step(clone_state(state0)))
+        was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            cudnn = step_diffs(system.train_step(clone_state(state0)),
+                               system.train_step(clone_state(state0)))
+        finally:
+            torch.backends.cudnn.deterministic = was
+        print(f"  torch's deterministic algorithms off: train_step against "
+              f"itself: loss relative {off[0]:.3e}, means within "
+              f"{off[1]:.3e}; with cuDNN's deterministic convolutions alone: "
+              f"loss relative {cudnn[0]:.3e}, means within {cudnn[1]:.3e}")
 
         times = {"dp": [], "ref": []}
         st = {"dp": clone_state(state0), "ref": clone_state(state0)}

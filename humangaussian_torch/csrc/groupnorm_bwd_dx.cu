@@ -34,13 +34,18 @@
 // f32; C is a multiple of that width, so a vector never crosses a row and
 // its channels are c0 .. c0 + width - 1), two vectors of x and two of dz
 // loaded before either is used. The launch is one wave of resident blocks
-// (by the kernel's occupancy) shared by the samples, fewer where a thread
+// (by the kernel's occupancy, queried once per card, kernel and shared
+// memory size) shared by the samples, fewer where a thread
 // would take under 4 vectors: every block does the same work, so a grid of
 // several waves would end in a short one. A width that does not divide C,
 // or a pointer off 16 bytes, takes the scalar loop.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "groupnorm_group.cuh"
 
@@ -203,6 +208,27 @@ groupnorm_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dz,
   }
 }
 
+// Resident blocks of `kernel` with `smem` bytes of dynamic shared memory
+// on the current card, queried once per (card, kernel, size): a launch
+// repeats no host query, so it can be captured in a CUDA graph as it is.
+int resident_blocks(const void* kernel, size_t smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, size_t>, int> cache;
+  int device = 0;
+  cudaGetDevice(&device);
+  const auto key = std::make_tuple(device, kernel, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) return it->second;
+  int per_sm = 0, sms = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                smem);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int resident = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  cache.emplace(key, resident);
+  return resident;
+}
+
 template <typename T, bool kSilu, bool kVector>
 cudaError_t launch(const void* x, const void* dz, const float* fwd_sums,
                    const float* gamma, const float* beta, const float* sums,
@@ -218,13 +244,8 @@ cudaError_t launch(const void* x, const void* dz, const float* fwd_sums,
     if (rc != cudaSuccess) return rc;
   }
   // one wave of resident blocks, shared by the samples
-  int per_sm = 0, device = 0, sms = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                smem);
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const size_t resident = static_cast<size_t>(per_sm > 0 ? per_sm : 1)
-                          * (sms > 0 ? sms : 1);
+  const size_t resident = static_cast<size_t>(
+      resident_blocks(reinterpret_cast<const void*>(kernel), smem));
   const size_t width = kVector ? 16 / sizeof(T) : 1;
   const size_t items = static_cast<size_t>(rows) * channels / width;
   const size_t by_work =

@@ -61,9 +61,9 @@
 //   launch's epoch into its flag (release), waiters compare with that
 //   epoch (acquire). The epoch is one more than a generation word in the
 //   same buffer, which block 0 advances at the end, once every block has
-//   read it; so eager launches on one stream share one buffer that is
-//   never reset. Under stream capture the wrapper gives each launch its
-//   own words, zeroed in the graph.
+//   read it (groupnorm_sync.cuh, shared with K5); so eager launches on one
+//   stream share one buffer that is never reset. Under stream capture the
+//   wrapper gives each launch its own words, zeroed in the graph.
 //
 // A channel count that the vector width does not divide, or a pointer off
 // 16 bytes, takes the same tiles one channel a thread.
@@ -74,6 +74,7 @@
 #include <type_traits>
 
 #include "groupnorm_group.cuh"
+#include "groupnorm_sync.cuh"
 
 namespace {
 
@@ -136,38 +137,6 @@ __device__ __forceinline__ float apply(float x, float a, float b) {
   float y = __fadd_rn(__fmul_rn(x, a), b);
   if (kSilu) y = __fmul_rn(y, __frcp_rn(__fadd_rn(1.0f, expf(-y))));
   return y;
-}
-
-__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-// Called by every thread of the block: returns once flags[0, count) all
-// hold `epoch`.
-__device__ void wait_flags(const unsigned* flags, int count, unsigned epoch) {
-  for (;;) {
-    bool ready = true;
-    for (int i = threadIdx.x; i < count; i += kThreads)
-      ready &= load_acquire(flags + i) == epoch;
-    if (__syncthreads_and(ready)) break;
-    __nanosleep(128);
-  }
-  __threadfence();
-}
-
-// Called by every thread of the block once its writes for a tile are
-// issued; also ends the tile's use of shared memory.
-__device__ __forceinline__ void publish(unsigned* flag, unsigned epoch) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) store_release(flag, epoch);
 }
 
 // A channel block: channels [c_lo, c_lo + vectors * kWidth).
@@ -484,19 +453,10 @@ groupnorm_fwd_kernel(const T* __restrict__ x,
                      T* __restrict__ y, float* __restrict__ sums_out,
                      float* __restrict__ partials, unsigned* sync) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ unsigned s_epoch;
   constexpr bool kSums = kMode != kApplyOnly;
   const int P = gridDim.x, b = blockIdx.x;
-  // sync: [generation, arrive[P], sums flags]
-  unsigned* gen = sync;
-  unsigned* arrive = sync + 1;
-  if (kSums) {
-    if (threadIdx.x == 0) {
-      s_epoch = load_acquire(gen) + 1;
-      store_release(arrive + b, s_epoch);
-    }
-    __syncthreads();
-  }
+  // sync: [generation, arrive[P], sums flags] (groupnorm_sync.cuh)
+  const unsigned epoch = kSums ? begin_launch(sync) : 0u;
   Args<T> a;
   a.x = x;
   a.sums_in = sums_in;
@@ -506,20 +466,15 @@ groupnorm_fwd_kernel(const T* __restrict__ x,
   a.y = y;
   a.sums_out = sums_out;
   a.partials = partials;
-  a.sums_flags = arrive + P;
-  a.epoch = kSums ? s_epoch : 0u;
+  a.sums_flags = sync + 1 + P;
+  a.epoch = epoch;
 
   if (kSums) sums_tiles<T, kWidth>(g, a, b, P, smem);
   if (kMode == kSumsOnly)
     finish_tiles<T, kWidth>(g, a, b, P, smem);
   else
     normalize_tiles<T, kWidth, kSilu>(g, a, b, P, smem, kMode == kFused);
-  if (kSums && b == 0) {
-    // once every block has read the generation, advance it for the next
-    // launch (the whole block reads the arrive flags at once)
-    wait_flags(arrive, P, a.epoch);
-    if (threadIdx.x == 0) store_release(gen, a.epoch);
-  }
+  if (kSums) end_launch(sync, epoch);
 }
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }

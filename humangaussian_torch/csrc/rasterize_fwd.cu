@@ -94,7 +94,7 @@ rasterize_fwd_kernel(const float* __restrict__ feats,
   const int count = counts[blk.tile_block];
   if (count > 0) {  // block-uniform
     Stager st{feats, gids + starts[blk.tile_block], count, 0};
-    auto nothing = [](int) {};
+    auto nothing = [](int, int) {};
     st.load_gid(0, tid);
     st.issue(s_raw, 0, tid);
     st.load_gid(kBatch, tid);

@@ -158,8 +158,10 @@ __device__ __forceinline__ bool may_pass(const float* row, float x0, float y0,
 // Compacts the raw round at `base`: the pairs below the stager's limit that
 // may pass the gate in the sub-tile, in segment order, are copied to s_walk;
 // returns how many. Each thread reads only the raw slot it staged. Two
-// barriers; `between(total)` runs between them, after every thread has
-// passed the first (K2 zeroes its gradient slots there).
+// barriers; `between(total, dst)` runs between them, after every thread has
+// passed the first, with `dst` the s_walk index of this thread's raw pair
+// (-1 where it was dropped): K2 zeroes its gradient slots there and keeps
+// where each raw pair went.
 template <typename Between>
 __device__ __forceinline__ int compact(const float* s_raw, float* s_walk,
                                        int* s_wn, int base, int limit,
@@ -180,9 +182,9 @@ __device__ __forceinline__ int compact(const float* s_raw, float* s_walk,
     before += w < warp ? n : 0;
     total += n;
   }
-  between(total);
+  const int dst = keep ? before + __popc(ballot & ((1u << lane) - 1u)) : -1;
+  between(total, dst);
   if (keep) {
-    const int dst = before + __popc(ballot & ((1u << lane) - 1u));
     const float4* src = reinterpret_cast<const float4*>(s_raw + tid * kRow);
     float4* out = reinterpret_cast<float4*>(s_walk + dst * kRow);
     out[0] = src[0];

@@ -120,9 +120,15 @@ RASTERIZE_BWD = Kernel(
     "rasterize_bwd", "rasterize_bwd.cu", "hg_rasterize_bwd",
     # feats, gids, starts, counts, num_blocks, tiles_x, tiles_y, alpha_min,
     # alpha_max, t_eps, image, depth, final_t, n_contrib, g_image, g_depth,
-    # g_alpha, dfeats, stream
+    # g_alpha, rows, mask, stream
     [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
-     _P],
+     _P, _P],
+)
+
+RASTERIZE_BWD_ROWS = Kernel(
+    "rasterize_bwd_rows", "rasterize_bwd.cu", "hg_rasterize_bwd_rows",
+    # rows, mask, cand_pos, row_starts, feats, n_rows, dfeats, stream
+    [_P, _P, _P, _P, _P, _I, _P, _P],
 )
 
 GROUPNORM_FWD = Kernel(
@@ -137,8 +143,10 @@ GROUPNORM_FWD = Kernel(
 GROUPNORM_BWD_STATS = Kernel(
     "groupnorm_bwd_stats", "groupnorm_stats.cu", "hg_groupnorm_bwd_stats",
     # x, dz, fwd_sums, gamma, beta, samples, rows, channels, groups, eps,
-    # is_bf16, silu, out, stream
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P],
+    # is_bf16, silu, splits, blocks, vector, out, partials, partial_floats,
+    # sync, sync_words, stream
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P, _P,
+     _LL, _P, _LL, _P],
 )
 
 GROUPNORM_BWD_DX = Kernel(
@@ -154,8 +162,8 @@ ATTENTION_FWD = Kernel(
     [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 )
 
-KERNELS = (RASTERIZE_FWD, RASTERIZE_BWD, GROUPNORM_FWD, GROUPNORM_BWD_STATS,
-           GROUPNORM_BWD_DX, ATTENTION_FWD)
+KERNELS = (RASTERIZE_FWD, RASTERIZE_BWD, RASTERIZE_BWD_ROWS, GROUPNORM_FWD,
+           GROUPNORM_BWD_STATS, GROUPNORM_BWD_DX, ATTENTION_FWD)
 
 
 def build_all() -> None:

@@ -18,6 +18,15 @@ dynamically, as upstream CUDA `duplicateWithKeys` + radix sort sizes them:
 `tile_capacity` caps each tile's segment, dropping the deepest pairs
 first, and the dropped pairs are reported in `overflow`.
 
+The sort's permutation is kept, inverted, as the backward's routing (the
+JAX `pos2`): `cand_pos` gives the sorted position of each candidate in
+candidate order (feature row, then rect tile), -1 where the cap cut the
+pair, and `row_starts` where each feature row's candidates begin. The
+backward adds each row's pair gradients in that order (K2b). Candidate
+order is each row's pairs in sorted order, so
+`rasterize_tiled.pair_routing` rebuilds the same routing from any pair
+list.
+
 TPU-only machinery with no counterpart here: the static class chain and
 its class-depth sort, the candidate domain, the `pair_capacity` budget and
 `active_cap`. `overflow_spill` (class-chain demotion) is always 0.
@@ -78,6 +87,8 @@ class PairLists(NamedTuple):
     starts: torch.Tensor  # [B*tiles + 1] int32 segment starts
     counts: torch.Tensor  # [B*tiles] int32 pairs per tile, capped
     overflow: torch.Tensor  # [] int64 pairs dropped by the per-tile cap
+    cand_pos: torch.Tensor  # [P] int32 sorted position per candidate, or -1
+    row_starts: torch.Tensor  # [B*N + 1] int32 first candidate of each row
 
 
 def _candidates(prims: ProjectedGaussians, tiles_x: int,
@@ -116,7 +127,7 @@ def build_pair_lists(
     tiles = tiles_x * tiles_y
     n_cams = len(prims_batch)
     dev = prims_batch[0].depths.device
-    keys, gids = [], []
+    keys, gids, per_row = [], [], []
     for b, prims in enumerate(prims_batch):
         n = prims.depths.shape[0]
         tile_id, valid = _candidates(prims, tiles_x, cfg)
@@ -125,6 +136,7 @@ def build_pair_lists(
         tile_g = tile_id[g, j].to(torch.int64) + b * tiles
         keys.append((tile_g << 32) | depth_bits)
         gids.append(g + b * n)
+        per_row.append(valid.sum(dim=1))
     keys = torch.cat(keys)
     gids = torch.cat(gids)
     sorted_keys, perm = torch.sort(keys, stable=True)
@@ -134,10 +146,19 @@ def build_pair_lists(
     )
     seg_len = starts[1:] - starts[:-1]
     counts = torch.clamp_max(seg_len, capacity)
+    # the routing: the sort's permutation inverted, cap-cut pairs -1
+    sorted_pos = torch.arange(perm.shape[0], device=dev)
+    kept = sorted_pos - starts[sorted_tile] < counts[sorted_tile]
+    cand_pos = torch.empty_like(perm)
+    cand_pos[perm] = torch.where(kept, sorted_pos, -1)
+    row_starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                            torch.cumsum(torch.cat(per_row), 0)])
     return PairLists(
         gids=gids[perm].to(torch.int32),
         sorted_tile=sorted_tile,
         starts=starts.to(torch.int32),
         counts=counts.to(torch.int32),
         overflow=(seg_len - counts).sum(),
+        cand_pos=cand_pos.to(torch.int32),
+        row_starts=row_starts.to(torch.int32),
     )

@@ -23,8 +23,9 @@ mean and rstd from the saved sums as the forward did (so no torch code
 runs for them):
 
   backward sums (kernel K5, csrc/groupnorm_stats.cu): per (sample,
-      channel) S1 = sum(dy) and S2 = sum(dy * xhat) into [N, 2, C], which
-      its entry point zeroes first, with xhat and the SiLU derivative
+      channel) S1 = sum(dy) and S2 = sum(dy * xhat) into [N, 2, C], as
+      per-split partials added in a fixed order (no atomics, no zero-fill:
+      bit-equal from run to run), with xhat and the SiLU derivative
       recomputed from (x, dz) in registers;
   input gradient (kernel K5a, csrc/groupnorm_bwd_dx.cu): each block forms
       its sample's group means of gamma * S1 and gamma * S2, then writes
@@ -32,9 +33,9 @@ runs for them):
 
   dx = rstd * (gamma * dy - mean_g(gamma dy) - xhat * mean_g(gamma dy xhat)).
 
-So the backward of a CUDA tensor is K5 (after a memset) and K5a; dgamma
-and dbias (the sums of S2 and S1 over samples) are computed only when
-asked for.
+So the backward of a CUDA tensor is K5 and K5a, two launches that write
+every output once (capturable in a CUDA graph); dgamma and dbias (the sums
+of S2 and S1 over samples) are computed only when asked for.
 
 Dispatch: a CUDA tensor launches the kernels, a CPU tensor takes the plain
 versions (`group_norm_fwd_plain`, `group_norm_stats_plain`,
@@ -44,8 +45,8 @@ from a kernel to a plain version.
 
 Dropped from the reference: `_pick_block_rows` and the pure-XLA route for
 row counts no block divides (the CUDA kernels take any row count), the
-revisited `[2, C]` output block (blocks have no order on a GPU) and
-`FORCE_PALLAS_INTERPRET`.
+revisited `[2, C]` output block (per-split partials added in split order
+take its place) and `FORCE_PALLAS_INTERPRET`.
 """
 from __future__ import annotations
 
@@ -117,6 +118,61 @@ def fwd_row_splits(samples: int, rows: int, channel_blocks: int, deep: int,
     return best[1]
 
 
+# K5 (csrc/groupnorm_stats.cu): its block, the channels a block spans, the
+# rows a thread loads at once, and the persistent blocks an SM (its launch
+# bounds guarantee two)
+_BWD_THREADS = 256
+_BWD_CHANNELS = 64
+_BWD_UNROLL = 4
+_BWD_BLOCKS_PER_SM = 2
+
+
+def bwd_row_splits(per_split: int, rows: int, step: int,
+                   target_blocks: int) -> int:
+    """K5's row splits per (sample, channel block), `per_split` tiles a
+    split: the fewest that keep the `target_blocks` persistent blocks at
+    least 90% busy over whole rounds of tiles, each split at least four
+    steps of `step` rows (at most 1024 splits); else the busiest."""
+    most = min(1024, max(1, rows // (4 * step)))
+    best = (0.0, 1)
+    for splits in range(1, most + 1):
+        tiles = per_split * splits
+        busy = tiles / (target_blocks * math.ceil(tiles / target_blocks))
+        if busy > best[0] + 1e-9:
+            best = (busy, splits)
+        if busy >= 0.9:
+            break
+    return best[1]
+
+
+class _BwdLaunch(NamedTuple):
+    vector: bool
+    splits: int
+    blocks: int
+    sync_words: int
+    partial_floats: int
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_launch(sms: int, samples: int, rows: int, channels: int,
+                itemsize: int, aligned: bool) -> _BwdLaunch:
+    """K5's numbers for one shape on a card of `sms` SMs: 16-byte vectors
+    where C and the pointers allow them, the row splits (none empty), the
+    persistent blocks and the scratch sizes."""
+    vec = 16 // itemsize
+    vector = aligned and channels % vec == 0
+    width = vec if vector else 1
+    nbc = math.ceil(channels / _BWD_CHANNELS)
+    step = _BWD_THREADS // (_BWD_CHANNELS // width) * _BWD_UNROLL
+    target = sms * _BWD_BLOCKS_PER_SM
+    splits = bwd_row_splits(samples * nbc, rows, step, target)
+    splits = math.ceil(rows / math.ceil(rows / splits))  # none empty
+    tiles = samples * nbc * splits
+    blocks = min(target, tiles)
+    return _BwdLaunch(vector, splits, blocks, 1 + blocks + tiles,
+                      samples * splits * 2 * channels)
+
+
 class _FwdLaunch(NamedTuple):
     vector: bool
     block_vectors: int
@@ -143,16 +199,18 @@ def _fwd_launch(sms: int, samples: int, rows: int, channels: int,
                       samples * splits * 2 * channels)
 
 
-# per (card, stream): 32-bit words that carry the forward kernel's
-# readiness flags and generation from eager launch to launch (zeroed once)
+# per (card, stream): 32-bit words that carry the readiness flags and
+# generation of the forward kernel and K5 from eager launch to launch
+# (zeroed once; csrc/groupnorm_sync.cuh)
 _SYNC: dict = {}
 
 
 def _sync_words(device: torch.device, stream, words: int) -> torch.Tensor:
-    """The forward kernel's flag words for a launch on `stream`. Eager
-    launches on one stream share a buffer that is never reset (the kernel
-    keeps a generation in it). A launch under stream capture takes words
-    of its own, zeroed in the graph: a graph's replay then never meets the
+    """The flag words of a forward or K5 launch on `stream`. Eager launches
+    on one stream share a buffer that is never reset (the kernels keep a
+    generation in it, and a launch starts only once the one before it on
+    the stream has ended). A launch under stream capture takes words of
+    its own, zeroed in the graph: a graph's replay then never meets the
     flags of another graph's or of an eager launch."""
     if torch.cuda.is_current_stream_capturing():
         return torch.zeros(words, dtype=torch.int32, device=device)
@@ -375,14 +433,25 @@ def group_norm_bwd_stats(x3, dz3, fwd_sums, gamma, beta, groups: int,
         return group_norm_bwd_stats_plain(x3, dz3, fwd_sums, gamma, beta,
                                           groups, eps, silu)
     _check_kernel_input("x3", x3)
-    # the entry point zeroes `out` and picks its own row slices
     out = torch.empty((n, 2, c), dtype=torch.float32, device=x3.device)
+    if out.numel() == 0 or rows == 0:
+        return out.zero_()
+    aligned = x3.data_ptr() % 16 == 0 and dz3.data_ptr() % 16 == 0
     with torch.cuda.device(x3.device):
+        index = torch.cuda.current_device()
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        how = _bwd_launch(sms, n, rows, c, x3.element_size(), aligned)
+        stream = torch.cuda.current_stream(x3.device)
+        partials = torch.empty(how.partial_floats, dtype=torch.float32,
+                               device=x3.device)
+        sync = _sync_words(x3.device, stream, how.sync_words)
         GROUPNORM_BWD_STATS.launch(
             x3.data_ptr(), dz3.data_ptr(), fwd_sums.contiguous().data_ptr(),
             gamma.contiguous().data_ptr(), beta.contiguous().data_ptr(), n,
             rows, c, groups, eps, int(x3.dtype == torch.bfloat16), int(silu),
-            out.data_ptr(), torch.cuda.current_stream(x3.device).cuda_stream)
+            how.splits, how.blocks, int(how.vector), out.data_ptr(),
+            partials.data_ptr(), partials.numel(), sync.data_ptr(),
+            sync.numel(), stream.cuda_stream)
     return out
 
 

@@ -8,19 +8,25 @@ batched form).
 
 Compositing is kernel K1, `humangaussian_torch/csrc/rasterize_fwd.cu`, the
 Hopper port of the JAX `_fwd_kernel`; its backward is kernel K2,
-`humangaussian_torch/csrc/rasterize_bwd.cu`, the port of `_bwd_kernel`.
-Both serve each 32x32 tile with SUBTILE x SUBTILE blocks that skip the
-pairs which cannot pass the alpha gate anywhere in their sub-tile
+`humangaussian_torch/csrc/rasterize_bwd.cu`, the port of `_bwd_kernel`,
+which writes each pair's ten gradient sums over each sub-tile as a row at
+the pair's sorted position, and kernel K2b in the same file, the port of
+the routing and sums after `_bwd_call`, which adds each Gaussian's pair
+rows in candidate order (binning's `cand_pos` / `row_starts`, the JAX
+`pos2`), sub-tile by sub-tile, into its feature-row gradient. Every sum
+has a fixed order, so the backward repeats bit for bit. K1 and K2 serve
+each 32x32 tile with SUBTILE x SUBTILE blocks that skip the pairs which
+cannot pass the alpha gate anywhere in their sub-tile
 (`csrc/rasterize_subtile.cuh`; `subtile_pair_mask` is the rule in plain
 torch); every output is what a walk of the whole segment gives.
-`composite` ties the two together in a `torch.autograd.Function` (the
+`composite` ties them together in a `torch.autograd.Function` (the
 counterpart of the JAX `_render_core` custom_vjp): it returns the gradient
 of the per-Gaussian feature rows only, and projection, SH, the
 `means2d_offset` tap and the activations stay ordinary torch autograd. For
-CUDA tensors `composite` launches K1 and its backward launches K2; for CPU
-tensors they take `composite_plain` and `composite_backward_plain`, the
-same functions in plain torch. On a CUDA tensor a kernel launches or the
-call raises.
+CUDA tensors `composite` launches K1 and its backward launches K2 and K2b;
+for CPU tensors they take `composite_plain`, `composite_backward_pairs_plain`
+and `feature_row_grads_plain`, the same functions in plain torch. On a
+CUDA tensor a kernel launches or the call raises.
 
 TPU-only mechanics of the JAX kernels that are not ported: the
 feature-major [16, P] pair array and its row gather (the kernels gather
@@ -28,9 +34,8 @@ feature rows by pair index themselves, as upstream renderCUDA does), the
 128-lane DMA windows and `_lane_shift`, the MXU triangular cumsum, the
 Newton-corrected `log1p` for Mosaic, the channel-major [T, 8, PIX]
 output with its transpose in `_assemble` (K1 writes [B, H, W, .]
-directly), and the backward's page buffers, candidate-key row, gather /
-sort routing and tile-centred monomial matmul (K2 adds each pair's sums
-into its Gaussian's row with atomics).
+directly), and the backward's page buffers, candidate-key row, sort
+routing and tile-centred monomial matmul.
 """
 from __future__ import annotations
 
@@ -39,7 +44,11 @@ import math
 import torch
 
 from humangaussian_torch.core.camera import Camera
-from humangaussian_torch.kernels import RASTERIZE_BWD, RASTERIZE_FWD
+from humangaussian_torch.kernels import (
+    RASTERIZE_BWD,
+    RASTERIZE_BWD_ROWS,
+    RASTERIZE_FWD,
+)
 from humangaussian_torch.ops.binning import build_pair_lists, tile_alpha_bound
 from humangaussian_torch.ops.projection import (
     ProjectedGaussians,
@@ -52,6 +61,7 @@ FX, FY, FCA, FCB, FCC, FR, FG, FB, FOPA, FDEPTH = range(10)
 NUM_FEATURES = 10
 KERNEL_TILE = 32  # the tile edge K1 is compiled for
 SUBTILE = 8  # edge of the sub-tile one block of K1 / K2 serves
+KERNEL_SUBTILES = (KERNEL_TILE // SUBTILE) ** 2  # K2's rows a pair
 SKIP_MARGIN = 1e-3  # binning's cull margin, reused by the sub-tile skip
 PLAIN_CHUNK = 32  # pairs per step of composite_plain ([tiles, pix, 32] temps)
 
@@ -142,22 +152,38 @@ def _check_kernel_device(feats, cfg):
                          "feature rows 8 bytes at a time)")
 
 
-def composite_backward(feats, gids, starts, counts, background, saved,
-                       grads, tiles_x: int, tiles_y: int,
-                       cfg: RasterizeConfig = RasterizeConfig()
-                       ) -> torch.Tensor:
-    """K2 wrapper: gradient of the feature rows, [M,10] f32.
+def _check_routing(routing, feats, n_pairs: int):
+    cand_pos, row_starts = routing
+    for name, x, n in (("cand_pos", cand_pos, n_pairs),
+                       ("row_starts", row_starts, feats.shape[0] + 1)):
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.int32 \
+                or tuple(x.shape) != (n,) or x.device != feats.device \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 [{n}] on "
+                             f"{feats.device}")
+
+
+def composite_backward_pairs(feats, gids, starts, counts, background, saved,
+                             grads, tiles_x: int, tiles_y: int,
+                             cfg: RasterizeConfig = RasterizeConfig()
+                             ) -> tuple:
+    """K2 wrapper: (rows [P,16,10] f32, mask [P,16] uint8): each pair's
+    ten gradient sums over each of its tile's sub-tiles (SUBTILE x SUBTILE
+    pixels, row-major), at the pairs' positions in `gids`, and a mask byte
+    of 1 where a row holds a non-zero sum (`composite_backward_pairs_plain`
+    says which sums). Rows whose byte is 0, and the rows and bytes of pairs
+    past their segment's count, are left unwritten (K2b never reads them).
 
     `saved` holds `composite`'s image, depth, final_t and n_contrib for
     the same inputs; `grads` the cotangents (g_image [B,H,W,3], g_depth,
-    g_alpha [B,H,W]). K2 for CUDA tensors, `composite_backward_plain` for
-    CPU tensors."""
+    g_alpha [B,H,W]). K2 for CUDA tensors, `composite_backward_pairs_plain`
+    for CPU tensors."""
     _check_composite_args(feats, gids, starts, counts, background,
                           tiles_x, tiles_y)
     if feats.device.type == "cpu":
-        return composite_backward_plain(feats, gids, starts, counts,
-                                        background, saved, grads, tiles_x,
-                                        tiles_y, cfg)
+        return composite_backward_pairs_plain(feats, gids, starts, counts,
+                                              background, saved, grads,
+                                              tiles_x, tiles_y, cfg)
     _check_kernel_device(feats, cfg)
     dev = feats.device
     n_blocks = counts.shape[0]
@@ -178,16 +204,72 @@ def composite_backward(feats, gids, starts, counts, background, saved,
                 f"{name} must be {dtype} {shape} on {dev}, got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}")
         ins.append(x.contiguous())
-    dfeats = torch.zeros_like(feats)
+    rows = torch.empty((gids.shape[0], KERNEL_SUBTILES, NUM_FEATURES),
+                       dtype=torch.float32, device=dev)
+    mask = torch.empty((gids.shape[0], KERNEL_SUBTILES), dtype=torch.uint8,
+                       device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         RASTERIZE_BWD.launch(
             feats.data_ptr(), gids.data_ptr(), starts.data_ptr(),
             counts.data_ptr(), n_blocks, tiles_x, tiles_y, cfg.alpha_min,
             cfg.alpha_max, cfg.transmittance_eps,
-            *(x.data_ptr() for x in ins), dfeats.data_ptr(), stream,
+            *(x.data_ptr() for x in ins), rows.data_ptr(), mask.data_ptr(),
+            stream,
         )
+    return rows, mask
+
+
+def feature_row_grads(rows, mask, cand_pos, row_starts, feats
+                      ) -> torch.Tensor:
+    """K2b wrapper: the gradient of the feature rows, [M,10] f32, from
+    K2's sub-tile rows [P,16,10] and mask [P,16], the routing (`cand_pos`
+    [P], `row_starts` [M+1], int32) and the rows `feats` [M,10]. Every row
+    is written (zeros where a row has no masked pair row). K2b for CUDA
+    tensors, `feature_row_grads_plain` for CPU tensors."""
+    _check_routing((cand_pos, row_starts), feats, rows.shape[0])
+    n = cand_pos.shape[0]
+    for name, x, dtype, shape in (
+            ("rows", rows, torch.float32, (n, KERNEL_SUBTILES, NUM_FEATURES)),
+            ("mask", mask, torch.uint8, (n, KERNEL_SUBTILES))):
+        if x.dtype != dtype or x.device != feats.device \
+                or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
+                             f"on {feats.device}")
+    if feats.device.type == "cpu":
+        return feature_row_grads_plain(rows, mask, cand_pos, row_starts,
+                                       feats)
+    if feats.device.type != "cuda":
+        raise ValueError(f"no compositing kernel for device {feats.device}")
+    dfeats = torch.empty_like(feats)
+    with torch.cuda.device(feats.device):
+        RASTERIZE_BWD_ROWS.launch(
+            rows.data_ptr(), mask.data_ptr(), cand_pos.data_ptr(),
+            row_starts.data_ptr(), feats.data_ptr(), feats.shape[0],
+            dfeats.data_ptr(),
+            torch.cuda.current_stream(feats.device).cuda_stream)
     return dfeats
+
+
+def composite_backward(feats, gids, starts, counts, background, saved,
+                       grads, tiles_x: int, tiles_y: int,
+                       cfg: RasterizeConfig = RasterizeConfig(),
+                       routing=None) -> torch.Tensor:
+    """The gradient of the feature rows, [M,10] f32: K2 then K2b
+    (`composite_backward_pairs`, `feature_row_grads`). `routing` is the
+    pair list's (cand_pos, row_starts) (binning's `PairLists`), rebuilt by
+    `pair_routing` when not given."""
+    _check_composite_args(feats, gids, starts, counts, background,
+                          tiles_x, tiles_y)
+    if feats.device.type != "cpu":
+        _check_kernel_device(feats, cfg)
+    if routing is None:
+        routing = pair_routing(gids, starts, counts, feats.shape[0])
+    _check_routing(routing, feats, gids.shape[0])
+    rows, mask = composite_backward_pairs(feats, gids, starts, counts,
+                                          background, saved, grads, tiles_x,
+                                          tiles_y, cfg)
+    return feature_row_grads(rows, mask, *routing, feats)
 
 
 class _Composite(torch.autograd.Function):
@@ -199,12 +281,12 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, gids, starts, counts, background, tiles_x,
-                tiles_y, cfg):
+                tiles_y, cfg, cand_pos, row_starts):
         out = _composite_forward(feats, gids, starts, counts, background,
                                  tiles_x, tiles_y, cfg)
         ctx.save_for_backward(feats, gids, starts, counts, background,
                               out["image"], out["depth"], out["final_t"],
-                              out["n_contrib"])
+                              out["n_contrib"], cand_pos, row_starts)
         ctx.geometry = (tiles_x, tiles_y, cfg)
         extras = tuple(out.get(k) for k in ("visits", "contribs"))
         ctx.mark_non_differentiable(
@@ -216,35 +298,40 @@ class _Composite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_image, g_depth, g_alpha, *_):
         (feats, gids, starts, counts, background, image, depth, final_t,
-         n_contrib) = ctx.saved_tensors
+         n_contrib, cand_pos, row_starts) = ctx.saved_tensors
         saved = {"image": image, "depth": depth, "final_t": final_t,
                  "n_contrib": n_contrib}
         dfeats = composite_backward(
             feats, gids, starts, counts, background, saved,
-            (g_image, g_depth, g_alpha), *ctx.geometry)
-        return dfeats, None, None, None, None, None, None, None
+            (g_image, g_depth, g_alpha), *ctx.geometry,
+            routing=None if cand_pos is None else (cand_pos, row_starts))
+        return dfeats, None, None, None, None, None, None, None, None, None
 
 
 def composite(feats, gids, starts, counts, background, tiles_x: int,
-              tiles_y: int, cfg: RasterizeConfig = RasterizeConfig()) -> dict:
+              tiles_y: int, cfg: RasterizeConfig = RasterizeConfig(),
+              routing=None) -> dict:
     """Front-to-back compositing of each tile's pair segment, with its
-    gradient (K1 / K2 behind a `torch.autograd.Function`).
+    gradient (K1 / K2 + K2b behind a `torch.autograd.Function`).
 
     feats [M,10] f32 per-Gaussian rows (all cameras), gids [P] int32
     depth-sorted pair -> row, starts/counts [B*tiles] int32 segment per
-    tile, background [3]. Returns image [B,H,W,3], depth/alpha [B,H,W]
-    f32, differentiable with respect to `feats`, and the two tensors the
-    backward replays from: final_t [B,H,W] f32 and n_contrib [B,H,W] int32
-    (one past the segment-local index of each pixel's last contributing
-    pair). For CPU tensors the dict also carries `composite_plain`'s work
-    counters.
+    tile, background [3]; `routing` the backward's (cand_pos, row_starts)
+    (binning's; rebuilt by `pair_routing` when not given). Returns image
+    [B,H,W,3], depth/alpha [B,H,W] f32, differentiable with respect to
+    `feats`, and the two tensors the backward replays from: final_t
+    [B,H,W] f32 and n_contrib [B,H,W] int32 (one past the segment-local
+    index of each pixel's last contributing pair). For CPU tensors the dict
+    also carries `composite_plain`'s work counters.
     """
     _check_composite_args(feats, gids, starts, counts, background,
                           tiles_x, tiles_y)
+    if routing is not None:
+        _check_routing(routing, feats, gids.shape[0])
     keys = ("image", "depth", "alpha", "final_t", "n_contrib", "visits",
             "contribs")
     out = _Composite.apply(feats, gids, starts, counts, background, tiles_x,
-                           tiles_y, cfg)
+                           tiles_y, cfg, *(routing or (None, None)))
     return {k: v for k, v in zip(keys, out) if v is not None}
 
 
@@ -339,11 +426,33 @@ def composite_plain(feats, gids, starts, counts, background, tiles_x: int,
 
 def composite_backward_plain(feats, gids, starts, counts, background, saved,
                              grads, tiles_x: int, tiles_y: int,
-                             cfg: RasterizeConfig = RasterizeConfig()
-                             ) -> torch.Tensor:
+                             cfg: RasterizeConfig = RasterizeConfig(),
+                             routing=None) -> torch.Tensor:
+    """The backward's function (K2 then K2b) in plain torch:
+    `composite_backward_pairs_plain`, then `feature_row_grads_plain` with
+    `routing` (rebuilt by `pair_routing` when not given)."""
+    if routing is None:
+        routing = pair_routing(gids, starts, counts, feats.shape[0])
+    rows, mask = composite_backward_pairs_plain(
+        feats, gids, starts, counts, background, saved, grads, tiles_x,
+        tiles_y, cfg)
+    return feature_row_grads_plain(rows, mask, *routing, feats)
+
+
+def composite_backward_pairs_plain(feats, gids, starts, counts, background,
+                                   saved, grads, tiles_x: int, tiles_y: int,
+                                   cfg: RasterizeConfig = RasterizeConfig()
+                                   ) -> tuple:
     """K2's function in plain torch: the analytic replay VJP of
     `composite_plain`, vectorized over (tile, pixel) and PLAIN_CHUNK pairs
-    at a time, with `index_add_` for the per-Gaussian sum. It is written
+    at a time, as each pair's ten sums over each sub-tile's pixels (the
+    (tile / SUBTILE)^2 sub-tiles of its tile, row-major), rows [P,16,10]
+    at the pairs' positions in `gids`, and mask [P,16] uint8, 1 where a
+    row holds a non-zero sum (rows and bytes 0 for pairs that add
+    nothing): [sum dpower dx, sum dpower dy, sum dpower dx^2,
+    sum dpower dx dy, sum dpower dy^2, sum g_r w, sum g_g w, sum g_b w,
+    sum dalpha_raw exp(power), sum g_depth w]. `feature_row_grads_plain`
+    turns each Gaussian's sums into its feature-row gradient. It is written
     from the formula, not taken by autograd through `composite_plain`
     (autograd is the tests' second oracle).
 
@@ -368,10 +477,11 @@ def composite_backward_plain(feats, gids, starts, counts, background, saved,
     exactly power == 0 passes the forward gate);
     dmean_x = -(ca gx + cb gy), dmean_y = -(cc gy + cb gx) with
     gx = sum_p dpower dx, dx = mean_x - px; dconic a, b, c =
-    -1/2 sum dpower dx^2, -sum dpower dx dy, -1/2 sum dpower dy^2;
-    drgb = sum_p g_rgb w, ddepth = sum_p g_depth w. Pairs that fail a gate,
-    pairs at or after a pixel's done latch and pairs past the tile's capped
-    count get exactly 0."""
+    -1/2 sum dpower dx^2, -sum dpower dx dy, -1/2 sum dpower dy^2 (linear
+    in the sums with the Gaussian's own conic, so applied to its summed
+    pair rows); drgb = sum_p g_rgb w, ddepth = sum_p g_depth w. Pairs that
+    fail a gate, pairs at or after a pixel's done latch and pairs past the
+    tile's capped count get exactly 0."""
     dev = feats.device
     tile = cfg.tile
     pix = tile * tile
@@ -398,7 +508,17 @@ def composite_backward_plain(feats, gids, starts, counts, background, saved,
     s_tot = ((g_image * acc_rgb).sum(-1) + g_depth * from_image(saved["depth"])
              + t_fin * ((g_image * background).sum(-1) - g_alpha))
 
-    dfeats = torch.zeros_like(feats)
+    per_edge = tile // SUBTILE
+    n_subs = per_edge * per_edge
+    pair_rows = torch.zeros((gids.shape[0], n_subs, NUM_FEATURES),
+                            dtype=torch.float32, device=dev)
+
+    def by_sub(x):  # [G, PIX, ...] -> [G, subs, SUBTILE^2, ...]
+        rest = x.shape[2:]
+        x = x.reshape(x.shape[0], per_edge, SUBTILE, per_edge, SUBTILE, *rest)
+        x = x.permute(0, 1, 3, 2, 4, *range(5, 5 + len(rest)))
+        return x.reshape(x.shape[0], n_subs, SUBTILE * SUBTILE, *rest)
+
     log_t_u = torch.zeros((n_blocks, pix), dtype=torch.float32, device=dev)
     prefix = torch.zeros_like(log_t_u)
     starts64 = starts.to(torch.int64)
@@ -443,27 +563,77 @@ def composite_backward_plain(feats, gids, starts, counts, background, saved,
             0.0)
         dalpha_raw = torch.where(alpha_raw < cfg.alpha_max, dalpha, 0.0)
         dpow = torch.where(power < 0.0, dalpha_raw * alpha_raw, 0.0)
-        gx = (dpow * dxv).sum(1)  # [G, C]
-        gy = (dpow * dyv).sum(1)
-        dcol = torch.bmm(w.transpose(1, 2), g4)  # [G, C, 4]: drgb, ddepth
+        # sums over each sub-tile's pixels: [G, subs, C] each
+        dcol = torch.einsum("gspc,gspf->gscf", by_sub(w),
+                            by_sub(g4))  # [G, subs, C, 4]: drgb, ddepth
         rows = torch.stack(
             [
-                -(ca[:, 0] * gx + cb[:, 0] * gy),
-                -(cc[:, 0] * gy + cb[:, 0] * gx),
-                -0.5 * (dpow * dxv * dxv).sum(1),
-                -(dpow * dxv * dyv).sum(1),
-                -0.5 * (dpow * dyv * dyv).sum(1),
+                by_sub(dpow * dxv).sum(2), by_sub(dpow * dyv).sum(2),
+                by_sub(dpow * dxv * dxv).sum(2),
+                by_sub(dpow * dxv * dyv).sum(2),
+                by_sub(dpow * dyv * dyv).sum(2),
                 dcol[..., 0], dcol[..., 1], dcol[..., 2],
-                (dalpha_raw * e).sum(1),
+                by_sub(dalpha_raw * e).sum(2),
                 dcol[..., 3],
             ],
             dim=-1,
-        )  # [G, C, 10]
-        rows = torch.where(valid[..., None], rows, 0.0)
-        dfeats.index_add_(0, gid.reshape(-1), rows.reshape(-1, NUM_FEATURES))
+        ).transpose(1, 2)  # [G, C, subs, 10]
+        pair_rows[idx[valid]] = rows[valid]
         prefix = p_incl[..., -1]
         log_t_u = log_t_u + cum[..., -1]
-    return dfeats
+    return pair_rows, (pair_rows != 0.0).any(dim=-1).to(torch.uint8)
+
+
+def feature_row_grads_plain(rows, mask, cand_pos, row_starts, feats
+                            ) -> torch.Tensor:
+    """K2b's function in plain torch: for each feature row i, its pairs
+    (cand_pos[row_starts[i] : row_starts[i + 1]], -1 for a pair cut by its
+    tile's cap) in that order and each pair's sub-tile rows in sub-tile
+    order where `mask` is set, added starting from 0, then the feature-row
+    gradient [-(ca S0 + cb S1), -(cc S1 + cb S0), -S2 / 2, -S3, -S4 / 2,
+    S5, ..., S9] with the row's conic (ca, cb, cc); zeros for a row
+    without a masked pair row. Bit for bit what a loop over each row's
+    candidates and sub-tiles gives."""
+    n_rows = feats.shape[0]
+    first = row_starts[:-1].to(torch.int64)
+    n_cand = row_starts[1:].to(torch.int64) - first
+    most = int(n_cand.max()) if n_rows else 0
+    acc = torch.zeros((n_rows, NUM_FEATURES), dtype=torch.float32,
+                      device=feats.device)
+    has = torch.zeros(n_rows, dtype=torch.bool, device=feats.device)
+    for j in range(most):
+        k = torch.where(j < n_cand, first + j, 0)
+        p = cand_pos[k].to(torch.int64)
+        pair = (j < n_cand) & (p >= 0)
+        p = p.clamp_min(0)
+        for sub in range(rows.shape[1]):
+            take = pair & (mask[p, sub] != 0)
+            acc = torch.where(take[:, None], acc + rows[p, sub], acc)
+            has |= take
+    ca, cb, cc = feats[:, FCA], feats[:, FCB], feats[:, FCC]
+    s = acc.unbind(1)
+    grad = torch.stack(
+        [-(ca * s[0] + cb * s[1]), -(cc * s[1] + cb * s[0]), -0.5 * s[2],
+         -s[3], -0.5 * s[4], *s[5:]], dim=1)
+    return torch.where(has[:, None], grad, 0.0)
+
+
+def pair_routing(gids, starts, counts, rows: int):
+    """The backward's routing of a pair list, (cand_pos, row_starts):
+    each feature row's pairs in order of their position in `gids` (a stable
+    sort by row), the pairs past their segment's count marked -1, and
+    `row_starts` [rows + 1] int32 where each row's pairs begin. For
+    binning's lists this is its own routing (`PairLists.cand_pos`,
+    `row_starts`: candidate order is each row's pairs in sorted order)."""
+    _, _, pos = counted_pairs(starts, counts)
+    counted = torch.zeros(gids.shape[0], dtype=torch.bool,
+                          device=gids.device)
+    counted[pos] = True
+    by_row, order = torch.sort(gids, stable=True)
+    cand_pos = torch.where(counted[order], order, -1).to(torch.int32)
+    row_starts = torch.searchsorted(
+        by_row, torch.arange(rows + 1, dtype=gids.dtype, device=gids.device))
+    return cand_pos, row_starts.to(torch.int32)
 
 
 def counted_pairs(starts, counts):
@@ -542,7 +712,7 @@ def _rasterize(means, scales, quats, features, opacities, alive, cams,
         means, scales, quats, features, opacities, alive, cams, sh_degree,
         cfg, scale_modifier, means2d_offset, tile_capacity)
     out = composite(*args, background.to(torch.float32).contiguous(),
-                    *tiles, cfg)
+                    *tiles, cfg, (pairs.cand_pos, pairs.row_starts))
     return {
         "image": out["image"],
         "depth": out["depth"],

@@ -114,3 +114,43 @@ def test_empty_scene_has_no_pairs():
     assert pairs.gids.numel() == 0
     assert np_(pairs.counts).tolist() == [0, 0, 0, 0]
     assert int(pairs.overflow) == 0
+
+
+@pytest.mark.parametrize("capacity", [4096, 24])
+def test_routing_maps_candidates_to_their_pairs(capacity):
+    """The kept permutation of the sort (`cand_pos`, the JAX `pos2`) maps
+    each candidate, in candidate order (camera, Gaussian, rect tile), to
+    its sorted pair: `gids` there is the candidate's feature row;
+    `row_starts` bounds each row's candidates; the pairs the cap cut are
+    -1 and no other; every counted pair is reached once; and
+    `pair_routing` rebuilds the same routing from the sorted lists."""
+    from humangaussian_torch.ops.binning import _candidates
+    from humangaussian_torch.ops.rasterize_tiled import (counted_pairs,
+                                                         pair_routing)
+
+    scene = make_scene(n=300, n_dead=20, seed=6)
+    cams = [jax_camera(64, 64), jax_camera(64, 64, eye=(-1.0, 0.5, 2.5))]
+    cfg = TCfg(max_tiles_per_gaussian=9)
+    tps = [t_project(*torch_args(scene), torch_camera_from_jax(c), 0, cfg)
+           for c in cams]
+    pairs = t_bin(tps, 2, 2, capacity, cfg)
+    rows = []
+    for b, tp in enumerate(tps):
+        g, _ = _candidates(tp, 2, cfg)[1].nonzero(as_tuple=True)
+        rows.append(g + b * 300)
+    cand_rows = torch.cat(rows)
+    cand_pos = pairs.cand_pos.to(torch.int64)
+    kept = cand_pos >= 0
+    assert cand_pos.shape == cand_rows.shape == pairs.gids.shape
+    assert torch.equal(pairs.gids.to(torch.int64)[cand_pos[kept]],
+                       cand_rows[kept])
+    per_row = torch.bincount(cand_rows, minlength=600)
+    assert pairs.row_starts.tolist() == [0] + torch.cumsum(
+        per_row, 0).tolist()
+    assert int((~kept).sum()) == int(pairs.overflow)
+    assert (int(pairs.overflow) > 0) == (capacity == 24)
+    _, _, counted = counted_pairs(pairs.starts[:-1], pairs.counts)
+    assert sorted(cand_pos[kept].tolist()) == sorted(counted.tolist())
+    want = pair_routing(pairs.gids, pairs.starts[:-1], pairs.counts, 600)
+    assert torch.equal(pairs.cand_pos, want[0])
+    assert torch.equal(pairs.row_starts, want[1])

@@ -365,6 +365,111 @@ def test_kernel_order_sums_within_tolerance(n, rows, c):
     assert float(((got.double() - want).abs() / scale).max()) <= 1e-5
 
 
+@pytest.mark.parametrize("n,rows,c,itemsize", LAUNCH_SHAPES)
+@pytest.mark.parametrize("sms", [H100_SMS, 8])
+def test_bwd_launch_covers_each_row_once(n, rows, c, itemsize, sms):
+    """K5's launch numbers (`_bwd_launch`): row splits cover every row once,
+    none empty; they keep the persistent blocks 90% busy over whole rounds
+    of tiles or are the busiest allowed; the blocks are at most two an SM
+    and no more than the tiles; the scratch sizes are what the kernel
+    checks."""
+    how = port_gn._bwd_launch(sms, n, rows, c, itemsize, True)
+    vec = 16 // itemsize
+    assert how.vector == (c % vec == 0)
+    width = vec if how.vector else 1
+    nbc = -(-c // 64)
+    splits, per = how.splits, -(-rows // how.splits)
+    assert 1 <= splits <= rows and (splits - 1) * per < rows
+    cover = np.zeros(rows, np.int64)
+    for s in range(splits):
+        cover[s * per:(s + 1) * per] += 1
+    assert (cover == 1).all()
+    tiles = n * nbc * splits
+    target = 2 * sms
+    assert how.blocks == min(target, tiles)
+    step = 256 // (64 // width) * 4
+    most = min(1024, max(1, rows // (4 * step)))
+
+    def busy(k):
+        t = n * nbc * k
+        return t / (target * -(-t // target))
+
+    chosen = port_gn.bwd_row_splits(n * nbc, rows, step, target)
+    assert splits == -(-rows // -(-rows // chosen)) and chosen <= most
+    assert busy(chosen) >= 0.9 or all(
+        busy(k) <= busy(chosen) + 1e-9 for k in range(1, most + 1))
+    assert how.sync_words == 1 + how.blocks + tiles
+    assert how.partial_floats == n * splits * 2 * c
+    # a pointer off 16 bytes takes the one-channel loop
+    assert not port_gn._bwd_launch(sms, n, rows, c, itemsize, False).vector
+
+
+def _bwd_kernel_order_sums(x3, dz3, fwd_sums, gamma, beta, groups, silu,
+                           sms):
+    """K5's sums of float32 inputs in plain torch, in the order of its
+    float32 additions at `_bwd_launch`'s numbers: each thread adds its rows
+    of a split one after another (every `deep`-th row), a tile adds its
+    row lanes one after another, and the finish adds the tiles' partials
+    split by split."""
+    n, rows, c = x3.shape
+    how = port_gn._bwd_launch(sms, n, rows, c, 4, True)
+    deep = 256 // (64 // (4 if how.vector else 1))
+    mu_c, rstd_c = port_gn.group_stats(fwd_sums, rows, groups, 1e-5)
+    dy, xhat = port_gn._dy_xhat(x3, dz3, mu_c, rstd_c, gamma, beta, silu)
+    both = torch.stack([dy, dy * xhat], 1)  # [n, 2, rows, c]
+    per = -(-rows // how.splits)
+    out = torch.zeros((n, 2, c), dtype=torch.float32)
+    for s in range(how.splits):
+        part = both[:, :, s * per:(s + 1) * per]
+        part = torch.nn.functional.pad(part, (0, 0, 0, -part.shape[2] % deep))
+        lanes = part.reshape(n, 2, -1, deep, c)
+        acc = torch.zeros((n, 2, deep, c), dtype=torch.float32)
+        for k in range(lanes.shape[2]):
+            acc = acc + lanes[:, :, k]
+        tile = torch.zeros((n, 2, c), dtype=torch.float32)
+        for y in range(deep):
+            tile = tile + acc[:, :, y]
+        out = out + tile
+    return out
+
+
+@pytest.mark.parametrize("n,rows,c", [
+    (2, 4096, 64),  # 16 splits
+    (4, 1024, 96),  # 4 splits, a 32-channel second block
+    (3, 300, 160),  # one split
+])
+def test_bwd_split_partials_match_plain_and_jax(pallas, n, rows, c):
+    """K5's split partials added in a fixed order (emulated in plain torch
+    at the H100's launch numbers) against K5's plain version and, where
+    its row count has a block, the JAX `_bwd_stats` (interpret): 2e-5 of
+    the largest sum."""
+    groups = 8
+    x, scale, bias, dz = _inputs((n, rows, c), seed=9)
+    x3, dz3 = torch.from_numpy(x), torch.from_numpy(dz)
+    gamma, beta = torch.from_numpy(scale), torch.from_numpy(bias)
+    sums = port_gn.group_norm_stats_plain(x3)
+    assert port_gn._bwd_launch(H100_SMS, n, rows, c, 4, True).splits \
+        == {4096: 16, 1024: 4, 300: 1}[rows]
+    for silu in (True, False):
+        got = _bwd_kernel_order_sums(x3, dz3, sums, gamma, beta, groups, silu,
+                                     H100_SMS).numpy()
+        plain = port_gn.group_norm_bwd_stats_plain(
+            x3, dz3, sums, gamma, beta, groups, 1e-5, silu).numpy()
+        np.testing.assert_allclose(got, plain,
+                                   atol=F32_TOL * np.abs(plain).max())
+        block = jax_gn._pick_block_rows(rows, c)
+        if block:
+            mu_c, rstd_c = port_gn.group_stats(sums, rows, groups, 1e-5)
+            want = np.asarray(jax_gn._bwd_stats(
+                jnp.asarray(x), jnp.asarray(dz),
+                jnp.asarray(mu_c.numpy())[:, None, :],
+                jnp.asarray(rstd_c.numpy())[:, None, :],
+                jnp.stack([jnp.asarray(scale), jnp.asarray(bias)])[None],
+                block, silu))
+            np.testing.assert_allclose(got, want,
+                                       atol=F32_TOL * np.abs(want).max())
+
+
 @pytest.mark.parametrize("silu", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,groups", [((2, 16, 16, 32), 8),

@@ -5,15 +5,16 @@ The kernel-vs-plain tests need an NVIDIA GPU (marker `cuda`) and skip
 without one; on the card they hold K1 to `composite_plain` at 1e-4 absolute
 on image and alpha and 1e-3 on depth, with at most 1e-4 of the pixels
 allowed past that (the 1e-4 saturation knife-edge and exp rounding), and
-K2 to `composite_backward_plain` at 1e-4 of each column's max-|grad|, with
-at most 1e-3 of the rows past that (a pair flipped at the knife-edge moves
-a row by its whole contribution; atomics sum in no fixed order); the
+K2 + K2b to `composite_backward_plain` at 1e-4 of each column's
+max-|grad|, with at most 1e-3 of the rows past that (a pair flipped at the
+knife-edge moves a row by its whole contribution), their reruns bit-equal
+and K2b alone on K2's sub-tile rows bit-equal to its plain version; the
 GroupNorm forward kernel's sums (alone or fused) and K5 to
 `group_norm_stats_plain` / `group_norm_bwd_stats_plain` at 1e-5 of the
 largest sum, its y (alone as K3a or fused) to `group_norm_apply_plain` and
 K5a to `group_norm_bwd_dx_plain` within one bfloat16 ulp on all but 1e-4
-of the outputs (bfloat16) or 1e-5 of the largest output (float32), its
-reruns bit-equal; K4 to
+of the outputs (bfloat16) or 1e-5 of the largest output (float32), their
+reruns and a CUDA graph's replays of the op bit-equal; K4 to
 `self_attention_plain` at 2^-7 of the largest output (one bfloat16 ulp at
 the peak).
 """
@@ -30,8 +31,12 @@ from humangaussian_torch.ops.projection import RasterizeConfig
 from humangaussian_torch.ops.rasterize_tiled import (
     composite,
     composite_backward,
+    composite_backward_pairs,
     composite_backward_plain,
     composite_plain,
+    feature_row_grads,
+    feature_row_grads_plain,
+    pair_routing,
 )
 from humangaussian_torch.ops import attention, groupnorm
 from port_parity_torch import (
@@ -178,7 +183,8 @@ def test_guidance_wrappers_take_plain_on_the_cpu_and_do_not_count():
     assert torch.equal(y, want_y) and torch.equal(fsums, want_sums)
     assert set(kernels.launch_counts().values()) == {0}
     assert set(kernels.launch_counts()) == {
-        "rasterize_fwd", "rasterize_bwd", "groupnorm_fwd",
+        "rasterize_fwd", "rasterize_bwd", "rasterize_bwd_rows",
+        "groupnorm_fwd",
         "groupnorm_bwd_stats", "groupnorm_bwd_dx", "attention_fwd"}
 
 
@@ -351,14 +357,49 @@ def test_kernels_match_plain_on_a_2x2_rect_batch_of_8(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,rows,c,dtype", [
+def test_backward_kernels_repeat_bit_for_bit_on_a_2x2_rect_batch_of_8(
+        cuda_device):
+    """K2 + K2b run twice on the binned 8-camera batch with the training
+    rect give the same bits (every sum in a fixed order), within K2's
+    limits of the plain version; K2b alone on K2's sub-tile rows gives its
+    plain version's bits."""
+    args, cfg = projected_composite_args(device=cuda_device, seed=8, n=4000,
+                                         hw=(128, 160), cams=8, max_tiles=4)
+    routing = pair_routing(*args[1:4], args[0].shape[0])
+    out = composite(*args, cfg)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    cot = [torch.randn(out[k].shape, generator=g).to(cuda_device)
+           for k in ("image", "depth", "alpha")]
+    kernels.reset_launch_counts()
+    got = [composite_backward(*args[:5], out, cot, *args[5:], cfg, routing)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["rasterize_bwd"], counts["rasterize_bwd_rows"]) == (2, 2)
+    assert torch.equal(got[0], got[1])
+    ref = composite_plain(*args, cfg)
+    want = composite_backward_plain(*args[:5], ref, cot, *args[5:], cfg,
+                                    routing)
+    _k2_within_limits(got[0], want, 1e-3)
+    rows, mask = composite_backward_pairs(*args[:5], out, cot, *args[5:],
+                                          cfg)
+    assert torch.equal(
+        feature_row_grads(rows, mask, *routing, args[0]),
+        feature_row_grads_plain(rows, mask, *routing, args[0]))
+
+
+GN_KERNEL_SHAPES = [
     (2, 37, 48, torch.float32),  # odd rows
     (3, 50, 33, torch.float32),  # odd channel count: the scalar loads
     (4, 1024, 320, torch.bfloat16),
     (2, 64, 2560, torch.bfloat16),
     (1, 65536, 128, torch.bfloat16),  # the VAE's 256^2 level
     (2, 300, 96, torch.float32),  # 4-channel float32 vectors
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,c,dtype", GN_KERNEL_SHAPES)
 def test_groupnorm_kernels_match_plain(cuda_device, n, rows, c, dtype):
     x3, dz3, gamma, beta = random_groupnorm_args(cuda_device, 1, n, rows, c,
                                                  dtype)
@@ -378,6 +419,59 @@ def test_groupnorm_kernels_match_plain(cuda_device, n, rows, c, dtype):
     counts = kernels.launch_counts()
     assert counts["groupnorm_fwd"] == 1
     assert counts["groupnorm_bwd_stats"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,c,dtype", GN_KERNEL_SHAPES)
+def test_groupnorm_backward_kernels_repeat_bit_for_bit(cuda_device, n, rows,
+                                                        c, dtype):
+    """K5 and K5a run twice on the same inputs give the same bits (K5's
+    split partials are added in a fixed order)."""
+    x3, dz3, gamma, beta = random_groupnorm_args(cuda_device, 2, n, rows, c,
+                                                 dtype)
+    fsums = groupnorm.group_norm_stats(x3)
+    for silu in (True, False):
+        sums = [groupnorm.group_norm_bwd_stats(x3, dz3, fsums, gamma, beta, c,
+                                               1e-5, silu) for _ in range(2)]
+        dx = [groupnorm.group_norm_bwd_dx(x3, dz3, fsums, gamma, beta, s, c,
+                                          1e-5, silu) for s in sums]
+        torch.cuda.synchronize()
+        assert torch.equal(sums[0], sums[1])
+        assert torch.equal(dx[0], dx[1])
+
+
+@pytest.mark.cuda
+def test_group_norm_act_backward_replays_from_a_cuda_graph(cuda_device):
+    """`group_norm_act` forward and backward (the fused forward, K5, K5a:
+    no memset, no per-call query, flag words of their own under capture)
+    captured in a CUDA graph and replayed give an eager call's bits."""
+    x3, dz3, gamma, beta = random_groupnorm_args(cuda_device, 4, 8, 1024, 320,
+                                                 torch.bfloat16)
+    x = x3.reshape(8, 32, 32, 320).requires_grad_(True)
+    dz = dz3.reshape(8, 32, 32, 320)
+    scale = gamma.clone().requires_grad_(True)
+    bias = beta.clone().requires_grad_(True)
+
+    def step():  # keeps no autograd graph alive past the call
+        y = groupnorm.group_norm_act(x, scale, bias, 32, 1e-5, True)
+        return (y.detach(), *torch.autograd.grad(y, (x, scale, bias), dz))
+
+    want = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = step()
+    for _ in range(3):
+        for t in got:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -16,6 +16,12 @@
     to opacity, mean or conic; pairs past a pixel's done latch and past
     the tile's capped count get exactly 0; a batch of 2 cameras sums both
     cameras' gradients.
+(e) K2b's plain version (`feature_row_grads_plain`), each feature row's
+    pairs in candidate order and each pair's masked sub-tile rows in
+    order: bit-equal to a Python loop over each row's candidates, within
+    1e-6 of each column's max of an `index_add_` in float64, and pairs cut
+    by a tile's cap add nothing; K2's plain sub-tile rows add up to the
+    whole tile's (1e-5 of each column's max).
 """
 import glob
 import os
@@ -31,6 +37,9 @@ from humangaussian_torch.ops.rasterize_ref import rasterize_reference as t_ref
 from humangaussian_torch.ops.rasterize_tiled import (
     composite,
     composite_plain,
+    feature_row_grads,
+    feature_row_grads_plain,
+    pair_routing,
     rasterize_tiled as t_tiled,
     rasterize_tiled_batch as t_tiled_batch,
 )
@@ -331,3 +340,116 @@ def test_padded_ply_scene_has_finite_gradients_on_every_row(tmp_path):
         np.testing.assert_allclose(got[key][:300].numpy() / scale,
                                    want[key].numpy() / scale, atol=1e-6,
                                    err_msg=key)
+
+
+# ---- (e) K2b: each feature row's pair rows, in candidate order ------------
+
+def _routed_pair_rows(seed=0, rows=50, tiles=6, per_tile=30, cap=24):
+    """Random feature rows; sub-tile rows [P, 16, 10] of mixed sign and
+    magnitude with a random mask; pair lists of `tiles` segments of
+    `per_tile` random rows each (every other segment capped at `cap`) and
+    their routing. The rows the mask leaves out and those of the cut pairs
+    are NaN."""
+    rng = np.random.RandomState(seed)
+    feats = torch.from_numpy(rng.randn(rows, 10).astype(np.float32))
+    gids = torch.from_numpy(np.concatenate(
+        [rng.choice(rows, per_tile, replace=False) for _ in range(tiles)]
+    ).astype(np.int32))
+    starts = torch.arange(tiles, dtype=torch.int32) * per_tile
+    counts = torch.tensor([cap if t % 2 else per_tile for t in range(tiles)],
+                          dtype=torch.int32)
+    n = gids.shape[0]
+    sub_rows = torch.from_numpy(
+        (rng.randn(n, 16, 10) * 10.0 ** rng.randint(-3, 4, (n, 16, 10))
+         ).astype(np.float32))
+    mask = torch.from_numpy((rng.rand(n, 16) < 0.3).astype(np.uint8))
+    cand_pos, row_starts = pair_routing(gids, starts, counts, rows)
+    cut = torch.ones(n, dtype=torch.bool)
+    cut[cand_pos[cand_pos >= 0].to(torch.int64)] = False
+    sub_rows[cut] = float("nan")
+    sub_rows[mask == 0] = float("nan")
+    return feats, gids, cut, sub_rows, mask, cand_pos, row_starts
+
+
+def _row_grad(s, f):
+    """A row's gradient from its summed pair row `s` and feature row `f`."""
+    return torch.stack([-(f[2] * s[0] + f[3] * s[1]),
+                        -(f[4] * s[1] + f[3] * s[0]), -0.5 * s[2], -s[3],
+                        -0.5 * s[4], *s[5:]])
+
+
+def test_k2b_plain_is_a_loop_over_each_rows_candidates():
+    feats, _, _, rows, mask, cand_pos, row_starts = _routed_pair_rows()
+    got = feature_row_grads_plain(rows, mask, cand_pos, row_starts, feats)
+    want = torch.zeros_like(feats)
+    for i in range(feats.shape[0]):
+        acc, any_row = torch.zeros(10), False
+        for k in range(int(row_starts[i]), int(row_starts[i + 1])):
+            p = int(cand_pos[k])
+            for sub in range(16):
+                if p >= 0 and int(mask[p, sub]):
+                    acc = acc + rows[p, sub]
+                    any_row = True
+        if any_row:
+            want[i] = _row_grad(acc, feats[i])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(
+        feature_row_grads(rows, mask, cand_pos, row_starts, feats), got)
+
+
+def test_k2b_plain_matches_index_add_in_float64():
+    feats, gids, cut, rows, mask, cand_pos, row_starts = _routed_pair_rows(1)
+    got = feature_row_grads_plain(rows, mask, cand_pos, row_starts, feats)
+    per_pair = torch.where(mask[..., None] != 0, rows.double(),
+                           0.0).sum(dim=1)
+    sums = torch.zeros(feats.shape, dtype=torch.float64).index_add_(
+        0, gids[~cut].to(torch.int64), per_pair[~cut])
+    f64 = feats.double()
+    want = torch.stack([_row_grad(sums[i], f64[i])
+                        for i in range(feats.shape[0])])
+    scale = want.abs().amax(dim=0)
+    assert float(((got.double() - want).abs() / scale).max()) <= 1e-6
+
+
+def test_k2b_pairs_cut_by_the_cap_add_nothing():
+    feats, _, cut, rows, mask, cand_pos, row_starts = _routed_pair_rows(2)
+    assert int(cut.sum()) == 3 * 6 and bool(rows[cut].isnan().all())
+    full = torch.where(cut[:, None], 1, mask).to(torch.uint8)
+    got = feature_row_grads_plain(rows, full, cand_pos, row_starts, feats)
+    assert bool(torch.isfinite(got).all())
+    zeroed = torch.where(cut[:, None, None], 0.0, rows)
+    assert torch.equal(got, feature_row_grads_plain(zeroed, full, cand_pos,
+                                                    row_starts, feats))
+    # a row whose every pair was cut gets zeros
+    only_cut = [i for i in range(feats.shape[0])
+                if int(row_starts[i]) < int(row_starts[i + 1])
+                and bool((cand_pos[int(row_starts[i]):int(row_starts[i + 1])]
+                          < 0).all())]
+    for i in only_cut:
+        assert torch.equal(got[i], torch.zeros(10))
+
+
+def test_k2_plain_sub_tile_rows_sum_to_the_tile_sums():
+    """K2's plain sub-tile rows (and their mask) add up, over the 16
+    sub-tiles, to each pair's sums over its whole tile: the backward
+    through K2b equals the backward through one whole-tile row a pair, and
+    a row the mask leaves out is zero."""
+    from humangaussian_torch.ops.rasterize_tiled import (
+        composite_backward_pairs_plain,
+    )
+
+    args = random_composite_args(seed=3, cams=2, n=200, pairs_per_tile=60)
+    out = composite_plain(*args)
+    cot = [torch.from_numpy(c) for c in _cotangents((64, 64), 7, 2)]
+    rows, mask = composite_backward_pairs_plain(*args[:5], out, cot,
+                                                *args[5:])
+    assert rows.shape == (args[1].shape[0], 16, 10)
+    assert bool((rows[mask == 0] == 0).all()) and int(mask.sum()) > 0
+    whole = torch.zeros_like(rows)
+    whole[:, 0] = rows.double().sum(dim=1).float()
+    routing = pair_routing(*args[1:4], args[0].shape[0])
+    got = feature_row_grads_plain(rows, mask, *routing, args[0])
+    want = feature_row_grads_plain(whole, (whole != 0).any(-1).to(torch.uint8),
+                                   *routing, args[0])
+    scale = want.abs().amax(dim=0).clamp_min(1e-30)
+    assert float(((got - want).abs() / scale).max()) <= 1e-5
