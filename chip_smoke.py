@@ -48,8 +48,8 @@ source, started together), writes the assets, then:
    parameters; the test PSNR is printed;
 7. times with CUDA events (medians after a warm-up) K1, K2, K2b and the
    whole backward K2 + K2b per 1024^2 avatar view (shape a) and at the
-   first training view (shape b) (K2b beside its bound and `index_add_` of
-   the same pair rows), with
+   first training view (shape b) (K2b beside its kernel launched alone,
+   its bound and `index_add_` of the same pair rows), with
    their busy tiles, largest segment, the share of pair x pixel slots
    that the sub-tile skip removes (`subtile_pair_mask`) and two bounds:
    from the contributions alone (`needed_bounds`, the `kernels` line's
@@ -289,7 +289,9 @@ carries `launches_serving_and_photo` (phases 4 to 6), K2's and K2b's
 `ms_guidance_batch` and `bound_ms_guidance_batch` (K1's and K2's also
 `bound_ms_guidance_batch_visits`), shape c; K2's row the whole
 backward's (K2 + K2b) `ms_with_k2b`, `ms_avatar_view_with_k2b` and
-`ms_guidance_batch_with_k2b`), and `launches_photo_data`
+`ms_guidance_batch_with_k2b`; K2b's row `ms_launch`,
+`ms_launch_avatar_view` and `ms_launch_guidance_batch`, the kernel
+launched without its wrapper), and `launches_photo_data`
 (phases 20 and 21), K1's `launches_viewer` (phase 24), and every row's
 `launches_dreamfusion_step` (phase 25b's checked step)) and, last, the
 device JSON line. `--only GROUP[,GROUP]` (render, norm, attention,
@@ -458,6 +460,11 @@ def compare_grads(name, got, want, names, tol, max_bad_fraction=0.0):
     return worst_abs, worst_rel
 
 
+def routing_of(pairs):
+    """The backward's routing of binning's pair lists."""
+    return pairs.cand_pos, pairs.row_starts, pairs.pair_cand
+
+
 def k2_vs_plain(name, kargs, routing, bg, tiles, cfg, fwd, plain_fwd, seed):
     """K2 + K2b on K1's saved outputs against the plain backward on the
     plain forward's; a second launch of both must give the same bits, and
@@ -481,11 +488,12 @@ def k2_vs_plain(name, kargs, routing, bg, tiles, cfg, fwd, plain_fwd, seed):
                                     routing)
     errs = compare_grads(name, got.unbind(1), want.unbind(1), FEATURE_NAMES,
                          GRAD_TOL, MAX_BAD_FRACTION)
-    rows, mask = composite_backward_pairs(*kargs, bg, fwd, cot, *tiles, cfg)
-    rows_err = float((feature_row_grads(rows, mask, *routing, kargs[0])
-                      - feature_row_grads_plain(rows, mask, *routing,
+    rows, mask = composite_backward_pairs(*kargs, bg, fwd, cot, *tiles, cfg,
+                                          routing)
+    rows_err = float((feature_row_grads(rows, mask, *routing[:2], kargs[0])
+                      - feature_row_grads_plain(rows, mask, *routing[:2],
                                                 kargs[0])).abs().max())
-    written = int(mask[routing[0][routing[0] >= 0].to(torch.int64)].sum())
+    written = int(mask[routing[0] >= 0].sum())
     print(f"  {name}: K2 + K2b bit-equal on a rerun; K2 wrote {written} "
           f"sub-tile rows; K2b vs plain on them max_abs_err={rows_err:.3e} "
           f"(limit {K2B_TOL:g})")
@@ -500,7 +508,7 @@ def k2b_bound(kargs, routing, written):
     over the memory rate (its few adds a row are far under the
     instruction rate)."""
     feats = kargs[0]
-    cand_pos, row_starts = routing
+    cand_pos, row_starts = routing[:2]
     kept = int((cand_pos >= 0).sum())
     rows = feats.shape[0]
     with_pairs = int((row_starts[1:] > row_starts[:-1]).sum())
@@ -515,9 +523,9 @@ def k2_times(label, kargs, routing, bg, tiles, cfg, fwd, cot, plain=True):
     (`feature_row_grads`), the whole backward K2 + K2b
     (`composite_backward`, what the parent tree's K2 timing covered), with
     `plain` their plain versions, K2b's bound and the library call for
-    K2b's sums (`index_add_` of the masked sub-tile rows of the counted
-    pairs into zeroed rows, without the per-row transform and in no fixed
-    order)."""
+    K2b's sums (`index_add_` of the masked sub-tile rows of the kept
+    candidates, each into its candidate's feature row, zeroed beforehand,
+    without the per-row transform and in no fixed order)."""
     from humangaussian_torch.ops.rasterize_tiled import (
         composite_backward,
         composite_backward_pairs,
@@ -526,31 +534,56 @@ def k2_times(label, kargs, routing, bg, tiles, cfg, fwd, cot, plain=True):
         feature_row_grads_plain,
     )
 
-    feats, gids = kargs[0], kargs[1]
-    rows, mask = composite_backward_pairs(*kargs, bg, fwd, cot, *tiles, cfg)
+    from humangaussian_torch.kernels import RASTERIZE_BWD_ROWS
+
+    feats = kargs[0]
+    rows, mask = composite_backward_pairs(*kargs, bg, fwd, cot, *tiles, cfg,
+                                          routing)
     out = {
         "k2": cuda_ms(lambda: composite_backward_pairs(
-            *kargs, bg, fwd, cot, *tiles, cfg), reps=20),
-        "k2b": cuda_ms(lambda: feature_row_grads(rows, mask, *routing,
+            *kargs, bg, fwd, cot, *tiles, cfg, routing), reps=20),
+        "k2b": cuda_ms(lambda: feature_row_grads(rows, mask, *routing[:2],
                                                  feats), reps=20, inner=5),
         "both": cuda_ms(lambda: composite_backward(
             *kargs, bg, fwd, cot, *tiles, cfg, routing), reps=20),
     }
-    kept = routing[0][routing[0] >= 0].to(torch.int64)
+    cand_pos, row_starts = routing[:2]
+    # the kernel alone: launched without the wrapper's checks, allocation
+    # and device switch (the wrapper's host time exceeds a short kernel's)
+    dfeats = torch.empty_like(feats)
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    out["k2b_launch"] = cuda_ms(lambda: RASTERIZE_BWD_ROWS.launch(
+        rows.data_ptr(), mask.data_ptr(), cand_pos.data_ptr(),
+        row_starts.data_ptr(), feats.data_ptr(), feats.shape[0],
+        dfeats.data_ptr(), stream), reps=20, inner=5)
+    del dfeats
+    kept = (cand_pos >= 0).nonzero().flatten()
     pair, sub = (mask[kept] != 0).nonzero(as_tuple=True)
     lib_rows = rows[kept[pair], sub]
-    lib_gids = gids[kept[pair]].to(torch.int64)
+    cand_rows = torch.repeat_interleave(
+        torch.arange(feats.shape[0], device=feats.device),
+        (row_starts[1:] - row_starts[:-1]).to(torch.int64))
+    lib_gids = cand_rows[kept[pair]]
     acc = torch.zeros_like(feats)
     out["k2b_library"] = cuda_ms(
         lambda: acc.index_add_(0, lib_gids, lib_rows), reps=20, inner=5)
     out["k2b_bound"] = k2b_bound(kargs, routing, lib_rows.shape[0])[0]
-    del kept, pair, sub, lib_rows, lib_gids, acc
+    # K2b's work a warp (32 consecutive feature rows): its masked rows
+    per_row = torch.bincount(lib_gids, minlength=feats.shape[0])
+    per_warp = torch.nn.functional.pad(
+        per_row, (0, -feats.shape[0] % 32)).reshape(-1, 32).sum(1)
+    print(f"  {label}: K2b reads {lib_rows.shape[0]} sub-tile rows of "
+          f"{int(kept.numel())} kept candidates; a 32-row warp's rows mean "
+          f"{float(per_warp.double().mean()):.1f}, max "
+          f"{int(per_warp.max())}")
+    del kept, pair, sub, lib_rows, cand_rows, lib_gids, acc, per_row, per_warp
     if plain:
         out["k2_plain"] = cuda_ms(lambda: composite_backward_pairs_plain(
-            *kargs, bg, fwd, cot, *tiles, cfg), reps=3)
+            *kargs, bg, fwd, cot, *tiles, cfg, routing), reps=3)
         out["k2b_plain"] = cuda_ms(lambda: feature_row_grads_plain(
-            rows, mask, *routing, feats), reps=3)
-    print(f"  {label}: K2 {out['k2']:.4f} ms, K2b {out['k2b']:.4f} ms "
+            rows, mask, *routing[:2], feats), reps=3)
+    print(f"  {label}: K2 {out['k2']:.4f} ms, K2b {out['k2b']:.4f} ms, "
+          f"its kernel launched alone {out['k2b_launch']:.4f} ms "
           f"(bound {out['k2b_bound']:.5f} ms by bytes; index_add_ of the "
           f"sub-tile rows {out['k2b_library']:.4f} ms), K2 + K2b "
           f"{out['both']:.4f} ms" + (
@@ -1619,7 +1652,7 @@ def guidance_batch_kernels(avatar, cams, rcfg, bg) -> dict:
     plain = composite_plain(*kargs, bg, *tiles, rcfg)
     k1_err = compare(label, got, plain)
     last_contributor_account(label, got, plain)
-    routing = (pairs.cand_pos, pairs.row_starts)
+    routing = routing_of(pairs)
     k2_err, cot, _, k2b_err, written = k2_vs_plain(
         label, kargs, routing, bg, tiles, rcfg, got, plain, seed=16)
     visits, contribs = int(plain["visits"]), int(plain["contribs"])
@@ -1642,7 +1675,8 @@ def guidance_batch_kernels(avatar, cams, rcfg, bg) -> dict:
             "k1_ms": k1_ms, "k1_bound": n1[0], "k1_bound_visits": b1[0],
             "k2_ms": times["k2"], "k2_bound": n2[0],
             "k2_bound_visits": b2[0], "k2_k2b_ms": times["both"],
-            "k2b_ms": times["k2b"], "k2b_bound": times["k2b_bound"],
+            "k2b_ms": times["k2b"], "k2b_launch_ms": times["k2b_launch"],
+            "k2b_bound": times["k2b_bound"],
             "k2b_library_ms": times["k2b_library"]}
 
 
@@ -2803,6 +2837,7 @@ def run(dev, only=()) -> int:
                 row = rows["rasterize_bwd_rows"]
                 row["max_abs_err"] = max(row["max_abs_err"], batch["k2b_err"])
                 row["ms_guidance_batch"] = batch["k2b_ms"]
+                row["ms_launch_guidance_batch"] = batch["k2b_launch_ms"]
                 row["bound_ms_guidance_batch"] = batch["k2b_bound"]
                 row["library_ms_guidance_batch"] = batch["k2b_library_ms"]
         if want("sample"):
@@ -2915,7 +2950,7 @@ def render_phases(dev, tmp, assets) -> dict:
     plain = composite_plain(*kargs, bg, tx, ty, cfg)
     k1_err = compare("small 96x64", got, plain)
     k2_err, _, _, k2b_err, _ = k2_vs_plain(
-        "small 96x64", kargs, (pairs.cand_pos, pairs.row_starts), bg,
+        "small 96x64", kargs, routing_of(pairs), bg,
         (tx, ty), cfg, got, plain, seed=3)
 
     # -- the avatar feeds phase 2b, 4 and 5 ------------------------------
@@ -2946,7 +2981,7 @@ def render_phases(dev, tmp, assets) -> dict:
           f"{int(busy.max())}")
     check(float(got["alpha"].max()) > 0.9, "avatar not in view")
     last_contributor_account("avatar view", got, plain)
-    avatar_routing = (pairs.cand_pos, pairs.row_starts)
+    avatar_routing = routing_of(pairs)
     errs, avatar_cot, _, rows_err, avatar_written = k2_vs_plain(
         f"avatar {SIZE}x{SIZE}", kargs, avatar_routing, black, (tx, ty), cfg,
         got, plain, seed=4)
@@ -3154,7 +3189,7 @@ def render_phases(dev, tmp, assets) -> dict:
     torch.cuda.synchronize()
     tplain = composite_plain(*targs, black, ttx, tty, trainer.raster_cfg)
     k1_err = max(k1_err, compare("first training view", tfwd, tplain))
-    t_routing = (tpairs.cand_pos, tpairs.row_starts)
+    t_routing = routing_of(tpairs)
     errs, tcot, _, rows_err, t_written = k2_vs_plain(
         "first training view", targs, t_routing, black, (ttx, tty),
         trainer.raster_cfg, tfwd, tplain, seed=6)
@@ -3349,15 +3384,18 @@ def render_phases(dev, tmp, assets) -> dict:
             "launches_photo": train_launches["rasterize_bwd_rows"],
             "max_abs_err": k2b_err,
             "ms": t_times["k2b"],
+            # the kernel launched alone, without the wrapper's host time
+            "ms_launch": t_times["k2b_launch"],
             "plain_ms": t_times["k2b_plain"],
             "bound_ms": t_times["k2b_bound"],
             "bound_by": "bytes",
             "library_ms": t_times["k2b_library"],
             "library_call": "index_add_ of the masked sub-tile rows of the "
-                            "counted pairs into zeroed rows (the sums "
-                            "without the per-row transform, in no fixed "
-                            "order)",
+                            "kept candidates into their feature rows, "
+                            "zeroed (the sums without the per-row "
+                            "transform, in no fixed order)",
             "ms_avatar_view": avatar_times["k2b"],
+            "ms_launch_avatar_view": avatar_times["k2b_launch"],
             "plain_ms_avatar_view": avatar_times["k2b_plain"],
             "bound_ms_avatar_view": avatar_times["k2b_bound"],
             "library_ms_avatar_view": avatar_times["k2b_library"],
@@ -3602,7 +3640,7 @@ def trainer_first_view(dev, label, overrides, bg, seed):
     k1_err = compare(f"{label} first training view", got, plain)
     k2_errs, _, _, _, _ = k2_vs_plain(
         f"{label} first training view", kargs,
-        (pairs.cand_pos, pairs.row_starts), bg, tiles, rcfg, got, plain,
+        routing_of(pairs), bg, tiles, rcfg, got, plain,
         seed=seed)
     del got, plain
 
@@ -3659,7 +3697,7 @@ def photo_data_phases(dev, tmp, assets) -> dict:
     check(float(got["alpha"].max()) > 0.9, f"avatar not in the {w}x{h} view")
     k1_err = compare(f"{w}x{h} view", got, plain)
     k2_err, _, _, _, _ = k2_vs_plain(
-        f"{w}x{h} view", kargs, (pairs.cand_pos, pairs.row_starts), black,
+        f"{w}x{h} view", kargs, routing_of(pairs), black,
         tiles, cfg, got, plain, seed=13)
     del got, plain
 

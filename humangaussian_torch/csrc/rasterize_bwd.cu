@@ -67,14 +67,15 @@
 // - over the 16 sub-tile blocks of a tile, and over the pairs of a
 //   Gaussian: after each round a block stores the sums of every pair it
 //   walked as the pair's row for its sub-tile, with plain stores, in a
-//   [P, 16, 10] buffer at the pair's sorted position, and a byte of a
-//   [P, 16] mask that says whether the row holds a non-zero sum (every
-//   pair below the tile's count gets its 16 bytes: 0 for a pair the block
-//   dropped, did not reach or that added nothing). K2b then adds, for each
-//   Gaussian, its pairs in candidate order (binning's order: feature row,
-//   then rect tile; the reference's `pos2` gather route) and each pair's
-//   sub-tile rows in sub-tile order 0 to 15; pairs cut by the tile's cap
-//   get no mask and are never read.
+//   [P, 16, 10] buffer at the pair's candidate index (binning's
+//   `pair_cand`: the pair's place in candidate order, feature row then
+//   rect tile), and a byte of a [P, 16] mask that says whether the row
+//   holds a non-zero sum (every pair below the tile's count gets its 16
+//   bytes: 0 for a pair the block dropped, did not reach or that added
+//   nothing). K2b then adds, for each Gaussian, its pairs in candidate
+//   order (the reference's `pos2` gather route) and each pair's sub-tile
+//   rows in sub-tile order 0 to 15; pairs cut by the tile's cap get no
+//   mask and are never read (their `cand_pos` is -1).
 // A row holds the ten raw sums [sum dpow dx, sum dpow dy, sum dpow dx^2,
 // sum dpow dx dy, sum dpow dy^2, drgb, dopacity, ddepth]; K2b turns a
 // Gaussian's sums into its feature-row gradient with its own conic (the
@@ -92,6 +93,33 @@
 // (PERF.md, PR 14). Here the blocks stay independent, and the cost moves
 // to the buffer: 1.4 to 6.9 sub-tile rows of 40 bytes a pair written and
 // read, 16 mask bytes a pair.
+//
+// The buffer is laid out in candidate order, not in the sorted order K2
+// walks, so that each feature row's pairs own one contiguous span of it:
+// the random access sits in K2's stores (fire-and-forget, each 40-byte row
+// in a line of its own either way) and K2b reads its spans in order.
+//
+// K2b is bound by bytes: the masked rows it reads (two 32-byte sectors for
+// each 40-byte row), the masks, the conics and the gradient rows. A warp
+// owns 32 consecutive feature rows and walks their span in chunks of up to
+// 32 candidates. Its lanes read the chunk's `cand_pos` and 16-byte masks
+// with coalesced loads (the next chunk's are loaded while this one is
+// copied and added), a warp scan of the masked-row counts gives each
+// masked sub-tile row a slot of a shared-memory stage in summation order
+// (candidate, then sub-tile; the chunk ends before the stage would
+// overflow), all lanes copy the rows into their slots with cp.async, and
+// each row's lane adds its own slots in order. Where a row has 16 slots or
+// more in a chunk (large splats), ten lanes add its ten sums instead, each
+// in the same order, so that a long row does not hold the warp to one
+// active lane. The gradient rows leave through shared memory as 16-byte
+// stores. The design before it ran one thread a row through a chain of
+// three dependent gathers a candidate (cand_pos, then the mask, then the
+// rows, all at sorted positions scattered over the buffer): latency-bound
+// at 20-40% of its bound and 1.5x `index_add_` of the same rows at the
+// avatar view (PERF.md). Warps that each own an equal share of rows
+// plus candidates (found by a search of row_starts) balanced the load of
+// long rows but cost more round trips at the step's batch, and measured
+// slower there (PERF.md).
 //
 // Not carried over from the TPU kernel, which needed them for its hardware:
 // the page buffers and pagestart, the candidate-key row and key-only blocks,
@@ -214,6 +242,7 @@ rasterize_bwd_kernel(const float* __restrict__ feats,
                      const float* __restrict__ g_image,
                      const float* __restrict__ g_depth,
                      const float* __restrict__ g_alpha,
+                     const int* __restrict__ pair_cand,
                      float* __restrict__ rows,
                      unsigned char* __restrict__ mask) {
   __shared__ __align__(16) float s_raw[kBatch * kRow];
@@ -257,12 +286,14 @@ rasterize_bwd_kernel(const float* __restrict__ feats,
   __syncthreads();
   const int block_last = s_last;
 
-  // this sub-tile's row and mask byte of the segment's pair p:
-  // seg_rows[p * kSubs * kFeat], seg_mask[p * kSubs]
+  // the segment's pair p is candidate c = seg_cand[p]: this sub-tile's
+  // row of it is sub_rows[c * kSubs * kFeat], its mask byte
+  // sub_mask[c * kSubs]
   const int seg = starts[blk.tile_block];
   const int sub = blockIdx.x % kSubs;
-  float* seg_rows = rows + ((size_t)seg * kSubs + sub) * kFeat;
-  unsigned char* seg_mask = mask + (size_t)seg * kSubs + sub;
+  const int* seg_cand = pair_cand + seg;
+  float* sub_rows = rows + sub * kFeat;
+  unsigned char* sub_mask = mask + sub;
   int covered = 0;  // pairs [0, covered) have their mask byte
 
   if (block_last > 0) {  // block-uniform
@@ -292,6 +323,10 @@ rasterize_bwd_kernel(const float* __restrict__ feats,
       const int next = base + kBatch;
       st.issue(s_raw, next, tid);  // in flight during the walk
       st.load_gid(next + kBatch, tid);
+      // where this thread flushes its pair of the round (the pair it
+      // staged), loaded now and in flight during the walk
+      const int p = base + tid;
+      const int cand = p < count ? seg_cand[p] : 0;
 
       // this warp's staged pairs: segment index below warp_last (sorted)
       int kend = 0;
@@ -325,8 +360,7 @@ rasterize_bwd_kernel(const float* __restrict__ feats,
       __syncthreads();  // the round's sums are in s_grad
       // flush the round: thread tid takes raw pair tid (it staged it):
       // the row and a mask byte of 1 where the block kept the pair and a
-      // sum is non-zero, else a mask byte of 0
-      const int p = base + tid;
+      // sum is non-zero, else a mask byte of 0, at the pair's candidate
       if (p < count) {
         const int d = s_dst[tid];
         bool any = false;
@@ -336,13 +370,13 @@ rasterize_bwd_kernel(const float* __restrict__ feats,
           for (int j = 0; j < kFeat; ++j) any |= g[j] != 0.0f;
           if (any) {
             float2* o = reinterpret_cast<float2*>(
-                seg_rows + (size_t)p * kSubs * kFeat);
+                sub_rows + (size_t)cand * kSubs * kFeat);
 #pragma unroll
             for (int h = 0; h < kFeat / 2; ++h)
               o[h] = make_float2(g[2 * h], g[2 * h + 1]);
           }
         }
-        seg_mask[(size_t)p * kSubs] = any ? 1 : 0;
+        sub_mask[(size_t)cand * kSubs] = any ? 1 : 0;
       }
       if (next >= block_last) {
         covered = min(next, count);
@@ -356,63 +390,203 @@ rasterize_bwd_kernel(const float* __restrict__ feats,
   }
   // the pairs past this block's walk add nothing here
   for (int p = covered + tid; p < count; p += kThreads)
-    seg_mask[(size_t)p * kSubs] = 0;
+    sub_mask[(size_t)seg_cand[p] * kSubs] = 0;
 }
 
-// K2b: dfeats[i] = the feature-row gradient of row i: its pairs
-// (cand_pos[row_starts[i] .. row_starts[i + 1]), -1 for a pair cut by its
-// tile's cap) in candidate order, each pair's sub-tile rows in sub-tile
-// order where its mask byte is set, added from 0, then turned into the
-// row's gradient with its conic; a row without such a row gets zeros. One
-// thread a row; the arithmetic of feature_row_grads_plain, operation for
-// operation.
-__global__ void __launch_bounds__(256)
+constexpr int kRowWarps = 4;  // warps a block of K2b
+constexpr int kStage = 128;   // staged sub-tile rows a warp's chunk
+constexpr int kChainRows = 16;  // a row with this many slots in a chunk is
+                                // added by ten lanes, one sum each
+static_assert(kStage >= kSubs, "a candidate's rows fit one chunk");
+
+// a high bit in each byte of w that is not 0
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
+  return (((w & 0x7f7f7f7fu) + 0x7f7f7f7fu) | w) & 0x80808080u;
+}
+
+// bit s set where mask byte s (sub-tile s) of a candidate is not 0
+__device__ __forceinline__ unsigned sub_bits(uint4 m) {
+  const unsigned words[4] = {m.x, m.y, m.z, m.w};
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned nz = nonzero_bytes(words[i]);
+    bits |= (((nz >> 7) & 1u) | ((nz >> 14) & 2u) | ((nz >> 21) & 4u) |
+             ((nz >> 28) & 8u))
+            << (4 * i);
+  }
+  return bits;
+}
+
+// K2b: dfeats[i] = the feature-row gradient of row i: its candidates
+// [row_starts[i], row_starts[i + 1]) in order, skipping those the tile's
+// cap cut (cand_pos -1), each candidate's sub-tile rows in sub-tile order
+// where its mask byte is set, added from 0, then turned into the row's
+// gradient with its conic; a row without such a row gets zeros. The
+// arithmetic of feature_row_grads_plain, operation for operation. Warp w
+// owns rows 32 w to 32 w + 31, lane l row 32 w + l; the rows' candidates
+// (and their rows and mask, stored at candidate index) form one span,
+// walked in chunks staged in shared memory (the header note). Sixty-four
+// registers a thread keep eight blocks (32 warps) on an SM.
+__global__ void __launch_bounds__(kRowWarps * 32, 8)
 rasterize_bwd_rows_kernel(const float* __restrict__ rows,
                           const unsigned char* __restrict__ mask,
                           const int* __restrict__ cand_pos,
                           const int* __restrict__ row_starts,
                           const float* __restrict__ feats, int n_rows,
                           float* __restrict__ dfeats) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rows) return;
+  __shared__ __align__(16) float s_stage[kRowWarps][kStage * kFeat];
+  __shared__ int s_src[kRowWarps][kStage];  // slot -> candidate * 16 + sub
+  __shared__ int s_end[kRowWarps][33];  // [j + 1]: past chunk candidate j
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r0 = (blockIdx.x * kRowWarps + warp) * 32;
+  if (r0 >= n_rows) return;  // warp-uniform; the block never syncs
+  const int nr = min(32, n_rows - r0);
+  float* stage = s_stage[warp];
+  int* src = s_src[warp];
+  int* end = s_end[warp];
+  const bool mine = lane < nr;
+  const int i = r0 + lane;
+  const int rs = mine ? row_starts[i] : 0;
+  const int re = mine ? row_starts[i + 1] : 0;
+  // the row's conic, in flight during the walk
+  float ca = 0.0f, cb = 0.0f, cc = 0.0f;
+  if (re > rs) {
+    const float* f = feats + (size_t)i * kFeat;
+    ca = f[FCA];
+    cb = f[FCB];
+    cc = f[FCC];
+  }
+  const int kb = __shfl_sync(kFull, rs, 0);
+  const int ke = __shfl_sync(kFull, re, nr - 1);
+  if (lane == 0) end[0] = 0;
+  const uint4* mask4 = reinterpret_cast<const uint4*>(mask);
+  const uint4 none = make_uint4(0u, 0u, 0u, 0u);
+
   float s[kFeat];
 #pragma unroll
   for (int j = 0; j < kFeat; ++j) s[j] = 0.0f;
   bool any = false;
-  const int end = row_starts[i + 1];
-  for (int k = row_starts[i]; k < end; ++k) {
-    const int p = cand_pos[k];
-    if (p < 0) continue;
-    const uint4 m = reinterpret_cast<const uint4*>(mask)[p];
-    const unsigned words[4] = {m.x, m.y, m.z, m.w};
+  // this lane's candidate of the chunk at kc: its cand_pos and mask
+  int cp = kb + lane < ke ? cand_pos[kb + lane] : -1;
+  uint4 m = kb + lane < ke ? mask4[kb + lane] : none;
+  for (int kc = kb; kc < ke;) {  // warp-uniform
+    // slots in summation order: an inclusive scan of the masked-row counts
+    unsigned bits = cp >= 0 ? sub_bits(m) : 0u;
+    const int n = __popc(bits);
+    int incl = n;
 #pragma unroll
-    for (int sub = 0; sub < kSubs; ++sub) {
-      if (!((words[sub >> 2] >> (8 * (sub & 3))) & 0xffu)) continue;
-      any = true;
-      const float2* r = reinterpret_cast<const float2*>(
-          rows + ((size_t)p * kSubs + sub) * kFeat);
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += t;
+    }
+    // the chunk: the leading candidates whose rows fit the stage (at least
+    // one: a candidate has at most kSubs rows)
+    const int fit =
+        min(ke - kc, __popc(__ballot_sync(kFull, incl <= kStage)));
+    const int total = __shfl_sync(kFull, incl, fit - 1);
+    // the next chunk's candidates, in flight during this one's copy and sums
+    const int kn = kc + fit;
+    const int cp_next = kn + lane < ke ? cand_pos[kn + lane] : -1;
+    const uint4 m_next = kn + lane < ke ? mask4[kn + lane] : none;
+    if (lane < fit) {
+      int slot = incl - n;
+      const int base = (kc + lane) * kSubs;
+      for (; bits; bits &= bits - 1) src[slot++] = base + __ffs(bits) - 1;
+    }
+    end[lane + 1] = incl;
+    __syncwarp();
+    // every lane copies: 8 bytes of a slot's row each
+    for (int j = lane; j < total * (kFeat / 2); j += 32) {
+      const int slot = j / (kFeat / 2);
+      const int h = j - slot * (kFeat / 2);
+      cp_async8(stage + slot * kFeat + 2 * h,
+                rows + (size_t)src[slot] * kFeat + 2 * h);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncwarp();
+    // each row adds its slots, its candidates of the chunk, in order
+    const int a = min(max(rs - kc, 0), fit);
+    const int b = min(max(re - kc, 0), fit);
+    const int t0 = a < b ? end[a] : 0;
+    const int t1 = a < b ? end[b] : 0;
+    any |= t1 > t0;
+    if (__reduce_max_sync(kFull, t1 - t0) >= kChainRows) {
+      // a long row: its ten sums (chains) are split over lanes, each chain
+      // taken from the row's lane and handed back by shuffles
+      const unsigned act = __ballot_sync(kFull, t1 > t0);
+      const int q = __popc(act & ((1u << lane) - 1u));  // this row's rank
+      const int n_chains = __popc(act) * kFeat;
+      for (int c0 = 0; c0 < n_chains; c0 += 32) {  // warp-uniform
+        const int c = c0 + lane;
+        const int nth = c / kFeat;
+        const int f = c - nth * kFeat;
+        const int r = (int)(__fns(act, 0, nth + 1) & 31u);
+        const int u0 = __shfl_sync(kFull, t0, r);
+        const int u1 = __shfl_sync(kFull, t1, r);
+        float x = 0.0f;
 #pragma unroll
-      for (int h = 0; h < kFeat / 2; ++h) {
-        const float2 x = r[h];
-        s[2 * h] = __fadd_rn(s[2 * h], x.x);
-        s[2 * h + 1] = __fadd_rn(s[2 * h + 1], x.y);
+        for (int j = 0; j < kFeat; ++j) {
+          const float v = __shfl_sync(kFull, s[j], r);
+          if (f == j) x = v;
+        }
+        if (c < n_chains) {
+#pragma unroll 4
+          for (int t = u0; t < u1; ++t)
+            x = __fadd_rn(x, stage[t * kFeat + f]);
+        }
+#pragma unroll
+        for (int j = 0; j < kFeat; ++j) {
+          const int from = q * kFeat + j - c0;
+          const float v = __shfl_sync(kFull, x, from & 31);
+          if (t1 > t0 && from >= 0 && from < 32) s[j] = v;
+        }
+      }
+    } else {
+      const float2* st = reinterpret_cast<const float2*>(stage);
+#pragma unroll 4
+      for (int t = t0; t < t1; ++t) {
+#pragma unroll
+        for (int h = 0; h < kFeat / 2; ++h) {
+          const float2 x = st[t * (kFeat / 2) + h];
+          s[2 * h] = __fadd_rn(s[2 * h], x.x);
+          s[2 * h + 1] = __fadd_rn(s[2 * h + 1], x.y);
+        }
       }
     }
+    __syncwarp();  // the stage is refilled next
+    kc = kn;
+    cp = cp_next;
+    m = m_next;
   }
-  float2* o = reinterpret_cast<float2*>(dfeats + (size_t)i * kFeat);
-  if (!any) {
+
+  // the rows' gradients, staged so that the warp stores its nr rows (nr *
+  // 40 contiguous bytes) with coalesced 16-byte stores (8-byte at the end)
+  if (mine) {
+    float2* o = reinterpret_cast<float2*>(stage) + lane * (kFeat / 2);
+    if (any) {
+      o[0] = make_float2(-__fadd_rn(__fmul_rn(ca, s[0]), __fmul_rn(cb, s[1])),
+                         -__fadd_rn(__fmul_rn(cc, s[1]), __fmul_rn(cb, s[0])));
+      o[1] = make_float2(__fmul_rn(-0.5f, s[2]), -s[3]);
+      o[2] = make_float2(__fmul_rn(-0.5f, s[4]), s[5]);
+      o[3] = make_float2(s[6], s[7]);
+      o[4] = make_float2(s[8], s[9]);
+    } else {
 #pragma unroll
-    for (int h = 0; h < kFeat / 2; ++h) o[h] = make_float2(0.0f, 0.0f);
-    return;
+      for (int h = 0; h < kFeat / 2; ++h) o[h] = make_float2(0.0f, 0.0f);
+    }
   }
-  const float* f = feats + (size_t)i * kFeat;
-  const float ca = f[FCA], cb = f[FCB], cc = f[FCC];
-  o[0] = make_float2(-__fadd_rn(__fmul_rn(ca, s[0]), __fmul_rn(cb, s[1])),
-                     -__fadd_rn(__fmul_rn(cc, s[1]), __fmul_rn(cb, s[0])));
-  o[1] = make_float2(__fmul_rn(-0.5f, s[2]), -s[3]);
-  o[2] = make_float2(__fmul_rn(-0.5f, s[4]), s[5]);
-  o[3] = make_float2(s[6], s[7]);
-  o[4] = make_float2(s[8], s[9]);
+  __syncwarp();
+  float* dst = dfeats + (size_t)r0 * kFeat;  // 16-byte aligned: r0 % 32 == 0
+  const int n_out = nr * kFeat;  // even: a float2 at the end at most
+  for (int v = lane; v < n_out / 4; v += 32)
+    reinterpret_cast<float4*>(dst)[v] =
+        reinterpret_cast<const float4*>(stage)[v];
+  if (n_out % 4 && lane == 0)
+    reinterpret_cast<float2*>(dst)[n_out / 2 - 1] =
+        reinterpret_cast<const float2*>(stage)[n_out / 2 - 1];
 }
 
 }  // namespace
@@ -423,9 +597,10 @@ rasterize_bwd_rows_kernel(const float* __restrict__ rows,
 //
 // hg_rasterize_bwd (K2): `feats` 8-byte aligned; `num_blocks` = cameras x
 // tiles_x x tiles_y segments (the launch runs kSubs blocks per segment);
-// `rows` [P, 16, 10] f32 and `mask` [P, 16] uint8, P = the length of
-// `gids`: every pair below its segment's count gets its 16 mask bytes and
-// a row where its byte is 1; nothing else is written.
+// `pair_cand` [P] int32, each sorted pair's candidate index; `rows` [P, 16,
+// 10] f32 and `mask` [P, 16] uint8, P = the length of `gids`: every pair
+// below its segment's count gets its 16 mask bytes and a row where its
+// byte is 1, at its candidate index; nothing else is written.
 extern "C" int hg_rasterize_bwd(const void* feats, const void* gids,
                                 const void* starts, const void* counts,
                                 int num_blocks, int tiles_x, int tiles_y,
@@ -433,8 +608,8 @@ extern "C" int hg_rasterize_bwd(const void* feats, const void* gids,
                                 const void* image, const void* depth,
                                 const void* final_t, const void* n_contrib,
                                 const void* g_image, const void* g_depth,
-                                const void* g_alpha, void* rows, void* mask,
-                                void* stream) {
+                                const void* g_alpha, const void* pair_cand,
+                                void* rows, void* mask, void* stream) {
   if (num_blocks > 0) {
     rasterize_bwd_kernel<<<num_blocks * kSubs, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
@@ -446,24 +621,27 @@ extern "C" int hg_rasterize_bwd(const void* feats, const void* gids,
         static_cast<const int*>(n_contrib),
         static_cast<const float*>(g_image),
         static_cast<const float*>(g_depth),
-        static_cast<const float*>(g_alpha), static_cast<float*>(rows),
+        static_cast<const float*>(g_alpha),
+        static_cast<const int*>(pair_cand), static_cast<float*>(rows),
         static_cast<unsigned char*>(mask));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// hg_rasterize_bwd_rows (K2b): K2's `rows` [P, 16, 10] f32 and `mask`
-// [P, 16] uint8 (16-byte aligned), `cand_pos` [P] int32 (the sorted
-// position of each candidate, -1 where the cap cut it), `row_starts`
-// [n_rows + 1] int32, `feats` [n_rows, 10] f32; writes every row of
-// `dfeats` [n_rows, 10] f32.
+// hg_rasterize_bwd_rows (K2b): K2's `rows` [P, 16, 10] f32 (8-byte
+// aligned) and `mask` [P, 16] uint8 (16-byte aligned) at candidate index,
+// P < 2^27, `cand_pos` [P] int32 (-1 where the cap cut the
+// candidate), `row_starts` [n_rows + 1] int32, `feats` [n_rows, 10] f32;
+// writes every row of `dfeats` [n_rows, 10] f32 (16-byte aligned).
 extern "C" int hg_rasterize_bwd_rows(const void* rows, const void* mask,
                                      const void* cand_pos,
                                      const void* row_starts,
                                      const void* feats, int n_rows,
                                      void* dfeats, void* stream) {
   if (n_rows > 0) {
-    rasterize_bwd_rows_kernel<<<(n_rows + 255) / 256, 256, 0,
+    constexpr int kRowsBlock = kRowWarps * 32;
+    rasterize_bwd_rows_kernel<<<(n_rows + kRowsBlock - 1) / kRowsBlock,
+                                kRowsBlock, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(rows),
         static_cast<const unsigned char*>(mask),

@@ -120,9 +120,9 @@ RASTERIZE_BWD = Kernel(
     "rasterize_bwd", "rasterize_bwd.cu", "hg_rasterize_bwd",
     # feats, gids, starts, counts, num_blocks, tiles_x, tiles_y, alpha_min,
     # alpha_max, t_eps, image, depth, final_t, n_contrib, g_image, g_depth,
-    # g_alpha, rows, mask, stream
+    # g_alpha, pair_cand, rows, mask, stream
     [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P,
-     _P, _P],
+     _P, _P, _P],
 )
 
 RASTERIZE_BWD_ROWS = Kernel(

@@ -18,14 +18,15 @@ dynamically, as upstream CUDA `duplicateWithKeys` + radix sort sizes them:
 `tile_capacity` caps each tile's segment, dropping the deepest pairs
 first, and the dropped pairs are reported in `overflow`.
 
-The sort's permutation is kept, inverted, as the backward's routing (the
-JAX `pos2`): `cand_pos` gives the sorted position of each candidate in
-candidate order (feature row, then rect tile), -1 where the cap cut the
-pair, and `row_starts` where each feature row's candidates begin. The
-backward adds each row's pair gradients in that order (K2b). Candidate
-order is each row's pairs in sorted order, so
-`rasterize_tiled.pair_routing` rebuilds the same routing from any pair
-list.
+The sort's permutation is kept as the backward's routing (the JAX
+`pos2`): `pair_cand` gives each sorted pair's candidate index (its place
+in candidate order: feature row, then rect tile), `cand_pos` its inverse,
+the sorted position of each candidate, -1 where the cap cut the pair, and
+`row_starts` where each feature row's candidates begin. The backward
+stores each pair's gradient rows at its candidate index (K2) and adds
+each row's span in that order (K2b). Candidate order is each row's pairs
+in sorted order, so `rasterize_tiled.pair_routing` rebuilds the same
+routing from any pair list.
 
 TPU-only machinery with no counterpart here: the static class chain and
 its class-depth sort, the candidate domain, the `pair_capacity` budget and
@@ -89,6 +90,7 @@ class PairLists(NamedTuple):
     overflow: torch.Tensor  # [] int64 pairs dropped by the per-tile cap
     cand_pos: torch.Tensor  # [P] int32 sorted position per candidate, or -1
     row_starts: torch.Tensor  # [B*N + 1] int32 first candidate of each row
+    pair_cand: torch.Tensor  # [P] int32 candidate index per sorted pair
 
 
 def _candidates(prims: ProjectedGaussians, tiles_x: int,
@@ -146,7 +148,7 @@ def build_pair_lists(
     )
     seg_len = starts[1:] - starts[:-1]
     counts = torch.clamp_max(seg_len, capacity)
-    # the routing: the sort's permutation inverted, cap-cut pairs -1
+    # the routing: the sort's permutation and its inverse, cap-cut pairs -1
     sorted_pos = torch.arange(perm.shape[0], device=dev)
     kept = sorted_pos - starts[sorted_tile] < counts[sorted_tile]
     cand_pos = torch.empty_like(perm)
@@ -161,4 +163,5 @@ def build_pair_lists(
         overflow=(seg_len - counts).sum(),
         cand_pos=cand_pos.to(torch.int32),
         row_starts=row_starts.to(torch.int32),
+        pair_cand=perm.to(torch.int32),
     )

@@ -9,16 +9,22 @@ batched form).
 Compositing is kernel K1, `humangaussian_torch/csrc/rasterize_fwd.cu`, the
 Hopper port of the JAX `_fwd_kernel`; its backward is kernel K2,
 `humangaussian_torch/csrc/rasterize_bwd.cu`, the port of `_bwd_kernel`,
-which writes each pair's ten gradient sums over each sub-tile as a row at
-the pair's sorted position, and kernel K2b in the same file, the port of
-the routing and sums after `_bwd_call`, which adds each Gaussian's pair
-rows in candidate order (binning's `cand_pos` / `row_starts`, the JAX
-`pos2`), sub-tile by sub-tile, into its feature-row gradient. Every sum
-has a fixed order, so the backward repeats bit for bit. K1 and K2 serve
-each 32x32 tile with SUBTILE x SUBTILE blocks that skip the pairs which
-cannot pass the alpha gate anywhere in their sub-tile
-(`csrc/rasterize_subtile.cuh`; `subtile_pair_mask` is the rule in plain
-torch); every output is what a walk of the whole segment gives.
+which writes each pair's ten gradient sums over each sub-tile as a row of
+a [P, 16, 10] buffer (with a [P, 16] mask of the rows it wrote), and
+kernel K2b in the same file, the port of the routing and sums after
+`_bwd_call`, which adds each Gaussian's pair rows in candidate order,
+sub-tile by sub-tile, into its feature-row gradient. The routing is
+binning's (the JAX `pos2`), three int32 arrays: `cand_pos` [P], each
+candidate's sorted position (-1 where a tile's cap cut it), `row_starts`
+[M + 1], where each feature row's candidates begin, and `pair_cand` [P],
+each sorted pair's candidate index. K2 stores a pair's rows and mask at
+its candidate index, so a feature row's pairs own one contiguous span of
+the buffer, which K2b reads in order. Every sum has a fixed order, so the
+backward repeats bit for bit. K1 and K2 serve each 32x32 tile with
+SUBTILE x SUBTILE blocks that skip the pairs which cannot pass the alpha
+gate anywhere in their sub-tile (`csrc/rasterize_subtile.cuh`;
+`subtile_pair_mask` is the rule in plain torch); every output is what a
+walk of the whole segment gives.
 `composite` ties them together in a `torch.autograd.Function` (the
 counterpart of the JAX `_render_core` custom_vjp): it returns the gradient
 of the per-Gaussian feature rows only, and projection, SH, the
@@ -152,38 +158,48 @@ def _check_kernel_device(feats, cfg):
                          "feature rows 8 bytes at a time)")
 
 
-def _check_routing(routing, feats, n_pairs: int):
-    cand_pos, row_starts = routing
-    for name, x, n in (("cand_pos", cand_pos, n_pairs),
-                       ("row_starts", row_starts, feats.shape[0] + 1)):
-        if not isinstance(x, torch.Tensor) or x.dtype != torch.int32 \
-                or tuple(x.shape) != (n,) or x.device != feats.device \
-                or not x.is_contiguous():
+def _check_routing(routing, feats, n_pairs: int,
+                   names=("cand_pos", "row_starts", "pair_cand")):
+    if len(routing) != len(names):
+        raise ValueError(f"the routing is ({', '.join(names)})")
+    dev = feats.device
+    for name, x in zip(names, routing):
+        n = feats.shape[0] + 1 if name == "row_starts" else n_pairs
+        if not (isinstance(x, torch.Tensor) and x.dtype == torch.int32
+                and x.shape == (n,) and x.device == dev
+                and x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous int32 [{n}] on "
-                             f"{feats.device}")
+                             f"{dev}")
 
 
 def composite_backward_pairs(feats, gids, starts, counts, background, saved,
                              grads, tiles_x: int, tiles_y: int,
-                             cfg: RasterizeConfig = RasterizeConfig()
-                             ) -> tuple:
+                             cfg: RasterizeConfig = RasterizeConfig(),
+                             routing=None) -> tuple:
     """K2 wrapper: (rows [P,16,10] f32, mask [P,16] uint8): each pair's
     ten gradient sums over each of its tile's sub-tiles (SUBTILE x SUBTILE
-    pixels, row-major), at the pairs' positions in `gids`, and a mask byte
-    of 1 where a row holds a non-zero sum (`composite_backward_pairs_plain`
-    says which sums). Rows whose byte is 0, and the rows and bytes of pairs
-    past their segment's count, are left unwritten (K2b never reads them).
+    pixels, row-major), at the pairs' candidate indices (`routing`'s
+    `pair_cand`: pair p of `gids` goes to row pair_cand[p]), and a mask
+    byte of 1 where a row holds a non-zero sum
+    (`composite_backward_pairs_plain` says which sums). Rows whose byte is
+    0, and the rows and bytes of pairs past their segment's count (the
+    candidates whose `cand_pos` is -1), are left unwritten (K2b never reads
+    them).
 
     `saved` holds `composite`'s image, depth, final_t and n_contrib for
     the same inputs; `grads` the cotangents (g_image [B,H,W,3], g_depth,
-    g_alpha [B,H,W]). K2 for CUDA tensors, `composite_backward_pairs_plain`
-    for CPU tensors."""
+    g_alpha [B,H,W]); `routing` the pair list's (cand_pos, row_starts,
+    pair_cand), rebuilt by `pair_routing` when not given. K2 for CUDA
+    tensors, `composite_backward_pairs_plain` for CPU tensors."""
     _check_composite_args(feats, gids, starts, counts, background,
                           tiles_x, tiles_y)
+    if routing is None:
+        routing = pair_routing(gids, starts, counts, feats.shape[0])
+    _check_routing(routing, feats, gids.shape[0])
     if feats.device.type == "cpu":
         return composite_backward_pairs_plain(feats, gids, starts, counts,
                                               background, saved, grads,
-                                              tiles_x, tiles_y, cfg)
+                                              tiles_x, tiles_y, cfg, routing)
     _check_kernel_device(feats, cfg)
     dev = feats.device
     n_blocks = counts.shape[0]
@@ -214,8 +230,8 @@ def composite_backward_pairs(feats, gids, starts, counts, background, saved,
             feats.data_ptr(), gids.data_ptr(), starts.data_ptr(),
             counts.data_ptr(), n_blocks, tiles_x, tiles_y, cfg.alpha_min,
             cfg.alpha_max, cfg.transmittance_eps,
-            *(x.data_ptr() for x in ins), rows.data_ptr(), mask.data_ptr(),
-            stream,
+            *(x.data_ptr() for x in ins), routing[2].data_ptr(),
+            rows.data_ptr(), mask.data_ptr(), stream,
         )
     return rows, mask
 
@@ -223,31 +239,38 @@ def composite_backward_pairs(feats, gids, starts, counts, background, saved,
 def feature_row_grads(rows, mask, cand_pos, row_starts, feats
                       ) -> torch.Tensor:
     """K2b wrapper: the gradient of the feature rows, [M,10] f32, from
-    K2's sub-tile rows [P,16,10] and mask [P,16], the routing (`cand_pos`
-    [P], `row_starts` [M+1], int32) and the rows `feats` [M,10]. Every row
-    is written (zeros where a row has no masked pair row). K2b for CUDA
-    tensors, `feature_row_grads_plain` for CPU tensors."""
-    _check_routing((cand_pos, row_starts), feats, rows.shape[0])
+    K2's sub-tile rows [P,16,10] and mask [P,16] at candidate index, the
+    routing (`cand_pos` [P], `row_starts` [M+1], int32) and the rows
+    `feats` [M,10]. Every row is written (zeros where a row has no masked
+    pair row). K2b for CUDA tensors, `feature_row_grads_plain` for CPU
+    tensors."""
+    dev = feats.device
+    _check_routing((cand_pos, row_starts), feats, rows.shape[0],
+                   ("cand_pos", "row_starts"))
     n = cand_pos.shape[0]
     for name, x, dtype, shape in (
             ("rows", rows, torch.float32, (n, KERNEL_SUBTILES, NUM_FEATURES)),
             ("mask", mask, torch.uint8, (n, KERNEL_SUBTILES))):
-        if x.dtype != dtype or x.device != feats.device \
-                or tuple(x.shape) != shape or not x.is_contiguous():
+        if not (x.dtype == dtype and x.shape == shape and x.device == dev
+                and x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
-                             f"on {feats.device}")
-    if feats.device.type == "cpu":
+                             f"on {dev}")
+    if dev.type == "cpu":
         return feature_row_grads_plain(rows, mask, cand_pos, row_starts,
                                        feats)
-    if feats.device.type != "cuda":
-        raise ValueError(f"no compositing kernel for device {feats.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"no compositing kernel for device {dev}")
+    if rows.data_ptr() % 8 or mask.data_ptr() % 16:
+        raise ValueError("rows must be 8-byte and mask 16-byte aligned (K2b "
+                         "reads a candidate's mask in one 16-byte load)")
+    if n * KERNEL_SUBTILES >= 2 ** 31:
+        raise ValueError(f"K2b indexes sub-tile rows in int32: {n} pairs")
     dfeats = torch.empty_like(feats)
-    with torch.cuda.device(feats.device):
+    with torch.cuda.device(dev):
         RASTERIZE_BWD_ROWS.launch(
             rows.data_ptr(), mask.data_ptr(), cand_pos.data_ptr(),
             row_starts.data_ptr(), feats.data_ptr(), feats.shape[0],
-            dfeats.data_ptr(),
-            torch.cuda.current_stream(feats.device).cuda_stream)
+            dfeats.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return dfeats
 
 
@@ -257,8 +280,8 @@ def composite_backward(feats, gids, starts, counts, background, saved,
                        routing=None) -> torch.Tensor:
     """The gradient of the feature rows, [M,10] f32: K2 then K2b
     (`composite_backward_pairs`, `feature_row_grads`). `routing` is the
-    pair list's (cand_pos, row_starts) (binning's `PairLists`), rebuilt by
-    `pair_routing` when not given."""
+    pair list's (cand_pos, row_starts, pair_cand) (binning's `PairLists`),
+    rebuilt by `pair_routing` when not given."""
     _check_composite_args(feats, gids, starts, counts, background,
                           tiles_x, tiles_y)
     if feats.device.type != "cpu":
@@ -268,8 +291,8 @@ def composite_backward(feats, gids, starts, counts, background, saved,
     _check_routing(routing, feats, gids.shape[0])
     rows, mask = composite_backward_pairs(feats, gids, starts, counts,
                                           background, saved, grads, tiles_x,
-                                          tiles_y, cfg)
-    return feature_row_grads(rows, mask, *routing, feats)
+                                          tiles_y, cfg, routing)
+    return feature_row_grads(rows, mask, *routing[:2], feats)
 
 
 class _Composite(torch.autograd.Function):
@@ -281,12 +304,13 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats, gids, starts, counts, background, tiles_x,
-                tiles_y, cfg, cand_pos, row_starts):
+                tiles_y, cfg, cand_pos, row_starts, pair_cand):
         out = _composite_forward(feats, gids, starts, counts, background,
                                  tiles_x, tiles_y, cfg)
         ctx.save_for_backward(feats, gids, starts, counts, background,
                               out["image"], out["depth"], out["final_t"],
-                              out["n_contrib"], cand_pos, row_starts)
+                              out["n_contrib"], cand_pos, row_starts,
+                              pair_cand)
         ctx.geometry = (tiles_x, tiles_y, cfg)
         extras = tuple(out.get(k) for k in ("visits", "contribs"))
         ctx.mark_non_differentiable(
@@ -298,14 +322,14 @@ class _Composite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_image, g_depth, g_alpha, *_):
         (feats, gids, starts, counts, background, image, depth, final_t,
-         n_contrib, cand_pos, row_starts) = ctx.saved_tensors
+         n_contrib, *routing) = ctx.saved_tensors
         saved = {"image": image, "depth": depth, "final_t": final_t,
                  "n_contrib": n_contrib}
         dfeats = composite_backward(
             feats, gids, starts, counts, background, saved,
             (g_image, g_depth, g_alpha), *ctx.geometry,
-            routing=None if cand_pos is None else (cand_pos, row_starts))
-        return dfeats, None, None, None, None, None, None, None, None, None
+            routing=None if routing[0] is None else tuple(routing))
+        return (dfeats,) + (None,) * 10
 
 
 def composite(feats, gids, starts, counts, background, tiles_x: int,
@@ -316,13 +340,13 @@ def composite(feats, gids, starts, counts, background, tiles_x: int,
 
     feats [M,10] f32 per-Gaussian rows (all cameras), gids [P] int32
     depth-sorted pair -> row, starts/counts [B*tiles] int32 segment per
-    tile, background [3]; `routing` the backward's (cand_pos, row_starts)
-    (binning's; rebuilt by `pair_routing` when not given). Returns image
-    [B,H,W,3], depth/alpha [B,H,W] f32, differentiable with respect to
-    `feats`, and the two tensors the backward replays from: final_t
-    [B,H,W] f32 and n_contrib [B,H,W] int32 (one past the segment-local
-    index of each pixel's last contributing pair). For CPU tensors the dict
-    also carries `composite_plain`'s work counters.
+    tile, background [3]; `routing` the backward's (cand_pos, row_starts,
+    pair_cand) (binning's; rebuilt by `pair_routing` when not given).
+    Returns image [B,H,W,3], depth/alpha [B,H,W] f32, differentiable with
+    respect to `feats`, and the two tensors the backward replays from:
+    final_t [B,H,W] f32 and n_contrib [B,H,W] int32 (one past the
+    segment-local index of each pixel's last contributing pair). For CPU
+    tensors the dict also carries `composite_plain`'s work counters.
     """
     _check_composite_args(feats, gids, starts, counts, background,
                           tiles_x, tiles_y)
@@ -331,7 +355,7 @@ def composite(feats, gids, starts, counts, background, tiles_x: int,
     keys = ("image", "depth", "alpha", "final_t", "n_contrib", "visits",
             "contribs")
     out = _Composite.apply(feats, gids, starts, counts, background, tiles_x,
-                           tiles_y, cfg, *(routing or (None, None)))
+                           tiles_y, cfg, *(routing or (None,) * 3))
     return {k: v for k, v in zip(keys, out) if v is not None}
 
 
@@ -435,21 +459,23 @@ def composite_backward_plain(feats, gids, starts, counts, background, saved,
         routing = pair_routing(gids, starts, counts, feats.shape[0])
     rows, mask = composite_backward_pairs_plain(
         feats, gids, starts, counts, background, saved, grads, tiles_x,
-        tiles_y, cfg)
-    return feature_row_grads_plain(rows, mask, *routing, feats)
+        tiles_y, cfg, routing)
+    return feature_row_grads_plain(rows, mask, *routing[:2], feats)
 
 
 def composite_backward_pairs_plain(feats, gids, starts, counts, background,
                                    saved, grads, tiles_x: int, tiles_y: int,
-                                   cfg: RasterizeConfig = RasterizeConfig()
-                                   ) -> tuple:
+                                   cfg: RasterizeConfig = RasterizeConfig(),
+                                   routing=None) -> tuple:
     """K2's function in plain torch: the analytic replay VJP of
     `composite_plain`, vectorized over (tile, pixel) and PLAIN_CHUNK pairs
     at a time, as each pair's ten sums over each sub-tile's pixels (the
     (tile / SUBTILE)^2 sub-tiles of its tile, row-major), rows [P,16,10]
-    at the pairs' positions in `gids`, and mask [P,16] uint8, 1 where a
-    row holds a non-zero sum (rows and bytes 0 for pairs that add
-    nothing): [sum dpower dx, sum dpower dy, sum dpower dx^2,
+    at the pairs' candidate indices (pair p of `gids` at row
+    pair_cand[p] of `routing`, rebuilt by `pair_routing` when not given),
+    and mask [P,16] uint8, 1 where a row holds a non-zero sum (rows and
+    bytes 0 for pairs that add nothing and for the candidates the cap
+    cut): [sum dpower dx, sum dpower dy, sum dpower dx^2,
     sum dpower dx dy, sum dpower dy^2, sum g_r w, sum g_g w, sum g_b w,
     sum dalpha_raw exp(power), sum g_depth w]. `feature_row_grads_plain`
     turns each Gaussian's sums into its feature-row gradient. It is written
@@ -508,6 +534,9 @@ def composite_backward_pairs_plain(feats, gids, starts, counts, background,
     s_tot = ((g_image * acc_rgb).sum(-1) + g_depth * from_image(saved["depth"])
              + t_fin * ((g_image * background).sum(-1) - g_alpha))
 
+    if routing is None:
+        routing = pair_routing(gids, starts, counts, feats.shape[0])
+    pair_cand = routing[2].to(torch.int64)
     per_edge = tile // SUBTILE
     n_subs = per_edge * per_edge
     pair_rows = torch.zeros((gids.shape[0], n_subs, NUM_FEATURES),
@@ -578,7 +607,7 @@ def composite_backward_pairs_plain(feats, gids, starts, counts, background,
             ],
             dim=-1,
         ).transpose(1, 2)  # [G, C, subs, 10]
-        pair_rows[idx[valid]] = rows[valid]
+        pair_rows[pair_cand[idx[valid]]] = rows[valid]
         prefix = p_incl[..., -1]
         log_t_u = log_t_u + cum[..., -1]
     return pair_rows, (pair_rows != 0.0).any(dim=-1).to(torch.uint8)
@@ -586,14 +615,15 @@ def composite_backward_pairs_plain(feats, gids, starts, counts, background,
 
 def feature_row_grads_plain(rows, mask, cand_pos, row_starts, feats
                             ) -> torch.Tensor:
-    """K2b's function in plain torch: for each feature row i, its pairs
-    (cand_pos[row_starts[i] : row_starts[i + 1]], -1 for a pair cut by its
-    tile's cap) in that order and each pair's sub-tile rows in sub-tile
-    order where `mask` is set, added starting from 0, then the feature-row
-    gradient [-(ca S0 + cb S1), -(cc S1 + cb S0), -S2 / 2, -S3, -S4 / 2,
-    S5, ..., S9] with the row's conic (ca, cb, cc); zeros for a row
-    without a masked pair row. Bit for bit what a loop over each row's
-    candidates and sub-tiles gives."""
+    """K2b's function in plain torch: for each feature row i, its
+    candidates k in [row_starts[i], row_starts[i + 1]) in order, skipping
+    those cut by their tile's cap (cand_pos[k] = -1), and each candidate's
+    sub-tile rows rows[k, sub] in sub-tile order where mask[k, sub] is set,
+    added starting from 0, then the feature-row gradient [-(ca S0 + cb
+    S1), -(cc S1 + cb S0), -S2 / 2, -S3, -S4 / 2, S5, ..., S9] with the
+    row's conic (ca, cb, cc); zeros for a row without a masked pair row.
+    Bit for bit what a loop over each row's candidates and sub-tiles
+    gives."""
     n_rows = feats.shape[0]
     first = row_starts[:-1].to(torch.int64)
     n_cand = row_starts[1:].to(torch.int64) - first
@@ -603,12 +633,10 @@ def feature_row_grads_plain(rows, mask, cand_pos, row_starts, feats
     has = torch.zeros(n_rows, dtype=torch.bool, device=feats.device)
     for j in range(most):
         k = torch.where(j < n_cand, first + j, 0)
-        p = cand_pos[k].to(torch.int64)
-        pair = (j < n_cand) & (p >= 0)
-        p = p.clamp_min(0)
+        pair = (j < n_cand) & (cand_pos[k] >= 0)
         for sub in range(rows.shape[1]):
-            take = pair & (mask[p, sub] != 0)
-            acc = torch.where(take[:, None], acc + rows[p, sub], acc)
+            take = pair & (mask[k, sub] != 0)
+            acc = torch.where(take[:, None], acc + rows[k, sub], acc)
             has |= take
     ca, cb, cc = feats[:, FCA], feats[:, FCB], feats[:, FCC]
     s = acc.unbind(1)
@@ -619,12 +647,15 @@ def feature_row_grads_plain(rows, mask, cand_pos, row_starts, feats
 
 
 def pair_routing(gids, starts, counts, rows: int):
-    """The backward's routing of a pair list, (cand_pos, row_starts):
-    each feature row's pairs in order of their position in `gids` (a stable
-    sort by row), the pairs past their segment's count marked -1, and
-    `row_starts` [rows + 1] int32 where each row's pairs begin. For
-    binning's lists this is its own routing (`PairLists.cand_pos`,
-    `row_starts`: candidate order is each row's pairs in sorted order)."""
+    """The backward's routing of a pair list, (cand_pos, row_starts,
+    pair_cand), int32: candidate order is each feature row's pairs in
+    order of their position in `gids` (a stable sort by row); `cand_pos`
+    [P] gives each candidate's position in `gids`, -1 for the pairs past
+    their segment's count, `row_starts` [rows + 1] where each row's
+    candidates begin, and `pair_cand` [P] each pair's candidate index (the
+    inverse permutation). For binning's lists this is its own routing
+    (`PairLists.cand_pos`, `row_starts`, `pair_cand`: candidate order is
+    each row's pairs in sorted order)."""
     _, _, pos = counted_pairs(starts, counts)
     counted = torch.zeros(gids.shape[0], dtype=torch.bool,
                           device=gids.device)
@@ -633,7 +664,9 @@ def pair_routing(gids, starts, counts, rows: int):
     cand_pos = torch.where(counted[order], order, -1).to(torch.int32)
     row_starts = torch.searchsorted(
         by_row, torch.arange(rows + 1, dtype=gids.dtype, device=gids.device))
-    return cand_pos, row_starts.to(torch.int32)
+    pair_cand = torch.empty_like(order)
+    pair_cand[order] = torch.arange(order.shape[0], device=gids.device)
+    return cand_pos, row_starts.to(torch.int32), pair_cand.to(torch.int32)
 
 
 def counted_pairs(starts, counts):
@@ -712,7 +745,8 @@ def _rasterize(means, scales, quats, features, opacities, alive, cams,
         means, scales, quats, features, opacities, alive, cams, sh_degree,
         cfg, scale_modifier, means2d_offset, tile_capacity)
     out = composite(*args, background.to(torch.float32).contiguous(),
-                    *tiles, cfg, (pairs.cand_pos, pairs.row_starts))
+                    *tiles, cfg,
+                    (pairs.cand_pos, pairs.row_starts, pairs.pair_cand))
     return {
         "image": out["image"],
         "depth": out["depth"],

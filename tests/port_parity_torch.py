@@ -40,6 +40,39 @@ def random_composite_args(device="cpu", seed=0, tiles_x=2, tiles_y=2, cams=1,
             t([0.2, 0.3, 0.4], torch.float32), tiles_x, tiles_y)
 
 
+def long_row_routing(device="cpu", seed=0, n_rows=150, longest=120):
+    """K2b's inputs with candidate spans of every length: (rows [P, 16, 10]
+    f32, mask [P, 16] uint8, cand_pos [P], row_starts [n_rows + 1] int32,
+    feats [n_rows, 10], the rows whose every candidate was cut). Rows
+    without candidates, rows of 1-8 (rows 3-89 hold 0 or 1), rows of 40 to
+    `longest` (row 1 the longest: past several of K2b's chunks),
+    candidates cut at random
+    (cand_pos -1) and two rows whose every candidate was cut; masks dense
+    enough that K2b's stage ends chunks. The rows the mask leaves out are
+    NaN (never read)."""
+    rng = np.random.RandomState(seed)
+    n_cand = rng.choice([0, 0, 1, 3, 8, 40, longest], n_rows).astype(np.int64)
+    n_cand[:3] = [0, longest, 0]
+    n_cand[3:90] = rng.choice([0, 0, 1], 87)  # a run of light rows
+    row_starts = np.concatenate([[0], np.cumsum(n_cand)]).astype(np.int32)
+    p = int(row_starts[-1])
+    cand_pos = np.where(rng.rand(p) < 0.15, -1, rng.randint(0, p, p))
+    all_cut = np.nonzero(n_cand == 3)[0][:2]
+    for i in all_cut:
+        cand_pos[row_starts[i]:row_starts[i + 1]] = -1
+    mask = (rng.rand(p, 16) < rng.choice([0.05, 0.3, 0.8], (p, 1)))
+    rows = (rng.randn(p, 16, 10)
+            * 10.0 ** rng.randint(-3, 4, (p, 16, 10))).astype(np.float32)
+    rows[~mask] = np.nan
+    feats = rng.randn(n_rows, 10).astype(np.float32)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return (t(rows), t(mask.astype(np.uint8)), t(cand_pos.astype(np.int32)),
+            t(row_starts), t(feats), all_cut)
+
+
 def random_groupnorm_args(device="cpu", seed=0, n=2, rows=37, c=48,
                           dtype=torch.float32):
     """(x3, dz3, gamma, beta) for the GroupNorm statistics kernels: x3 and

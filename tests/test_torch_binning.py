@@ -122,8 +122,10 @@ def test_routing_maps_candidates_to_their_pairs(capacity):
     each candidate, in candidate order (camera, Gaussian, rect tile), to
     its sorted pair: `gids` there is the candidate's feature row;
     `row_starts` bounds each row's candidates; the pairs the cap cut are
-    -1 and no other; every counted pair is reached once; and
-    `pair_routing` rebuilds the same routing from the sorted lists."""
+    -1 and no other; every counted pair is reached once; `pair_cand`
+    gives each sorted pair its candidate (the inverse of `cand_pos` on the
+    kept pairs, a permutation); and `pair_routing` rebuilds the same
+    routing from the sorted lists."""
     from humangaussian_torch.ops.binning import _candidates
     from humangaussian_torch.ops.rasterize_tiled import (counted_pairs,
                                                          pair_routing)
@@ -151,6 +153,14 @@ def test_routing_maps_candidates_to_their_pairs(capacity):
     assert (int(pairs.overflow) > 0) == (capacity == 24)
     _, _, counted = counted_pairs(pairs.starts[:-1], pairs.counts)
     assert sorted(cand_pos[kept].tolist()) == sorted(counted.tolist())
+    pair_cand = pairs.pair_cand.to(torch.int64)
+    assert pairs.pair_cand.dtype == torch.int32
+    assert torch.equal(torch.sort(pair_cand).values,
+                       torch.arange(pair_cand.shape[0]))
+    assert torch.equal(pair_cand[cand_pos[kept]],
+                       torch.nonzero(kept).flatten())
+    assert torch.equal(cand_rows[pair_cand], pairs.gids.to(torch.int64))
     want = pair_routing(pairs.gids, pairs.starts[:-1], pairs.counts, 600)
     assert torch.equal(pairs.cand_pos, want[0])
     assert torch.equal(pairs.row_starts, want[1])
+    assert torch.equal(pairs.pair_cand, want[2])

@@ -8,7 +8,8 @@ allowed past that (the 1e-4 saturation knife-edge and exp rounding), and
 K2 + K2b to `composite_backward_plain` at 1e-4 of each column's
 max-|grad|, with at most 1e-3 of the rows past that (a pair flipped at the
 knife-edge moves a row by its whole contribution), their reruns bit-equal
-and K2b alone on K2's sub-tile rows bit-equal to its plain version; the
+and K2b alone on K2's sub-tile rows, and on candidate spans that cross
+its chunks, bit-equal to its plain version; the
 GroupNorm forward kernel's sums (alone or fused) and K5 to
 `group_norm_stats_plain` / `group_norm_bwd_stats_plain` at 1e-5 of the
 largest sum, its y (alone as K3a or fused) to `group_norm_apply_plain` and
@@ -40,6 +41,7 @@ from humangaussian_torch.ops.rasterize_tiled import (
 )
 from humangaussian_torch.ops import attention, groupnorm
 from port_parity_torch import (
+    long_row_routing,
     projected_composite_args,
     random_composite_args,
     random_groupnorm_args,
@@ -123,6 +125,23 @@ def test_wrapper_rejects_bad_arguments(bad):
         counts = counts.tolist()
     with pytest.raises((TypeError, ValueError)):
         composite(feats, gids, starts, counts, bg, tx, ty)
+
+
+def test_routing_needs_its_three_arrays():
+    """The backward's routing is (cand_pos, row_starts, pair_cand): a
+    routing without `pair_cand`, or with one of the wrong length, is
+    refused before any compositing."""
+    args = random_composite_args()
+    routing = pair_routing(*args[1:4], args[0].shape[0])
+    with pytest.raises(ValueError, match="routing is"):
+        composite(*args, routing=routing[:2])
+    with pytest.raises(ValueError, match="pair_cand"):
+        composite(*args, routing=(*routing[:2], routing[2][:-1]))
+    with pytest.raises(ValueError, match="cand_pos"):
+        feature_row_grads(torch.zeros(3, 16, 10),
+                          torch.zeros(3, 16, dtype=torch.uint8),
+                          routing[0][:2], routing[1], args[0])
+    assert composite(*args, routing=routing)["image"].shape == (1, 64, 64, 3)
 
 
 def test_wrapper_never_falls_back_off_the_cpu():
@@ -382,10 +401,32 @@ def test_backward_kernels_repeat_bit_for_bit_on_a_2x2_rect_batch_of_8(
                                     routing)
     _k2_within_limits(got[0], want, 1e-3)
     rows, mask = composite_backward_pairs(*args[:5], out, cot, *args[5:],
-                                          cfg)
-    assert torch.equal(
-        feature_row_grads(rows, mask, *routing, args[0]),
-        feature_row_grads_plain(rows, mask, *routing, args[0]))
+                                          cfg, routing)
+    plain_sums = feature_row_grads_plain(rows, mask, *routing[:2], args[0])
+    assert torch.equal(feature_row_grads(rows, mask, *routing[:2], args[0]),
+                       plain_sums)
+    # K2 + K2b in one call: the plain row sums of K2's rows, bit for bit
+    assert torch.equal(got[0], plain_sums)
+
+
+@pytest.mark.cuda
+def test_k2b_matches_plain_bit_for_bit_on_rows_that_cross_chunks(
+        cuda_device):
+    """K2b alone against its plain version on spans of every length (rows
+    of up to 300 candidates, across many chunks of a warp; chunks the
+    stage ends; rows without candidates and rows whose every candidate was
+    cut; an odd last warp), bit for bit, twice."""
+    rows, mask, cand_pos, row_starts, feats, all_cut = long_row_routing(
+        cuda_device, seed=4, n_rows=3001, longest=300)
+    kernels.reset_launch_counts()
+    got = [feature_row_grads(rows, mask, cand_pos, row_starts, feats)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rasterize_bwd_rows"] == 2
+    want = feature_row_grads_plain(rows, mask, cand_pos, row_starts, feats)
+    assert torch.equal(got[0].view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got[0], got[1])
+    assert bool((got[0][torch.as_tensor(all_cut)] == 0).all())
 
 
 GN_KERNEL_SHAPES = [

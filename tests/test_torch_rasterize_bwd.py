@@ -17,11 +17,14 @@
     the tile's capped count get exactly 0; a batch of 2 cameras sums both
     cameras' gradients.
 (e) K2b's plain version (`feature_row_grads_plain`), each feature row's
-    pairs in candidate order and each pair's masked sub-tile rows in
+    candidates in order and each candidate's masked sub-tile rows in
     order: bit-equal to a Python loop over each row's candidates, within
     1e-6 of each column's max of an `index_add_` in float64, and pairs cut
     by a tile's cap add nothing; K2's plain sub-tile rows add up to the
-    whole tile's (1e-5 of each column's max).
+    whole tile's (1e-5 of each column's max), sit at each pair's candidate
+    index and sum, bit for bit, as the sorted layout summed them; an
+    emulation of K2b's chunked staging (warp spans, chunks cut by the
+    stage) is bit-equal to the plain version.
 """
 import glob
 import os
@@ -49,7 +52,7 @@ from humangaussian_tpu.ops.rasterize_ref import rasterize_reference as j_ref
 from humangaussian_tpu.ops.rasterize_tiled import rasterize_tiled as j_tiled
 from port_parity import (jax_camera, make_scene, np_,
                          stack_jax_cameras, torch_args, torch_camera_from_jax)
-from port_parity_torch import random_composite_args
+from port_parity_torch import long_row_routing, random_composite_args
 
 torch.set_num_threads(1)
 GRAD_TOL = 3e-5  # of max-|grad| per tensor
@@ -345,11 +348,12 @@ def test_padded_ply_scene_has_finite_gradients_on_every_row(tmp_path):
 # ---- (e) K2b: each feature row's pair rows, in candidate order ------------
 
 def _routed_pair_rows(seed=0, rows=50, tiles=6, per_tile=30, cap=24):
-    """Random feature rows; sub-tile rows [P, 16, 10] of mixed sign and
-    magnitude with a random mask; pair lists of `tiles` segments of
-    `per_tile` random rows each (every other segment capped at `cap`) and
-    their routing. The rows the mask leaves out and those of the cut pairs
-    are NaN."""
+    """Random feature rows; pair lists of `tiles` segments of `per_tile`
+    random rows each (every other segment capped at `cap`), their routing,
+    and sub-tile rows [P, 16, 10] at candidate index, of mixed sign and
+    magnitude, with a random mask. Returns (feats, each candidate's feature
+    row, the candidates the cap cut, rows, mask, cand_pos, row_starts); the
+    rows the mask leaves out and those of the cut candidates are NaN."""
     rng = np.random.RandomState(seed)
     feats = torch.from_numpy(rng.randn(rows, 10).astype(np.float32))
     gids = torch.from_numpy(np.concatenate(
@@ -363,12 +367,13 @@ def _routed_pair_rows(seed=0, rows=50, tiles=6, per_tile=30, cap=24):
         (rng.randn(n, 16, 10) * 10.0 ** rng.randint(-3, 4, (n, 16, 10))
          ).astype(np.float32))
     mask = torch.from_numpy((rng.rand(n, 16) < 0.3).astype(np.uint8))
-    cand_pos, row_starts = pair_routing(gids, starts, counts, rows)
-    cut = torch.ones(n, dtype=torch.bool)
-    cut[cand_pos[cand_pos >= 0].to(torch.int64)] = False
+    cand_pos, row_starts, _ = pair_routing(gids, starts, counts, rows)
+    cut = cand_pos < 0
     sub_rows[cut] = float("nan")
     sub_rows[mask == 0] = float("nan")
-    return feats, gids, cut, sub_rows, mask, cand_pos, row_starts
+    cand_rows = torch.repeat_interleave(
+        torch.arange(rows), (row_starts[1:] - row_starts[:-1]).long())
+    return feats, cand_rows, cut, sub_rows, mask, cand_pos, row_starts
 
 
 def _row_grad(s, f):
@@ -385,10 +390,9 @@ def test_k2b_plain_is_a_loop_over_each_rows_candidates():
     for i in range(feats.shape[0]):
         acc, any_row = torch.zeros(10), False
         for k in range(int(row_starts[i]), int(row_starts[i + 1])):
-            p = int(cand_pos[k])
             for sub in range(16):
-                if p >= 0 and int(mask[p, sub]):
-                    acc = acc + rows[p, sub]
+                if int(cand_pos[k]) >= 0 and int(mask[k, sub]):
+                    acc = acc + rows[k, sub]
                     any_row = True
         if any_row:
             want[i] = _row_grad(acc, feats[i])
@@ -398,12 +402,13 @@ def test_k2b_plain_is_a_loop_over_each_rows_candidates():
 
 
 def test_k2b_plain_matches_index_add_in_float64():
-    feats, gids, cut, rows, mask, cand_pos, row_starts = _routed_pair_rows(1)
+    feats, cand_rows, cut, rows, mask, cand_pos, row_starts = \
+        _routed_pair_rows(1)
     got = feature_row_grads_plain(rows, mask, cand_pos, row_starts, feats)
     per_pair = torch.where(mask[..., None] != 0, rows.double(),
                            0.0).sum(dim=1)
     sums = torch.zeros(feats.shape, dtype=torch.float64).index_add_(
-        0, gids[~cut].to(torch.int64), per_pair[~cut])
+        0, cand_rows[~cut], per_pair[~cut])
     f64 = feats.double()
     want = torch.stack([_row_grad(sums[i], f64[i])
                         for i in range(feats.shape[0])])
@@ -448,8 +453,149 @@ def test_k2_plain_sub_tile_rows_sum_to_the_tile_sums():
     whole = torch.zeros_like(rows)
     whole[:, 0] = rows.double().sum(dim=1).float()
     routing = pair_routing(*args[1:4], args[0].shape[0])
-    got = feature_row_grads_plain(rows, mask, *routing, args[0])
+    got = feature_row_grads_plain(rows, mask, *routing[:2], args[0])
     want = feature_row_grads_plain(whole, (whole != 0).any(-1).to(torch.uint8),
-                                   *routing, args[0])
+                                   *routing[:2], args[0])
     scale = want.abs().amax(dim=0).clamp_min(1e-30)
     assert float(((got - want).abs() / scale).max()) <= 1e-5
+
+
+def _sorted_layout_row_grads(rows, mask, cand_pos, row_starts, feats):
+    """The row sums of the sorted layout (rows and mask at each pair's
+    sorted position, read through cand_pos), as the backward added them
+    before K2 stored at candidate index."""
+    n_rows = feats.shape[0]
+    first = row_starts[:-1].to(torch.int64)
+    n_cand = row_starts[1:].to(torch.int64) - first
+    most = int(n_cand.max()) if n_rows else 0
+    acc = torch.zeros((n_rows, 10), dtype=torch.float32)
+    has = torch.zeros(n_rows, dtype=torch.bool)
+    for j in range(most):
+        k = torch.where(j < n_cand, first + j, 0)
+        p = cand_pos[k].to(torch.int64)
+        pair = (j < n_cand) & (p >= 0)
+        p = p.clamp_min(0)
+        for sub in range(rows.shape[1]):
+            take = pair & (mask[p, sub] != 0)
+            acc = torch.where(take[:, None], acc + rows[p, sub], acc)
+            has |= take
+    grad = torch.stack([_row_grad(acc[i], feats[i]) for i in range(n_rows)])
+    return torch.where(has[:, None], grad, 0.0)
+
+
+def test_k2_plain_candidate_layout_gives_the_sorted_layouts_bits():
+    """K2's plain rows sit at each pair's candidate index: permuted back to
+    the pairs' sorted positions they are the rows of the sorted layout, and
+    the new K2b sums give, bit for bit, what the sorted layout's loop gave;
+    the cap-cut candidates hold zeros and mask 0."""
+    from humangaussian_torch.ops.rasterize_tiled import (
+        composite_backward_pairs_plain,
+        counted_pairs,
+    )
+
+    feats, gids, starts, counts, bg, tx, ty = random_composite_args(
+        seed=5, cams=2, n=120, pairs_per_tile=50)
+    counts = torch.where(torch.arange(counts.shape[0]) % 2 == 0,
+                         counts - 13, counts).to(torch.int32)
+    args = (feats, gids, starts, counts, bg, tx, ty)
+    out = composite_plain(*args)
+    cot = [torch.from_numpy(c) for c in _cotangents((64, 64), 11, 2)]
+    routing = pair_routing(gids, starts, counts, feats.shape[0])
+    cand_pos, row_starts, pair_cand = routing
+    rows, mask = composite_backward_pairs_plain(*args[:5], out, cot,
+                                                *args[5:], routing=routing)
+    cut = cand_pos < 0
+    assert int(cut.sum()) == 4 * 13 and int(mask.sum()) > 0
+    assert not bool(rows[cut].any()) and not bool(mask[cut].any())
+    by_pos = pair_cand.long()
+    sorted_rows, sorted_mask = rows[by_pos], mask[by_pos]
+    _, _, counted = counted_pairs(starts, counts)
+    uncounted = torch.ones(gids.shape[0], dtype=torch.bool)
+    uncounted[counted] = False
+    assert not bool(sorted_rows[uncounted].any())
+    got = feature_row_grads_plain(rows, mask, cand_pos, row_starts, feats)
+    want = _sorted_layout_row_grads(sorted_rows, sorted_mask, cand_pos,
+                                    row_starts, feats)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# K2b's launch numbers (csrc/rasterize_bwd.cu): a warp's lanes (and rows),
+# the staged sub-tile rows of a chunk
+K2B_LANES, K2B_STAGE = 32, 128
+
+
+def _k2b_staged(rows, mask, cand_pos, row_starts, feats, lanes=K2B_LANES,
+                stage=K2B_STAGE):
+    """K2b's schedule in numpy float32: a warp of `lanes` lanes owns that
+    many consecutive rows and walks their candidate span in chunks of at
+    most `lanes` candidates whose masked rows fit `stage` slots; the slots
+    follow an exclusive scan of the masked-row counts (candidate, then
+    sub-tile), and each row adds its own slots in order (one lane, or ten
+    lanes one sum each: the same order). Returns the gradient and, per
+    chunk, (rows whose span runs past the chunk's end, whether the stage
+    ended the chunk, the most slots of one row)."""
+    rows, mask = rows.numpy(), mask.numpy()
+    cand_pos, row_starts = cand_pos.numpy(), row_starts.numpy()
+    feats = feats.numpy()
+    n_rows = feats.shape[0]
+    out = np.full_like(feats, np.nan)
+    chunks = []
+    for r0 in range(0, n_rows, lanes):
+        nr = min(lanes, n_rows - r0)
+        rs, re = row_starts[r0:r0 + nr], row_starts[r0 + 1:r0 + nr + 1]
+        acc = np.zeros((nr, 10), np.float32)
+        has = np.zeros(nr, bool)
+        kc, ke = int(rs[0]), int(re[-1])
+        while kc < ke:
+            ks = np.arange(kc, min(kc + lanes, ke))
+            n = np.where(cand_pos[ks] >= 0, (mask[ks] != 0).sum(axis=1), 0)
+            incl = np.cumsum(n)
+            fit = min(len(ks), int((incl <= stage).sum()))
+            assert fit >= 1
+            slots = [rows[k, sub] for k in ks[:fit] if cand_pos[k] >= 0
+                     for sub in range(16) if mask[k, sub]]
+            assert len(slots) == incl[fit - 1] <= stage
+            end = np.concatenate([[0], incl[:fit]])
+            most = 0
+            for lane in range(nr):
+                a = min(max(rs[lane] - kc, 0), fit)
+                b = min(max(re[lane] - kc, 0), fit)
+                most = max(most, end[b] - end[a])
+                for t in range(end[a], end[b]):
+                    acc[lane] = acc[lane] + slots[t]
+                    has[lane] = True
+            chunks.append((int(((rs < kc + fit) & (re > kc + fit)).sum()),
+                           fit < len(ks), int(most)))
+            kc += fit
+        f = feats[r0:r0 + nr]
+        ca, cb, cc = f[:, 2], f[:, 3], f[:, 4]
+        s = acc.T
+        grad = np.stack([-(ca * s[0] + cb * s[1]), -(cc * s[1] + cb * s[0]),
+                         np.float32(-0.5) * s[2], -s[3],
+                         np.float32(-0.5) * s[4], *s[5:]], axis=1)
+        out[r0:r0 + nr] = np.where(has[:, None], grad, np.float32(0.0))
+    return out, chunks
+
+
+@pytest.mark.parametrize("lanes,stage", [(K2B_LANES, K2B_STAGE), (4, 20)])
+def test_k2b_chunked_staging_gives_the_plain_bits(lanes, stage):
+    """K2b's schedule, emulated, is bit-equal to `feature_row_grads_plain`
+    and writes every row, on rows whose candidates cross several chunks,
+    chunks that end mid-row and by the stage, chunks where one row holds
+    16 slots or more (K2b adds those with ten lanes), rows with no
+    candidates and rows whose every candidate was cut."""
+    rows, mask, cand_pos, row_starts, feats, all_cut = long_row_routing(
+        seed=lanes)
+    got, chunks = _k2b_staged(rows, mask, cand_pos, row_starts, feats,
+                              lanes, stage)
+    want = feature_row_grads_plain(rows, mask, cand_pos, row_starts, feats)
+    assert np.array_equal(got.view(np.int32), want.numpy().view(np.int32))
+    n_cand = (row_starts[1:] - row_starts[:-1]).numpy()
+    assert n_cand[1] == 120
+    assert sum(c[0] for c in chunks) > 0  # chunks that end mid-row
+    assert any(c[1] for c in chunks)  # chunks the stage ended
+    assert any(c[2] >= 16 for c in chunks)  # long rows
+    assert (n_cand == 0).sum() > 0
+    assert bool((want[n_cand == 0] == 0).all())
+    assert len(all_cut) == 2 and bool((want[all_cut] == 0).all())
+    assert bool((want != 0).any())
