@@ -125,6 +125,14 @@ source, started together), writes the assets, then:
    and with plain float32 products (and the
    pixels where they differ); and a VAE encode with channels_last and with
    contiguous weights;
+11b. the step's antialiased resize (`ops/resize.py`, float32) at 8 x
+   1024^2 x 3 -> 512^2 (the rgb and depth renders) and -> 64^2 (the IF
+   path), forward and backward: the card's forward within 1e-6 absolute
+   and its gradient within 1e-6 of max-|grad| of the same resize on the
+   CPU, within 1e-5 of `F.interpolate(..., antialias=True)` (the library
+   resize the port used before) on the card, a second backward under
+   strict deterministic algorithms bit-equal to the first; ms of each
+   (CUDA events) beside the bound (input read once, output written once);
 12. runs `sample_joint` at batch 2 for 4 DDIM steps, conditioned on the
    skeleton drawn from two validation views: 512^2 images and depths
    finite and in [0, 1], K3 + K3a launched once per norm of 4 UNet
@@ -270,15 +278,18 @@ source, started together), writes the assets, then:
    times); ms per render;
 30. `multihost_init` (NCCL at world size 1, torchrun's variables set by the
    script) and `make_dp_train_step` on phase 11's system, every kernel on
-   the path and torch's deterministic algorithms on (no wrapper swapped):
-   `train_step` against itself from copies of one state bit-equal (loss
-   relative 0, means 0.0, max_radii2d and the generator's state equal),
-   one DP step against `train_step` (loss within 2e-4 relative, means
-   within 1e-5, max_radii2d and the generator's state equal), launches
-   exactly phase 11's; the ops that warned they have no deterministic
-   implementation; what still differs from run to run with the flag off,
-   and with cuDNN's deterministic convolutions alone; ms per DP step
-   beside `train_step`'s, in turns;
+   the path and torch's deterministic algorithms on, strict (no
+   `warn_only`: an op without a deterministic implementation raises; no
+   wrapper swapped; `CUBLAS_WORKSPACE_CONFIG` is set to ":4096:8" at the
+   top of the script, before the first cuBLAS call, so that cuBLAS's
+   products qualify): `train_step` against itself from copies of one
+   state bit-equal (loss relative 0, means 0.0, max_radii2d and the
+   generator's state equal), one DP step against `train_step` (loss
+   within 2e-4 relative, means within 1e-5, max_radii2d and the
+   generator's state equal), launches exactly phase 11's, and no warning
+   about determinism (cuBLAS's included); what still differs from run to
+   run with the flag off, and with cuDNN's deterministic convolutions
+   alone; ms per DP step beside `train_step`'s, in turns;
 and prints the `kernels` JSON line (all eight kernels, each with the
 launches of one `train_step` of phase 11, the main path, and
 `launches_deep_floyd_step` (phase 16, Perp-Neg off),
@@ -321,8 +332,12 @@ import tempfile
 import time
 import warnings
 
-import numpy as np
-import torch
+# cuBLAS fixes its workspace at the process's first call: phase 30's strict
+# deterministic algorithms accept its products only with this setting
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 N_AVATAR = 100_000  # the shipped config's pts_num
 SIZE = 1024
@@ -1990,6 +2005,76 @@ def train_step_phase(dev, system, assets):
     return counts, batch_row
 
 
+RESIZE_SHAPES = ((8, 1024, 512), (8, 1024, 64))  # (batch, in, out), 3 ch
+RESIZE_TOL = 1e-6  # card vs CPU: forward absolute, gradient of max-|grad|
+RESIZE_LIBRARY_TOL = 1e-5  # the same, against F.interpolate(antialias=True)
+RESIZE_REPS = 20
+
+
+def resize_phase(dev):
+    """Phase 11b: the antialiased resize of the step (`resize_bilinear`)
+    on the card against its CPU result and against the library resize
+    the port used before, forward and backward, timed beside it."""
+    import torch.nn.functional as F
+
+    from humangaussian_torch.ops.resize import band, resize_bilinear
+
+    def library(x, hw):
+        return F.interpolate(x.permute(0, 3, 1, 2), size=hw, mode="bilinear",
+                             align_corners=False, antialias=True
+                             ).permute(0, 2, 3, 1)
+
+    print("phase 11b: the antialiased resize (ops/resize.py) against "
+          "F.interpolate(antialias=True), float32, forward and backward")
+    gen = torch.Generator().manual_seed(16)
+    for b, n, m in RESIZE_SHAPES:
+        x_cpu = torch.rand(b, n, n, 3, generator=gen).requires_grad_(True)
+        g_cpu = torch.randn(b, m, m, 3, generator=gen)
+        y_cpu = resize_bilinear(x_cpu, m)
+        (dx_cpu,) = torch.autograd.grad(y_cpu, x_cpu, g_cpu)
+        x = x_cpu.detach().to(dev).requires_grad_(True)
+        g = g_cpu.to(dev)
+        y, y_lib = resize_bilinear(x, m), library(x, (m, m))
+        y_out, y_lib_out = y.detach(), y_lib.detach()
+        with deterministic_step() as caught:  # strict
+            dx, dx2 = (torch.autograd.grad(y, x, g, retain_graph=True)[0]
+                       for _ in range(2))
+        check(not nondeterministic_ops(caught),
+              f"the resize warned: {nondeterministic_ops(caught)}")
+        dx_lib, dx_lib2 = (
+            torch.autograd.grad(y_lib, x, g, retain_graph=True)[0]
+            for _ in range(2))
+        fwd_ms, bwd_ms, lib_fwd, lib_bwd = (
+            cuda_ms(fn, RESIZE_REPS) for fn in (
+                lambda: resize_bilinear(x.detach(), m),
+                lambda: torch.autograd.grad(y, x, g, retain_graph=True),
+                lambda: library(x.detach(), (m, m)),
+                lambda: torch.autograd.grad(y_lib, x, g, retain_graph=True)))
+        scale = float(dx_cpu.abs().max())
+        errs = (float((y_out.cpu() - y_cpu.detach()).abs().max()),
+                float((dx.cpu() - dx_cpu).abs().max()) / scale,
+                float((y_out - y_lib_out).abs().max()),
+                float((dx - dx_lib).abs().max()) / scale)
+        taps = band(n, m, dev, torch.float32)
+        mb_in, mb_out = b * n * n * 3 * 4 / 1e6, b * m * m * 3 * 4 / 1e6
+        bound = (mb_in + mb_out) / 3.35e3  # ms at 3.35 TB/s
+        print(f"  {b} x {n}^2 x 3 -> {m}^2 ({taps.idx.shape[0]} taps an "
+              f"output, {taps.idx_t.shape[0]} an input): port forward "
+              f"{fwd_ms:.4f} ms, backward {bwd_ms:.4f}; library forward "
+              f"{lib_fwd:.4f}, backward {lib_bwd:.4f}; bound {bound:.4f} "
+              f"each way ({mb_in:.1f} MB in, {mb_out:.1f} MB out)")
+        print(f"    card vs CPU: forward {errs[0]:.3e}, gradient "
+              f"{errs[1]:.3e} of max-|grad|; vs the library: {errs[2]:.3e}, "
+              f"{errs[3]:.3e}; second backward bit-equal: port "
+              f"{torch.equal(dx, dx2)}, library "
+              f"{torch.equal(dx_lib, dx_lib2)}")
+        check(errs[0] <= RESIZE_TOL and errs[1] <= RESIZE_TOL,
+              f"resize card vs CPU {errs[:2]}")
+        check(errs[2] <= RESIZE_LIBRARY_TOL and errs[3] <= RESIZE_LIBRARY_TOL,
+              f"resize vs F.interpolate {errs[2:]}")
+        check(torch.equal(dx, dx2), "the resize's backward does not repeat")
+
+
 def trainer_phase(dev, tmp, overrides):
     """Phase 14: the avatar CLI at full width, `apps.launch.main` on
     configs/avatar.yaml with --train for TRAINER_STEPS steps, then
@@ -2815,6 +2900,7 @@ def run(dev, only=()) -> int:
         system = build_avatar_system(dev, overrides)
         if want("guidance"):
             counts, batch = train_step_phase(dev, system, assets)
+            resize_phase(dev)
             sjc_snapshot_phase(dev, system, tmp)
             # every row's `launches` is the count of one train_step
             for name, row in rows.items():
@@ -4943,28 +5029,40 @@ def clone_state(state):
 
 @contextlib.contextmanager
 def deterministic_step():
-    """Inside, torch's deterministic algorithms are on (cuDNN's
-    deterministic convolutions, `index_add_` sorted) with `warn_only`: an
-    op without a deterministic implementation warns and runs; the context
-    yields the caught warnings. No wrapper is swapped: every kernel of the
-    port stays on the path (each adds in a fixed order). Only phase 30's
-    comparison uses it."""
+    """Inside, torch's deterministic algorithms are on, strict (cuDNN's
+    deterministic convolutions, `index_add_` sorted, cuBLAS only with a
+    fixed workspace): an op without a deterministic implementation
+    raises. The context yields the caught warnings. No wrapper is swapped:
+    every kernel of the port stays on the path (each adds in a fixed
+    order). Only phase 30's comparison uses it."""
     was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    was_warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             yield caught
     finally:
-        torch.use_deterministic_algorithms(was)
+        torch.use_deterministic_algorithms(was, warn_only=was_warn_only)
 
 
 def nondeterministic_ops(caught) -> list:
-    """The ops named by torch's "does not have a deterministic
-    implementation" warnings."""
-    return sorted({str(w.message).split(" does not have")[0]
-                   for w in caught
-                   if "does not have a deterministic" in str(w.message)})
+    """What torch's warnings about determinism name: the op of a "does not
+    have a deterministic implementation" warning, "cuBLAS" for the warning
+    that cuBLAS's workspace is not fixed (CUBLAS_WORKSPACE_CONFIG), any
+    other warning that mentions determinism whole."""
+    ops = set()
+    for w in caught:
+        msg = str(w.message)
+        if "deterministic" not in msg.lower():
+            continue
+        if "does not have a deterministic" in msg:
+            ops.add(msg.split(" does not have")[0])
+        elif "cublas" in msg.lower():
+            ops.add("cuBLAS")
+        else:
+            ops.add(msg)
+    return sorted(ops)
 
 
 def step_diffs(a, b) -> tuple:
@@ -4982,8 +5080,10 @@ def dist_phase(dev, system) -> dict:
     """Phase 30: `multihost_init` (NCCL, world size 1, torchrun's
     variables set here) and `make_dp_train_step` on phase 11's system
     against `train_step` from copies of one state, every kernel on the
-    path: in `deterministic_step` `train_step` must repeat itself bit for
-    bit and the DP step is held to tests/test_torch_dist.py's limits; with
+    path: in `deterministic_step` (strict: no op may lack a deterministic
+    implementation, and none may warn about determinism) `train_step` must
+    repeat itself bit for bit and the DP step is held to
+    tests/test_torch_dist.py's limits; with
     torch's deterministic algorithms off, and with cuDNN's deterministic
     convolutions alone, what still differs from run to run is printed.
     Returns the launches of one DP step."""
@@ -5014,7 +5114,8 @@ def dist_phase(dev, system) -> dict:
         state0 = system.init_state(0)
 
         want = dual_branch_step_launches(system.guidance)
-        # every kernel on the path, torch's deterministic algorithms on
+        # every kernel on the path, torch's deterministic algorithms on,
+        # strict: an op without a deterministic implementation raises
         with deterministic_step() as caught:
             ref = system.train_step(clone_state(state0))
             again = system.train_step(clone_state(state0))
@@ -5023,18 +5124,19 @@ def dist_phase(dev, system) -> dict:
             dp = dp_step(clone_state(state0))
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
+        warned = nondeterministic_ops(caught)
         check(counts == want, f"DP step launches {counts}, want {want}")
         check(all(math.isfinite(float(v)) for v in dp[1].values()),
               "DP metrics not finite")
         d_dp, d_again = step_diffs(dp, ref), step_diffs(again, ref)
-        print(f"  on the kernels, torch's deterministic algorithms on: "
-              f"train_step against itself: loss relative {d_again[0]:.3e}, "
-              f"means within {d_again[1]:.3e}; DP step against train_step: "
-              f"loss {float(dp[1]['loss']):.9g} vs "
+        print(f"  on the kernels, torch's deterministic algorithms on "
+              f"(strict): train_step against itself: loss relative "
+              f"{d_again[0]:.3e}, means within {d_again[1]:.3e}; DP step "
+              f"against train_step: loss {float(dp[1]['loss']):.9g} vs "
               f"{float(ref[1]['loss']):.9g} (relative {d_dp[0]:.3e}), means "
-              f"within {d_dp[1]:.3e}; ops without a deterministic "
-              f"implementation (warned, ran): "
-              f"{nondeterministic_ops(caught) or 'none'}; launches {counts}")
+              f"within {d_dp[1]:.3e}; warned about determinism: "
+              f"{warned or 'none'}; launches {counts}")
+        check(not warned, f"ops warned about determinism: {warned}")
         check(d_again[0] == 0.0 and d_again[1] == 0.0 and d_again[2]
               and d_again[3], "train_step does not repeat itself bit for bit "
               "on the kernels")

@@ -4,9 +4,10 @@ reparameterized loss.
 Port of humangaussian_tpu/guidance/dual_branch.py. Per step
 (`DualBranchGuidance.__call__`):
 
-  1. resize the rgb and depth renders to `image_size`^2 and VAE-encode
-     both; the depth latents are renormalized to the rgb latents'
-     statistics;
+  1. resize the rgb and depth renders to `image_size`^2
+     (`ops/resize.py`: `jax.image.resize`'s antialiased weights, its
+     backward added in a fixed order) and VAE-encode both; the depth
+     latents are renormalized to the rgb latents' statistics;
   2. encode the skeleton pose image -> `whole_latents`, renormalized, and
      channel-concatenate it onto BOTH noisy latents as conditioning;
   3. one batched UNet forward on 3B inputs ([cond | neg | null] text
@@ -48,11 +49,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from humangaussian_torch.guidance.schedule import DiffusionSchedule
 from humangaussian_torch.guidance.vae import sample_latent
+from humangaussian_torch.ops.resize import resize_bilinear
 
 # latent-space normalization constants of the joint model
 RGB_MEAN = 0.14654
@@ -72,19 +73,6 @@ def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float):
     std_cfg = noise_cfg.std(dim=axes, keepdim=True, unbiased=False)
     rescaled = noise_cfg * (std_text / std_cfg.clamp_min(1e-8))
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
-
-
-def resize_bilinear(x, size):
-    """[B, H, W, C] -> [B, size, size, C] (or [B, h, w, C] for `size` (h,
-    w)), bilinear with half-pixel centres and, when shrinking, the triangle
-    filter widened by the scale (anti-aliasing), as `jax.image.resize(...,
-    "bilinear")` does."""
-    hw = (size, size) if isinstance(size, int) else tuple(size)
-    if tuple(x.shape[1:3]) == hw:
-        return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=hw, mode="bilinear",
-                      align_corners=False, antialias=True)
-    return y.permute(0, 2, 3, 1)
 
 
 @dataclasses.dataclass(frozen=True)

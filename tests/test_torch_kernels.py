@@ -17,7 +17,9 @@ K5a to `group_norm_bwd_dx_plain` within one bfloat16 ulp on all but 1e-4
 of the outputs (bfloat16) or 1e-5 of the largest output (float32), their
 reruns and a CUDA graph's replays of the op bit-equal; K4 to
 `self_attention_plain` at 2^-7 of the largest output (one bfloat16 ulp at
-the peak).
+the peak). The antialiased resize of the step (`ops/resize.py`, gathers,
+no kernel of its own) repeats its backward bit for bit under strict
+deterministic algorithms and matches its CPU result on the card.
 """
 import os
 import subprocess
@@ -777,3 +779,49 @@ def test_controlnet_guidance_on_the_card_matches_the_plain_versions(
     assert loss == pytest.approx(want_loss, rel=1e-5)
     assert float((grad - want_grad).abs().max()) <= 1e-4 * float(
         want_grad.abs().max())
+
+
+def _resize_grad(x, g, size):
+    from humangaussian_torch.ops.resize import resize_bilinear
+
+    x = x.clone().requires_grad_(True)
+    y = resize_bilinear(x, size)
+    (dx,) = torch.autograd.grad(y, x, g)
+    return y.detach(), dx
+
+
+@pytest.mark.cuda
+def test_resize_backward_repeats_bit_for_bit_under_strict_determinism(
+        cuda_device):
+    """The step's resize, 8 x 1024^2 x 3 -> 512^2: two backwards bit-equal
+    with torch's deterministic algorithms on, strict (an op without a
+    deterministic implementation would raise)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand((8, 1024, 1024, 3), generator=gen, device=cuda_device)
+    g = torch.randn((8, 512, 512, 3), generator=gen, device=cuda_device)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        y1, dx1 = _resize_grad(x, g, 512)
+        y2, dx2 = _resize_grad(x, g, 512)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert torch.equal(y1, y2)
+    assert torch.equal(dx1, dx2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(8, 1024, 512), (2, 1024, 64),
+                                   (2, 64, 256)])
+def test_resize_on_the_card_matches_the_cpu(cuda_device, b, n, m):
+    """The card's forward within 1e-6 absolute and its gradient within
+    1e-6 of max-|grad| of the same resize on the CPU."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((b, n, n, 3), generator=gen)
+    g = torch.randn((b, m, m, 3), generator=gen)
+    y_cpu, dx_cpu = _resize_grad(x, g, m)
+    y, dx = _resize_grad(x.to(cuda_device), g.to(cuda_device), m)
+    assert float((y.cpu() - y_cpu).abs().max()) <= 1e-6
+    assert float((dx.cpu() - dx_cpu).abs().max()) <= 1e-6 * float(
+        dx_cpu.abs().max())
