@@ -30,6 +30,7 @@ from humangaussian_torch.core.scene import GaussianScene
 from humangaussian_torch.render import render as render_scene
 from humangaussian_torch.smplx.lbs import SMPLXPose, lbs_forward
 from humangaussian_torch.smplx.model import SMPLXModel
+from humangaussian_torch.utils.profiling import trace_annotation
 
 
 def closest_point_on_triangles(points: np.ndarray, v0, v1, v2):
@@ -247,15 +248,15 @@ class AvatarAnimator:
 
     def frame_scene(self, pose: SMPLXPose) -> GaussianScene:
         """Scene re-posed to `pose` (positions only)."""
-        verts, _ = lbs_forward(self.model, pose)
-        verts_n = (
-            (verts - self._center) * float(self.ori_scale) * self.scale_factor
-        )
-        new_pos = repose_positions(self._face_verts, self._bary, self._dist,
-                                   verts_n)
-        means = self.scene.means.clone()
-        means[: self.n_gaussians] = new_pos
-        return self.scene._replace(means=means)
+        with trace_annotation("hg.repose"):
+            verts, _ = lbs_forward(self.model, pose)
+            verts_n = ((verts - self._center) * float(self.ori_scale)
+                       * self.scale_factor)
+            new_pos = repose_positions(self._face_verts, self._bary,
+                                       self._dist, verts_n)
+            means = self.scene.means.clone()
+            means[: self.n_gaussians] = new_pos
+            return self.scene._replace(means=means)
 
     def render_frame(self, pose: SMPLXPose, camera: Camera,
                      background: torch.Tensor) -> dict:

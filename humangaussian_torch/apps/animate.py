@@ -17,6 +17,8 @@ import math
 import numpy as np
 import torch
 
+from humangaussian_torch.utils.profiling import trace_annotation
+
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
@@ -42,11 +44,14 @@ def frame_camera(i: int, n: int, size: int, radius: float, rotate: bool,
 
     angle = 2 * math.pi * i / n if rotate else 0.0
     f32 = dict(dtype=torch.float32, device=device)
-    eye = torch.tensor(
-        [radius * math.sin(angle), 0.3, radius * math.cos(angle)], **f32
-    )
-    c2w = look_at_c2w(eye, torch.zeros(3, **f32),
-                      torch.tensor([0.0, 1.0, 0.0], **f32))
+    # each host value's copy to the card waits for the stream
+    with trace_annotation("hg.read.frame_camera"):
+        eye = torch.tensor(
+            [radius * math.sin(angle), 0.3, radius * math.cos(angle)], **f32
+        )
+    with trace_annotation("hg.read.frame_camera"):
+        up = torch.tensor([0.0, 1.0, 0.0], **f32)
+    c2w = look_at_c2w(eye, torch.zeros(3, **f32), up)
     return camera_from_c2w(c2w, 0.9, size, size)
 
 
@@ -56,11 +61,15 @@ def render_motion_frame(animator, body_pose, i: int, n: int, args,
     as an [H,W,3] float array."""
     from humangaussian_torch.smplx.lbs import SMPLXPose
 
-    dev = background.device
-    cam = frame_camera(i, n, args.size, args.radius, args.rotate, dev)
-    pose = SMPLXPose.rest(body_pose=torch.from_numpy(body_pose).to(dev))
-    out = animator.render_frame(pose, cam, background)
-    return out["image"].cpu().numpy()
+    with trace_annotation("hg.frame"):
+        dev = background.device
+        cam = frame_camera(i, n, args.size, args.radius, args.rotate, dev)
+        with trace_annotation("hg.read.frame_pose"):
+            body_pose = torch.from_numpy(body_pose).to(dev)
+        out = animator.render_frame(SMPLXPose.rest(body_pose=body_pose), cam,
+                                    background)
+        with trace_annotation("hg.read.frame"):
+            return out["image"].cpu().numpy()
 
 
 def main(argv=None):

@@ -20,6 +20,8 @@ import dataclasses
 
 import torch
 
+from humangaussian_torch.utils.profiling import trace_annotation
+
 
 def fov_to_focal(fov: torch.Tensor, pixels):
     """Field of view (radians) -> focal length in pixels."""
@@ -96,19 +98,24 @@ def camera_from_c2w(
     """Camera(s) from OpenGL c2w [...,4,4] and vertical FoV (radians).
     Tensors follow `c2w`'s device."""
     c2w = c2w.to(torch.float32)
-    fovy = torch.as_tensor(fovy, dtype=torch.float32, device=c2w.device)
-    fovy = fovy.expand(c2w.shape[:-2])
+    if not isinstance(fovy, torch.Tensor):
+        with trace_annotation("hg.read.fovy"):  # a host value to the card
+            fovy = torch.tensor(fovy, dtype=torch.float32, device=c2w.device)
+    fovy = fovy.to(c2w.device, torch.float32).expand(c2w.shape[:-2])
     focal = fov_to_focal(fovy, height)
     fovx = focal_to_fov(focal, width)
 
-    w2c = torch.linalg.inv(c2w).clone()
+    # `linalg.inv` reads its error flags on the host
+    with trace_annotation("hg.read.camera"):
+        w2c = torch.linalg.inv(c2w).clone()
     w2c[..., 1:3, :3] *= -1.0
     w2c[..., :3, 3] *= -1.0
 
     view = w2c.transpose(-1, -2)
     proj = perspective_projection(znear, zfar, fovx, fovy).transpose(-1, -2)
     full_proj = view @ proj
-    campos = torch.linalg.inv(view)[..., 3, :3]
+    with trace_annotation("hg.read.camera"):
+        campos = torch.linalg.inv(view)[..., 3, :3]
     return Camera(
         view=view,
         full_proj=full_proj,

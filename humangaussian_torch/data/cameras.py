@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from humangaussian_torch import resolve_device
+from humangaussian_torch.utils.profiling import trace_annotation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,8 +185,11 @@ def camera_draws(batch: int, generator: torch.Generator | None = None,
 def _uniform(u, lo, hi):
     """JAX's uniform(minval, maxval) of the unit draw u: u * (hi - lo) + lo
     in float32."""
-    lo32 = torch.tensor(lo, dtype=torch.float32, device=u.device)
-    hi32 = torch.tensor(hi, dtype=torch.float32, device=u.device)
+    # each host value's copy to the card waits for the stream
+    with trace_annotation("hg.read.cameras"):
+        lo32 = torch.tensor(lo, dtype=torch.float32, device=u.device)
+    with trace_annotation("hg.read.cameras"):
+        hi32 = torch.tensor(hi, dtype=torch.float32, device=u.device)
     return torch.maximum(lo32, u * (hi32 - lo32) + lo32)
 
 
@@ -205,7 +209,8 @@ def camera_batch_from_draws(draws: dict, step: int,
     dev = u_mode.device
 
     def f32(x):
-        return torch.tensor(x, dtype=torch.float32, device=dev)
+        with trace_annotation("hg.read.cameras"):  # a blocking copy
+            return torch.tensor(x, dtype=torch.float32, device=dev)
 
     def pick(head_v, back_v, base_v):
         return torch.where(head_on, f32(head_v),

@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from humangaussian_torch.core.scene import GaussianScene, quat_to_rotmat
+from humangaussian_torch.utils.profiling import trace_annotation
 
 
 class DensifyState(NamedTuple):
@@ -89,8 +90,12 @@ def _scatter_rows(leaf: torch.Tensor, slot: torch.Tensor, values) -> torch.Tenso
     slot == C is dropped (jnp's `.at[].set(mode="drop")`)."""
     keep = slot < leaf.shape[0]
     out = leaf.clone()
-    out[slot[keep]] = values[keep] if isinstance(values, torch.Tensor) \
-        else values
+    # each mask read, and a host value's copy to the card, waits for it
+    with trace_annotation("hg.read.densify"):
+        rows = slot[keep]
+    with trace_annotation("hg.read.densify"):
+        out[rows] = values[keep] if isinstance(values, torch.Tensor) \
+            else values
     return out
 
 
@@ -174,7 +179,8 @@ def densify_and_prune(
 
     # ---- slot allocation ------------------------------------------------
     free_mask = ~alive | split_mask  # split parents die this pass
-    free_slots = torch.nonzero(free_mask)[:, 0]
+    with trace_annotation("hg.read.densify"):
+        free_slots = torch.nonzero(free_mask)[:, 0]
     num_free = free_slots.shape[0]
     free_slots = torch.cat([free_slots,
                             torch.full((c - num_free,), c, device=dev)])

@@ -54,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from humangaussian_torch.guidance.schedule import DiffusionSchedule
 from humangaussian_torch.guidance.vae import sample_latent
 from humangaussian_torch.ops.resize import resize_bilinear
+from humangaussian_torch.utils.profiling import trace_annotation
 
 # latent-space normalization constants of the joint model
 RGB_MEAN = 0.14654
@@ -142,10 +143,12 @@ class DualBranchGuidance:
         branch_num)] predictions (rgb, then each branch), without
         gradients."""
         c = self.cfg
-        time_ids = torch.tensor(
-            [[c.original_size, c.original_size, 0, 0, c.target_size,
-              c.target_size]], dtype=torch.float32, device=rgb_lat_in.device
-        ).repeat(rgb_lat_in.shape[0], 1)
+        with trace_annotation("hg.read.time_ids"):  # host values to the card
+            time_ids = torch.tensor(
+                [[c.original_size, c.original_size, 0, 0, c.target_size,
+                  c.target_size]], dtype=torch.float32,
+                device=rgb_lat_in.device)
+        time_ids = time_ids.repeat(rgb_lat_in.shape[0], 1)
         with torch.no_grad():
             return self.unet(rgb_lat_in, depth_lat_in, t, text_embeddings,
                              time_ids)
@@ -405,28 +408,34 @@ class DualBranchGuidance:
         }
 
         def encode(img, key):
-            fn = lambda x: self.encode_images(x, eps=draws[key])  # noqa: E731
-            if c.remat_encode and img.requires_grad:
-                return checkpoint(fn, img, use_reentrant=False)
-            return fn(img)
+            # the span inside the checkpointed function also marks its
+            # recompute in the backward
+            def fn(x):
+                with trace_annotation("hg.guidance.encode"):
+                    return self.encode_images(x, eps=draws[key])
 
-        latents = encode(resize_bilinear(rgb, c.image_size), "rgb")
+            with trace_annotation("hg.guidance.encode"):
+                x = resize_bilinear(img, c.image_size)
+            if c.remat_encode and x.requires_grad:
+                return checkpoint(fn, x, use_reentrant=False)
+            return fn(x)
+
+        latents = encode(rgb, "rgb")
         depth_latents = [
-            (encode(resize_bilinear(d, c.image_size), key) - DEPTH_MEAN)
-            / DEPTH_STD * RGB_STD + RGB_MEAN
+            (encode(d, key) - DEPTH_MEAN) / DEPTH_STD * RGB_STD + RGB_MEAN
             for d, key in zip(depths, depth_keys)]
         with torch.no_grad():
-            whole_latents = encode(
-                resize_bilinear(pose_image, c.image_size), "pose")
+            whole_latents = encode(pose_image, "pose")
             whole_latents = (
                 (whole_latents - WHOLE_MEAN) / WHOLE_STD * RGB_STD + RGB_MEAN
             )
             grad_fn = (self.compute_grad_sjc if c.mode == "sjc"
                        else self.compute_grad)
             dls = [d.detach() for d in depth_latents]
-            grad = grad_fn(latents.detach(), dls[0] if nb == 1 else dls,
-                           whole_latents, t, text_embeddings, generator,
-                           noise=noise, depth_noise=depth_noise)
+            with trace_annotation("hg.guidance.unet"):
+                grad = grad_fn(latents.detach(), dls[0] if nb == 1 else dls,
+                               whole_latents, t, text_embeddings, generator,
+                               noise=noise, depth_noise=depth_noise)
             if grad_clip_val is not None:
                 grad = grad.clamp(-grad_clip_val, grad_clip_val)
 

@@ -42,6 +42,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from humangaussian_torch.ops.projection import ProjectedGaussians, RasterizeConfig
+from humangaussian_torch.utils.profiling import trace_annotation
 
 
 def tile_alpha_bound(mx, my, ca, cb, cc, tx, ty, tile):
@@ -133,7 +134,8 @@ def build_pair_lists(
     for b, prims in enumerate(prims_batch):
         n = prims.depths.shape[0]
         tile_id, valid = _candidates(prims, tiles_x, cfg)
-        g, j = valid.nonzero(as_tuple=True)
+        with trace_annotation("hg.read.bin"):  # the pair count, on the host
+            g, j = valid.nonzero(as_tuple=True)
         depth_bits = prims.depths.detach().view(torch.int32)[g].to(torch.int64)
         tile_g = tile_id[g, j].to(torch.int64) + b * tiles
         keys.append((tile_g << 32) | depth_bits)

@@ -61,6 +61,7 @@ from humangaussian_torch.ops.projection import (
     RasterizeConfig,
     project_gaussians,
 )
+from humangaussian_torch.utils.profiling import trace_annotation
 
 # per-Gaussian feature row read by K1 (order of csrc/rasterize_fwd.cu)
 FX, FY, FCA, FCB, FCC, FR, FG, FB, FOPA, FDEPTH = range(10)
@@ -325,10 +326,11 @@ class _Composite(torch.autograd.Function):
          n_contrib, *routing) = ctx.saved_tensors
         saved = {"image": image, "depth": depth, "final_t": final_t,
                  "n_contrib": n_contrib}
-        dfeats = composite_backward(
-            feats, gids, starts, counts, background, saved,
-            (g_image, g_depth, g_alpha), *ctx.geometry,
-            routing=None if routing[0] is None else tuple(routing))
+        with trace_annotation("hg.render.composite_bwd"):
+            dfeats = composite_backward(
+                feats, gids, starts, counts, background, saved,
+                (g_image, g_depth, g_alpha), *ctx.geometry,
+                routing=None if routing[0] is None else tuple(routing))
         return (dfeats,) + (None,) * 10
 
 
@@ -727,12 +729,17 @@ def composite_inputs(means, scales, quats, features, opacities, alive, cams,
     if h % cfg.tile or w % cfg.tile:
         raise ValueError(f"image {h}x{w} must be a multiple of tile {cfg.tile}")
     tiles_x, tiles_y = w // cfg.tile, h // cfg.tile
-    prims = [
-        project_gaussians(means, scales, quats, features, opacities, alive,
-                          cam, sh_degree, cfg, scale_modifier, means2d_offset)
-        for cam in cams
-    ]
-    pairs = build_pair_lists(prims, tiles_x, tiles_y, tile_capacity, cfg)
+    with trace_annotation("hg.render.project"):
+        prims = [
+            project_gaussians(means, scales, quats, features, opacities,
+                              alive, cam, sh_degree, cfg, scale_modifier,
+                              means2d_offset)
+            for cam in cams
+        ]
+    with trace_annotation("hg.render.bin"):
+        pairs = build_pair_lists(prims, tiles_x, tiles_y, tile_capacity, cfg)
+    # after binning, so that binning's temporaries and the rows never
+    # coexist (the frame's peak memory)
     feats = torch.cat([feature_matrix(p) for p in prims])
     args = (feats, pairs.gids, pairs.starts[:-1].contiguous(), pairs.counts)
     return prims, pairs, args, (tiles_x, tiles_y)
@@ -741,21 +748,23 @@ def composite_inputs(means, scales, quats, features, opacities, alive, cams,
 def _rasterize(means, scales, quats, features, opacities, alive, cams,
                background, sh_degree, cfg, scale_modifier, means2d_offset,
                tile_capacity):
-    prims, pairs, args, tiles = composite_inputs(
-        means, scales, quats, features, opacities, alive, cams, sh_degree,
-        cfg, scale_modifier, means2d_offset, tile_capacity)
-    out = composite(*args, background.to(torch.float32).contiguous(),
-                    *tiles, cfg,
-                    (pairs.cand_pos, pairs.row_starts, pairs.pair_cand))
-    return {
-        "image": out["image"],
-        "depth": out["depth"],
-        "alpha": out["alpha"],
-        "radii": torch.stack([p.radii for p in prims]),
-        "visible": torch.stack([p.visible for p in prims]),
-        "overflow": pairs.overflow,
-        "overflow_spill": torch.zeros_like(pairs.overflow),
-    }
+    with trace_annotation("hg.render"):
+        prims, pairs, args, tiles = composite_inputs(
+            means, scales, quats, features, opacities, alive, cams,
+            sh_degree, cfg, scale_modifier, means2d_offset, tile_capacity)
+        with trace_annotation("hg.render.composite"):
+            out = composite(*args, background.to(torch.float32).contiguous(),
+                            *tiles, cfg, (pairs.cand_pos, pairs.row_starts,
+                                          pairs.pair_cand))
+        return {
+            "image": out["image"],
+            "depth": out["depth"],
+            "alpha": out["alpha"],
+            "radii": torch.stack([p.radii for p in prims]),
+            "visible": torch.stack([p.visible for p in prims]),
+            "overflow": pairs.overflow,
+            "overflow_spill": torch.zeros_like(pairs.overflow),
+        }
 
 
 def rasterize_tiled(

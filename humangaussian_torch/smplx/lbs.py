@@ -21,6 +21,7 @@ import torch
 
 from humangaussian_torch import resolve_device
 from humangaussian_torch.smplx.model import NUM_BODY_JOINTS, SMPLXModel
+from humangaussian_torch.utils.profiling import trace_annotation
 
 
 class SMPLXPose(NamedTuple):
@@ -131,8 +132,9 @@ def lbs_forward(
         v_posed = v_posed + torch.einsum("vcp,p->vc", model.posedirs,
                                          pose_feature)
 
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=rmats.dtype,
-                          device=rmats.device)
+    with trace_annotation("hg.read.lbs"):  # host values to the card
+        bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=rmats.dtype,
+                              device=rmats.device)
 
     def make_tf(r, t):
         return torch.cat([torch.cat([r, t[:, None]], dim=1), bottom], dim=0)

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from humangaussian_torch.smplx.skeleton import OPENPOSE18_LINES
+from humangaussian_torch.utils.profiling import trace_annotation
 
 # (color_index, joint_a, joint_b) in draw order
 HUMANSD_SKELETON = (
@@ -142,6 +143,12 @@ def _paint(winner, colors):
     return torch.where((winner >= 0)[..., None], img, 0.0)
 
 
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array copied to `device` (a blocking copy on the card)."""
+    with trace_annotation("hg.read.pose_image"):
+        return torch.from_numpy(a).to(device)
+
+
 def draw_humansd_keypoints(xs, ys, conf, height: int, width: int):
     """humansd-style images [B, H, W, 3] from pixel keypoints xs, ys and
     confidences conf, each [B, 17]."""
@@ -149,8 +156,7 @@ def draw_humansd_keypoints(xs, ys, conf, height: int, width: int):
     r = w_line / 2.0
     ixs, iys = torch.floor(xs), torch.floor(ys)
     skel = np.asarray(HUMANSD_SKELETON, np.int64)
-    ci, ia, ib = (torch.from_numpy(skel[:, i]).to(xs.device)
-                  for i in range(3))
+    ci, ia, ib = (_to_device(skel[:, i], xs.device) for i in range(3))
     ok = (conf[:, ia] > 0.3) & (conf[:, ib] > 0.3)  # [B, bones]
     xx, yy = _grid(height, width, xs.device)
 
@@ -160,7 +166,7 @@ def draw_humansd_keypoints(xs, ys, conf, height: int, width: int):
     d2 = _segment_dist2(xx, yy, at(ixs, ia), at(iys, ia), at(ixs, ib),
                         at(iys, ib))
     mask = ok[..., None, None] & (d2 <= r * r)  # [B, bones, H, W]
-    colors = torch.from_numpy(_HUMANSD_COLORS).to(xs.device)[ci]
+    colors = _to_device(_HUMANSD_COLORS, xs.device)[ci]
     return _paint(_last_cover(mask), colors)
 
 
@@ -205,7 +211,7 @@ def draw_openpose_keypoints(xs, ys, mask_kp, height: int, width: int):
     dev = xs.device
     xx, yy = _grid(height, width, dev)
     ixs, iys = torch.floor(xs), torch.floor(ys)
-    colors = torch.from_numpy(OPENPOSE_COLORS).to(dev)
+    colors = _to_device(OPENPOSE_COLORS, dev)
 
     # keypoint circles, radius 4; the highest covering index wins
     d2 = ((xx - ixs[..., None, None]) ** 2
@@ -217,7 +223,7 @@ def draw_openpose_keypoints(xs, ys, mask_kp, height: int, width: int):
     # canvas <- mask_i ? 0.4 canvas + 0.6 c_i : canvas has the closed form
     # canvas0 prod_i w_i + sum_i 0.6 k_i c_i prod_{j>i} w_j with
     # k_i = mask_i and w_i = 1 - 0.6 k_i, one [B, 17, H, W] pass
-    lines = torch.from_numpy(np.asarray(OPENPOSE18_LINES, np.int64)).to(dev)
+    lines = _to_device(np.asarray(OPENPOSE18_LINES, np.int64), dev)
     a, b = lines[:, 0], lines[:, 1]
     ok = (mask_kp[:, a] > 0) & (mask_kp[:, b] > 0)  # [B, 17]
     mx = torch.floor((ixs[:, a] + ixs[:, b]) / 2.0)[..., None, None]

@@ -5,12 +5,13 @@ Port of humangaussian_tpu/train/loop.py. `run_training` drives
 `system.train_step` to `max_steps`, runs the density-control pass the host
 step calls for (`system.maybe_densify`, decided without a device read),
 logs every `log_every` steps and after each density-control pass (the
-metrics are read from the device only then), renders the validation orbit
-every `val_interval` steps (`it{N}-val.png`), writes the guidance strip
-every `guidance_eval_interval` steps (`it{N}-guidance.png`: the render,
-the pose image, the 1-step and the denoised image, the 1-step and the
-denoised depth of the first camera, each resized to the prior's image
-size) and writes `metrics.csv`.
+metrics are read from the device only then, in one copy), renders the
+validation orbit every `val_interval` steps (`it{N}-val.png`), writes the
+guidance strip every `guidance_eval_interval` steps (`it{N}-guidance.png`:
+the render, the pose image, the 1-step and the denoised image, the 1-step
+and the denoised depth of the first camera, each resized to the prior's
+image size) and writes `metrics.csv`. Each pass of the loop is an
+`hg.step` span (utils/profiling.py).
 `finalize` writes the 120-view orbit video (`orbit.mp4`, or the `.gif`
 that `save_video` falls back to), `last.ply` and the checkpoint
 `ckpts/last`.
@@ -35,9 +36,11 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from humangaussian_torch.io.ply import save_ply
 from humangaussian_torch.train.checkpoint import save_checkpoint
+from humangaussian_torch.utils.profiling import trace_annotation
 from humangaussian_torch.utils.saving import (
     save_image_grid,
     save_metrics_csv,
@@ -81,8 +84,13 @@ def grown_tile_cap(tile_cap: int) -> int:
     return min(-(-int(tile_cap * 1.5) // 128) * 128, TILE_CAP_MAX)
 
 
-def _row(metrics: dict) -> dict:
-    return {k: float(v) for k, v in metrics.items()}
+def _read(tensors: dict, site: str) -> dict:
+    """The dict's scalar device tensors as Python floats, copied to the
+    host in one read (an `hg.read.<site>` span)."""
+    with trace_annotation(f"hg.read.{site}"):
+        values = torch.stack([torch.as_tensor(v, dtype=torch.float64)
+                              for v in tensors.values()]).tolist()
+    return dict(zip(tensors, values))
 
 
 def run_training(
@@ -105,63 +113,64 @@ def run_training(
     ovf_streak = 0
 
     for _ in range(state.step, max_steps):
-        state, metrics = system.train_step(state)
-        state, dens_info = system.maybe_densify(state)
-        step = state.step
-        steps_since_log += 1
+        with trace_annotation("hg.step"):
+            state, metrics = system.train_step(state)
+            state, dens_info = system.maybe_densify(state)
+            step = state.step
+            steps_since_log += 1
 
-        if progress_path:
-            with open(progress_path, "w") as pf:
-                pf.write(f"{step / max_steps * 100:.1f}")
+            if progress_path:
+                with open(progress_path, "w") as pf:
+                    pf.write(f"{step / max_steps * 100:.1f}")
 
-        if step % log_every == 0 or dens_info is not None:
-            row = _row(metrics)
-            row["step"] = step
-            now = time.time()
-            row["steps_per_s"] = steps_since_log / max(now - t_last, 1e-9)
-            t_last, steps_since_log = now, 0
-            if dens_info is not None:
-                row.update(n_cloned=int(dens_info.n_cloned),
-                           n_split=int(dens_info.n_split),
-                           n_pruned=int(dens_info.n_pruned),
-                           n_dropped=int(dens_info.n_dropped))
-            ovf = int(row.get("overflow", 0))
-            if ovf:
-                log_fn(f"WARNING step {step}: rasterizer dropped {ovf} "
-                       f"(tile, gaussian) pairs at tile_capacity "
-                       f"{state.tile_cap}")
-            ovf_streak = ovf_streak + 1 if ovf > OVERFLOW_GROW_THRESHOLD else 0
-            if (ovf_streak >= OVERFLOW_PATIENCE
-                    and state.tile_cap < TILE_CAP_MAX):
-                new_cap = grown_tile_cap(state.tile_cap)
-                log_fn(f"step {step}: overflow persisted {ovf_streak} "
-                       f"checks ({ovf} pairs); tile_capacity "
-                       f"{state.tile_cap} -> {new_cap}")
-                state = state._replace(tile_cap=new_cap)
-                ovf_streak = 0
-            history.append(row)
-            if logger is not None:
-                logger.log_scalars(step, row)
-            log_fn(
-                f"step {step}: loss={row['loss']:.4f} "
-                f"alive={int(row['n_alive'])} "
-                f"{row['steps_per_s']:.2f} it/s"
-                + (f" densify={ {k: int(v) for k, v in dens_info._asdict().items()} }"
-                   if dens_info is not None else "")
-            )
+            if step % log_every == 0 or dens_info is not None:
+                row = _read(metrics, "log")
+                row["step"] = step
+                now = time.time()
+                row["steps_per_s"] = steps_since_log / max(now - t_last, 1e-9)
+                t_last, steps_since_log = now, 0
+                if dens_info is not None:
+                    dens = {k: int(v) for k, v in
+                            _read(dens_info._asdict(), "densify_info").items()}
+                    row.update((k, v) for k, v in dens.items()
+                               if k != "n_alive")
+                ovf = int(row.get("overflow", 0))
+                if ovf:
+                    log_fn(f"WARNING step {step}: rasterizer dropped {ovf} "
+                           f"(tile, gaussian) pairs at tile_capacity "
+                           f"{state.tile_cap}")
+                ovf_streak = (ovf_streak + 1 if ovf > OVERFLOW_GROW_THRESHOLD
+                              else 0)
+                if (ovf_streak >= OVERFLOW_PATIENCE
+                        and state.tile_cap < TILE_CAP_MAX):
+                    new_cap = grown_tile_cap(state.tile_cap)
+                    log_fn(f"step {step}: overflow persisted {ovf_streak} "
+                           f"checks ({ovf} pairs); tile_capacity "
+                           f"{state.tile_cap} -> {new_cap}")
+                    state = state._replace(tile_cap=new_cap)
+                    ovf_streak = 0
+                history.append(row)
+                if logger is not None:
+                    logger.log_scalars(step, row)
+                log_fn(
+                    f"step {step}: loss={row['loss']:.4f} "
+                    f"alive={int(row['n_alive'])} "
+                    f"{row['steps_per_s']:.2f} it/s"
+                    + (f" densify={dens}" if dens_info is not None else "")
+                )
 
-        if save_dir and val_interval and step % val_interval == 0:
-            out, _cams = system.render_eval(state.scene, "val")
-            images = out["image"].cpu().numpy()
-            save_image_grid(os.path.join(save_dir, f"it{step}-val.png"),
-                            images)
-            if logger is not None:
-                logger.log_image(step, "val/render", images[0])
-        if (save_dir and guidance_eval_interval
-                and step % guidance_eval_interval == 0):
-            save_guidance_strip(
-                os.path.join(save_dir, f"it{step}-guidance.png"),
-                system.guidance_eval_snapshot(state))
+            if save_dir and val_interval and step % val_interval == 0:
+                out, _cams = system.render_eval(state.scene, "val")
+                images = out["image"].cpu().numpy()
+                save_image_grid(os.path.join(save_dir, f"it{step}-val.png"),
+                                images)
+                if logger is not None:
+                    logger.log_image(step, "val/render", images[0])
+            if (save_dir and guidance_eval_interval
+                    and step % guidance_eval_interval == 0):
+                save_guidance_strip(
+                    os.path.join(save_dir, f"it{step}-guidance.png"),
+                    system.guidance_eval_snapshot(state))
 
     if save_dir:
         save_metrics_csv(os.path.join(save_dir, "metrics.csv"), history)

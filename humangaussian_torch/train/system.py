@@ -30,7 +30,8 @@ split noise; `train_step` updates the parameters and Adam moments in place
 (`train/optim.py`); `train_step(state, inputs)` takes injected cameras,
 pose images, text and timesteps (and the guidance's draws), which is how
 the parity tests feed the JAX draws. The metrics stay tensors on the
-device, so a step forces no host sync beyond the render's binning.
+device, so reading them costs the step no host sync; the syncs a step
+does make are its `hg.read.*` spans (utils/profiling.py).
 `TrainState.tile_cap` is the per-tile pair cap of the training render
 (the JAX step's static `tile_cap`): it starts at `cfg.tile_capacity`, the
 loop's ladder grows it (train/loop.py) and the checkpoint keeps it.
@@ -86,6 +87,7 @@ from humangaussian_torch.train.optim import (
     adam_init,
     adam_step,
 )
+from humangaussian_torch.utils.profiling import trace_annotation
 from humangaussian_torch.utils.schedules import C_schedule
 
 
@@ -250,16 +252,17 @@ class GaussianDreamerSystem:
     def sample_step_inputs(self, state: TrainState) -> StepInputs:
         """Cameras, pose images, timesteps and text of the step, drawn from
         the state's generator."""
-        gen = state.generator
-        cameras = sample_camera_batch(gen, state.step, self.camera_cfg,
-                                      self.device)
-        u = torch.rand(self.camera_cfg.batch_size, generator=gen,
-                       device=gen.device, dtype=torch.float32)
-        text = self.prompt_embeddings.get_text_embeddings(
-            cameras.elevation, cameras.azimuth, cameras.camera_distances)
-        return StepInputs(cameras=cameras, pose=self.pose_images(cameras),
-                          text=text, t=self.timesteps_from_uniform(
-                              u, state.step))
+        with trace_annotation("hg.inputs"):
+            gen = state.generator
+            cameras = sample_camera_batch(gen, state.step, self.camera_cfg,
+                                          self.device)
+            u = torch.rand(self.camera_cfg.batch_size, generator=gen,
+                           device=gen.device, dtype=torch.float32)
+            text = self.prompt_embeddings.get_text_embeddings(
+                cameras.elevation, cameras.azimuth, cameras.camera_distances)
+            return StepInputs(cameras=cameras,
+                              pose=self.pose_images(cameras), text=text,
+                              t=self.timesteps_from_uniform(u, state.step))
 
     # ---- loss --------------------------------------------------------------
     def batch_loss(self, params: dict, offset, scene_template, inputs,
@@ -296,11 +299,12 @@ class GaussianDreamerSystem:
 
         draws = inputs.guidance_draws or {}
         cams = inputs.cameras
-        g_out = self.guidance(
-            inputs.pose, images, depth3, inputs.text, inputs.t, generator,
-            grad_clip_val=C_schedule(cfg.grad_clip, step),
-            elevation=cams.elevation, azimuth=cams.azimuth,
-            camera_distances=cams.camera_distances, **draws)
+        with trace_annotation("hg.guidance"):
+            g_out = self.guidance(
+                inputs.pose, images, depth3, inputs.text, inputs.t,
+                generator, grad_clip_val=C_schedule(cfg.grad_clip, step),
+                elevation=cams.elevation, azimuth=cams.azimuth,
+                camera_distances=cams.camera_distances, **draws)
         loss_sds = g_out["loss_sds"] * (local_b / global_batch)
         loss = loss_sds * C_schedule(cfg.lambda_sds, step)
         loss_sparsity = torch.sqrt(opacity ** 2 + 0.01).mean() / n_shards
@@ -331,7 +335,8 @@ class GaussianDreamerSystem:
         loss, aux = self.batch_loss(leaves, offset, state.scene, inputs,
                                     state.step, state.generator,
                                     state.tile_cap, **shard)
-        grads = torch.autograd.grad(loss, [*leaves.values(), offset])
+        with trace_annotation("hg.backward"):
+            grads = torch.autograd.grad(loss, [*leaves.values(), offset])
         return (loss.detach(), aux, dict(zip(leaves, grads[:-1])),
                 grads[-1])
 
@@ -350,31 +355,32 @@ class GaussianDreamerSystem:
                     means2d_grad):
         """The step after the gradients: the densify statistics, Adam, the
         metrics. Returns (state, metrics)."""
-        cfg = self.cfg
-        scene = state.scene
-        visible = aux["radii"] > 0
-        if cfg.disable_hand_densification:
-            dist = torch.linalg.norm(
-                scene.means[:, None, :] - self.hand_centers[None], dim=-1)
-            visible = visible & ~(dist.amin(dim=-1) < cfg.hand_radius)
-        densify = update_stats(state.densify, means2d_grad, aux["radii"],
-                               visible)
-        new_params, adam = adam_step(scene.params(), param_grads, state.adam,
-                                     self.optim_cfg.group_lrs(state.step),
-                                     self.optim_cfg)
-        scene = scene.replace_params(new_params)
-        metrics = {
-            "loss": loss,
-            "loss_sds": aux["loss_sds"],
-            "loss_sparsity": aux["loss_sparsity"],
-            "loss_opaque": aux["loss_opaque"],
-            "grad_norm": aux["grad_norm"],
-            "overflow": aux["overflow"],
-            "overflow_spill": aux["overflow_spill"],
-            "n_alive": scene.alive.sum(),
-        }
-        return (state._replace(scene=scene, adam=adam, densify=densify,
-                               step=state.step + 1), metrics)
+        with trace_annotation("hg.optim"):
+            cfg = self.cfg
+            scene = state.scene
+            visible = aux["radii"] > 0
+            if cfg.disable_hand_densification:
+                dist = torch.linalg.norm(
+                    scene.means[:, None, :] - self.hand_centers[None], dim=-1)
+                visible = visible & ~(dist.amin(dim=-1) < cfg.hand_radius)
+            densify = update_stats(state.densify, means2d_grad,
+                                   aux["radii"], visible)
+            new_params, adam = adam_step(
+                scene.params(), param_grads, state.adam,
+                self.optim_cfg.group_lrs(state.step), self.optim_cfg)
+            scene = scene.replace_params(new_params)
+            metrics = {
+                "loss": loss,
+                "loss_sds": aux["loss_sds"],
+                "loss_sparsity": aux["loss_sparsity"],
+                "loss_opaque": aux["loss_opaque"],
+                "grad_norm": aux["grad_norm"],
+                "overflow": aux["overflow"],
+                "overflow_spill": aux["overflow_spill"],
+                "n_alive": scene.alive.sum(),
+            }
+            return (state._replace(scene=scene, adam=adam, densify=densify,
+                                   step=state.step + 1), metrics)
 
     # ---- density control (host schedule) --------------------------------
     def should_densify(self, step: int) -> bool:
@@ -425,10 +431,12 @@ class GaussianDreamerSystem:
         info or None). No device read decides it."""
         step = state.step
         if self.should_densify(step):
-            return self.densify_step(
-                state, step > self.cfg.size_threshold_fix_step)
+            with trace_annotation("hg.densify"):
+                return self.densify_step(
+                    state, step > self.cfg.size_threshold_fix_step)
         if self.should_prune_only(step):
-            return self.prune_only_step(state)
+            with trace_annotation("hg.densify"):
+                return self.prune_only_step(state)
         return state, None
 
     @torch.no_grad()

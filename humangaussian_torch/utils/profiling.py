@@ -2,46 +2,66 @@
 
 Port of humangaussian_tpu/utils/profiling.py on torch's tools:
 
-- `trace_annotation(name)`: a `torch.profiler.record_function` range (it
-  shows in a `torch.profiler` trace, host and device), plus an NVTX range
-  when the card is present (Nsight's timeline);
+- `trace_annotation(name)`: a `torch.profiler.record_function` range while
+  a torch profiler runs, else a shared no-op context (one flag read, well
+  under a microsecond). The program's `hg.*` spans are made by it, at each
+  layer boundary of the step and of the animated frame:
+
+  - `hg.step`: one pass of `train/loop.py::run_training`'s loop;
+    `hg.frame`: `apps/animate.py::render_motion_frame`;
+  - under them, spans that never nest in each other on the calling thread:
+    `hg.inputs` (`sample_step_inputs`), `hg.render` (every tiled render,
+    with `hg.render.project`, `hg.render.bin` and `hg.render.composite`
+    inside), `hg.guidance` (with `hg.guidance.encode`, the resizes and the
+    VAE encodes, and `hg.guidance.unet`, the UNet passes and the ANPG
+    gradient), `hg.backward` (`torch.autograd.grad`, with
+    `hg.render.composite_bwd`, K2 + K2b, and the encodes' recompute inside
+    it in time, on autograd's thread on the card), `hg.optim`
+    (`apply_grads`), `hg.densify` (a density-control pass) and
+    `hg.repose` (`AvatarAnimator.frame_scene`);
+  - `hg.read.<site>` around each call of those paths that makes the host
+    wait for the card's stream: the reads to the host (binning's `nonzero`
+    once a camera, `linalg.inv`'s error check, the loop's metrics and
+    density-control counts, density control's masks, the frame's copy)
+    and the copies of host values to the card from pageable memory (the
+    cameras' constants, the pose images' tables, the UNet's time ids,
+    LBS's constant row, the frame's camera and pose), which wait the same
+    way. A layer's count of such spans is its number of host syncs, their
+    duration the host's wait; `scripts/sync_sites.py` holds them to what
+    `torch.cuda.set_sync_debug_mode` reports on the card.
+
+  They land in the same trace as the device's operations, on one clock.
 - `capture_trace(log_dir)`: a `torch.profiler.profile` of the CPU and, on
   the card, CUDA activity, written as a TensorBoard trace
   (`tensorboard_trace_handler`) into `log_dir`, where the JAX package
-  writes an XPlane trace;
+  writes an XPlane trace; the `hg.*` spans of the block show in it;
 - `enable_nan_checks(enable)`: `torch.autograd.set_detect_anomaly`, the
-  reference's --detect_anomaly, for the JAX package's `jax_debug_nans`;
-- `StepTimer`: per-phase host wall-clock totals; `time(name, sync=t)`
-  waits for the device of tensor `t` (`torch.cuda.synchronize` on the
-  card) before it stops the clock, as the JAX timer blocks on its array.
+  reference's --detect_anomaly, for the JAX package's `jax_debug_nans`.
 """
 from __future__ import annotations
 
 import contextlib
-import time
 
 import torch
+import torch.autograd.profiler
+
+_OFF = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
 def trace_annotation(name: str):
-    """Named region in the profiler timeline (host and device)."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+    """Named range in the profiler timeline (host, and the device
+    operations launched inside it) while a torch profiler runs; a shared
+    no-op context otherwise."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
 def capture_trace(log_dir: str):
-    """Profile everything inside the context; `tensorboard --logdir
-    <log_dir>` (with the torch-tb-profiler plugin) renders the timeline.
-    Yields the profiler."""
+    """Profile everything inside the context, the `hg.*` spans included;
+    `tensorboard --logdir <log_dir>` (with the torch-tb-profiler plugin)
+    renders the timeline. Yields the profiler."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -56,44 +76,3 @@ def enable_nan_checks(enable: bool = True):
     """Fail fast on NaNs produced in a backward (autograd's anomaly
     mode)."""
     torch.autograd.set_detect_anomaly(enable)
-
-
-def _synchronize(tensor) -> None:
-    if isinstance(tensor, torch.Tensor) and tensor.device.type == "cuda":
-        torch.cuda.synchronize(tensor.device)
-
-
-class StepTimer:
-    """Rolling wall-clock stats for the host loop (per-phase totals)."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def time(self, name: str, sync=None):
-        """Time the body; `sync` (a tensor, or a list or dict of them) is
-        waited for before the clock stops."""
-        t0 = time.perf_counter()
-        yield
-        if sync is not None:
-            items = (sync.values() if isinstance(sync, dict)
-                     else sync if isinstance(sync, (list, tuple))
-                     else [sync])
-            for t in items:
-                _synchronize(t)
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self) -> dict:
-        return {
-            name: {
-                "total_s": round(self.totals[name], 4),
-                "mean_ms": round(
-                    1e3 * self.totals[name] / max(self.counts[name], 1), 3
-                ),
-                "count": self.counts[name],
-            }
-            for name in self.totals
-        }

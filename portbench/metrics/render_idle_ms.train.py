@@ -1,0 +1,8 @@
+"""Device-idle ms a step while the host was inside `hg.render` (the
+step's render: projection, binning, K1): the traced window's idle time
+inside those spans' host intervals (`_hg_spans.idle_split`)."""
+from portbench.metrics._hg_spans import TRAIN_LAYERS, TRAIN_UNIT, idle_ms
+
+
+def read(ctx):
+    return idle_ms(ctx, TRAIN_UNIT, TRAIN_LAYERS, "hg.render")

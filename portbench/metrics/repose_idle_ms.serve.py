@@ -1,0 +1,8 @@
+"""Device-idle ms a frame while the host was inside `hg.repose`
+(`AvatarAnimator.frame_scene`: LBS and the re-pose): the traced window's
+idle time inside those spans' host intervals (`_hg_spans.idle_split`)."""
+from portbench.metrics._hg_spans import SERVE_LAYERS, SERVE_UNIT, idle_ms
+
+
+def read(ctx):
+    return idle_ms(ctx, SERVE_UNIT, SERVE_LAYERS, "hg.repose")

@@ -1,5 +1,5 @@
-"""The port's utils/profiling.py (torch.profiler, NVTX, anomaly mode)
-beside the JAX package's (jax.profiler, debug_nans)."""
+"""The port's utils/profiling.py (torch.profiler traces, anomaly mode);
+its `hg.*` spans in the step and the frame are in test_torch_tracing.py."""
 import glob
 import os
 
@@ -7,27 +7,6 @@ import pytest
 import torch
 
 from humangaussian_torch.utils import profiling
-from humangaussian_tpu.utils import profiling as jax_profiling
-
-
-def test_step_timer_summary_has_the_jax_timers_shape():
-    got, want = profiling.StepTimer(), jax_profiling.StepTimer()
-    x = torch.ones(3)
-    for _ in range(3):
-        with got.time("render", sync=x):
-            x = x * 2
-        with want.time("render"):
-            pass
-    with got.time("adam", sync={"a": x, "b": [x]}):
-        pass
-    with want.time("adam"):
-        pass
-    g, w = got.summary(), want.summary()
-    assert set(g) == set(w) == {"render", "adam"}
-    for name in g:
-        assert set(g[name]) == set(w[name]) == {"total_s", "mean_ms", "count"}
-        assert g[name]["count"] == w[name]["count"]
-        assert g[name]["total_s"] >= 0.0
 
 
 def test_capture_trace_writes_a_tensorboard_trace_with_the_annotation(
