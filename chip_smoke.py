@@ -82,6 +82,10 @@ source, started together), writes the assets, then:
    writes dx once) and, as the library yardstick, `F.group_norm` +
    `F.silu` and its autograd backward (on the same channels_last tensors,
    and the backward also on contiguous channels-first copies);
+   9c holds the conv bias kernel (csrc/conv_bias.cu) bit for bit against
+   aten's `add_` at the VAE encoder's output sizes, on the decoder's
+   3-channel output and in float32, and times both beside the bound by
+   bytes, each call on a tensor out of L2;
 10. holds K4 (csrc/attention_fwd.cu) against its plain version at the
    UNet's self-attention shapes ((120, 4096, 64), (240, 1024, 64),
    (480, 256, 64) as (batch x heads, tokens, head dim), bfloat16) and at
@@ -113,8 +117,9 @@ source, started together), writes the assets, then:
    K3 + K3a once per norm of one UNet forward (77) and of five VAE
    encoder passes (rgb, depth, pose, and the rgb and depth encoders
    recomputed in the backward under `remat_encode`: 5 x 22), K5 and K5a
-   once per norm of the two differentiated encoders (2 x 22)); ms per
-   `train_step` over STEP_REPS steps after 2 warm-up steps (median, min,
+   once per norm of the two differentiated encoders (2 x 22), the conv
+   bias kernel once per convolution of the five encoder passes (5 x 28));
+   ms per `train_step` over STEP_REPS steps after 2 warm-up steps (median, min,
    max, CUDA events); the step staged by CUDA events recorded from the
    system's and the guidance's own methods, wrapped on the instances
    (inputs, render, three encodes, `compute_grad`, loss + backward, Adam +
@@ -973,6 +978,11 @@ GN_GROUPS = {48: 8}  # 32 groups everywhere at full width
 GN_STATS_TOL = 1e-5  # of the f64 sum of magnitudes per (sample, channel)
 GN_BAD_FRACTION = 1e-4  # of the outputs may miss plain by more than a ulp
 GN_F32_TOL = 1e-5  # of max |y|: the fused op vs plain in float32
+# the VAE encoder's convolution outputs at batch 8 and 512^2 images, bf16
+# channels_last: 512^2 x 128, 256^2 x 256, 128^2 x 512, 64^2 x 512 and
+# quant_conv's 64^2 x 8 (phase 9c)
+CONV_BIAS_SHAPES = ((8, 128, 512, 512), (8, 256, 256, 256),
+                    (8, 512, 128, 128), (8, 512, 64, 64), (8, 8, 64, 64))
 # (batch, tokens, heads) of the UNet's self-attention sites at batch 24
 ATTN_SHAPES = ((24, 4096, 5), (24, 1024, 10), (24, 256, 20))
 ATTN_TOL = 2.0 ** -7  # K4 vs plain, of max |out|: one bf16 ulp of the peak
@@ -998,28 +1008,49 @@ def norms_in(module) -> int:
     return sum(isinstance(m, GroupNormAct) for m in module.modules())
 
 
+def convs_in(module) -> int:
+    """The VAE's convolutions (`BiasConv2d`) in a module tree: each launches
+    the conv bias kernel (`conv_bias_add`) once a forward on the card."""
+    from humangaussian_torch.guidance.vae import BiasConv2d
+
+    return sum(isinstance(m, BiasConv2d) for m in module.modules())
+
+
+def encode_convs(vae) -> int:
+    """Convolutions of one VAE encode: the encoder's and quant_conv."""
+    return convs_in(vae.encoder) + convs_in(vae.quant_conv)
+
+
+def decode_convs(vae) -> int:
+    """Convolutions of one VAE decode: post_quant_conv and the decoder's."""
+    return convs_in(vae.post_quant_conv) + convs_in(vae.decoder)
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Inside, the GroupNorm and attention wrappers take their plain
-    versions whatever the device: the reference side of a comparison. Only
-    the comparisons use it; the paths never do."""
-    from humangaussian_torch.ops import attention, groupnorm
+    """Inside, the GroupNorm, attention and conv bias wrappers take their
+    plain versions whatever the device: the reference side of a comparison.
+    Only the comparisons use it; the paths never do."""
+    from humangaussian_torch.ops import attention, conv_bias, groupnorm
 
     saved = (groupnorm.group_norm_fwd, groupnorm.group_norm_stats,
              groupnorm.group_norm_apply, groupnorm.group_norm_bwd_stats,
-             groupnorm.group_norm_bwd_dx, attention._attention_forward)
+             groupnorm.group_norm_bwd_dx, attention._attention_forward,
+             conv_bias.conv_bias_add)
     groupnorm.group_norm_fwd = groupnorm.group_norm_fwd_plain
     groupnorm.group_norm_stats = groupnorm.group_norm_stats_plain
     groupnorm.group_norm_apply = groupnorm.group_norm_apply_plain
     groupnorm.group_norm_bwd_stats = groupnorm.group_norm_bwd_stats_plain
     groupnorm.group_norm_bwd_dx = groupnorm.group_norm_bwd_dx_plain
     attention._attention_forward = attention.self_attention_plain
+    conv_bias.conv_bias_add = conv_bias.conv_bias_add_plain
     try:
         yield
     finally:
         (groupnorm.group_norm_fwd, groupnorm.group_norm_stats,
          groupnorm.group_norm_apply, groupnorm.group_norm_bwd_stats,
-         groupnorm.group_norm_bwd_dx, attention._attention_forward) = saved
+         groupnorm.group_norm_bwd_dx, attention._attention_forward,
+         conv_bias.conv_bias_add) = saved
 
 
 def bf16_ulp(x):
@@ -1561,6 +1592,81 @@ def attention_phase(dev) -> dict:
     }}
 
 
+def conv_bias_phase(dev) -> dict:
+    """Phase 9c: the conv bias kernel bit for bit against aten's `add_`
+    (its plain version and the path it replaces) at the VAE encoder's
+    output sizes, and on the decoder's 3-channel output (the scalar path)
+    and a float32 contiguous tensor; times with each call on a tensor out
+    of L2, and the bound by bytes."""
+    from humangaussian_torch import kernels
+    from humangaussian_torch.ops.conv_bias import (
+        conv_bias_add,
+        conv_bias_add_plain,
+    )
+
+    print("phase 9c: the conv bias kernel against aten's add_ (bit for "
+          "bit; each timed call on a tensor out of L2)")
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def inputs(shape, dtype, layout):
+        y = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        bias = torch.randn(shape[1], generator=gen, device=dev, dtype=dtype)
+        return y.contiguous(memory_format=layout), bias
+
+    for shape, dtype, layout in (
+            ((8, 3, 512, 512), torch.bfloat16, torch.channels_last),
+            ((2, 256, 64, 64), torch.float32, torch.contiguous_format)):
+        y, bias = inputs(shape, dtype, layout)
+        check(torch.equal(conv_bias_add(y.clone(), bias),
+                          conv_bias_add_plain(y.clone(), bias)),
+              f"conv bias {shape} {dtype} differs from aten's add_")
+    by_shape = {}
+    for shape in CONV_BIAS_SHAPES:
+        y, bias = inputs(shape, torch.bfloat16, torch.channels_last)
+        check(torch.equal(conv_bias_add(y.clone(), bias),
+                          conv_bias_add_plain(y.clone(), bias)),
+              f"conv bias {shape} differs from aten's add_")
+        size = y.numel() * y.element_size()
+        ys = [y] + [y.clone() for _ in range(-(-200_000_000 // size) - 1)]
+        turn = [0]
+
+        def next_y():
+            turn[0] = (turn[0] + 1) % len(ys)
+            return ys[turn[0]]
+
+        inner = max(4, len(ys))
+        ms = cuda_ms(lambda: conv_bias_add(next_y(), bias), 5, inner=inner)
+        plain_ms = cuda_ms(lambda: conv_bias_add_plain(next_y(), bias), 5,
+                           inner=inner)
+        bound = 2 * size / H100_BYTES_PER_S * 1e3
+        print(f"  {list(shape)} bfloat16: kernel {ms:.4f} ms "
+              f"({100 * bound / ms:.1f}% of the bound {bound:.5f} ms by "
+              f"bytes), aten add_ {plain_ms:.4f} ms")
+        by_shape[str(list(shape))] = {"ms": ms, "plain_ms": plain_ms,
+                                      "bound_ms": bound}
+        del y, ys
+    torch.cuda.empty_cache()
+    first = by_shape[str(list(CONV_BIAS_SHAPES[0]))]
+    return {kernels.CONV_BIAS_ADD.name: {
+        "name": kernels.CONV_BIAS_ADD.name,
+        "route": "cuda",
+        "source": "humangaussian_torch/csrc/conv_bias.cu",
+        "replaces": "none (the JAX package's XLA convolutions fuse their "
+                    "bias)",
+        "launches": 0,
+        "max_abs_err": 0.0,
+        "ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": first["plain_ms"],
+        "library_call": "aten add_ of bias.view(1, C, 1, 1), the plain "
+                        "version",
+        "shape": str(list(CONV_BIAS_SHAPES[0])),
+        "by_shape": by_shape,
+    }}
+
+
 def seeded_state_dict(module_fn, seed, dev):
     """The bfloat16 state dict of a module built on the card from a seed
     (torch's default initializers)."""
@@ -1700,7 +1806,7 @@ def launches(**counts) -> dict:
     out = dict.fromkeys(("rasterize_fwd", "rasterize_bwd",
                          "rasterize_bwd_rows", "groupnorm_fwd",
                          "groupnorm_bwd_stats", "groupnorm_bwd_dx",
-                         "attention_fwd"), 0)
+                         "attention_fwd", "conv_bias_add"), 0)
     out.update(counts)
     return out
 
@@ -1717,7 +1823,8 @@ def dual_branch_step_launches(guidance) -> dict:
                     groupnorm_fwd=forward,
                     groupnorm_bwd_stats=2 * enc_norms,
                     groupnorm_bwd_dx=2 * enc_norms,
-                    attention_fwd=ATTN_PER_UNET_FORWARD)
+                    attention_fwd=ATTN_PER_UNET_FORWARD,
+                    conv_bias_add=passes * encode_convs(guidance.vae))
 
 
 def flash_sites(unet, latent: int) -> int:
@@ -2231,7 +2338,9 @@ def sample_phase(dev, system):
     forward = (4 * norms_in(guidance.unet) + norms_in(guidance.vae.encoder)
                + 2 * norms_in(guidance.vae.decoder))
     want = launches(groupnorm_fwd=forward,
-                    attention_fwd=4 * ATTN_PER_UNET_FORWARD)
+                    attention_fwd=4 * ATTN_PER_UNET_FORWARD,
+                    conv_bias_add=encode_convs(guidance.vae)
+                    + 2 * decode_convs(guidance.vae))
     check(counts == want, f"sample_joint launches {counts}, want {want}")
 
 
@@ -2357,6 +2466,9 @@ def unet_backward_phase(dev, unet) -> dict:
     check(all(vae_counts[k] == enc for k in (
         "groupnorm_fwd", "groupnorm_bwd_stats", "groupnorm_bwd_dx")),
         f"VAE launches {vae_counts}, want {enc} each")
+    check(vae_counts["conv_bias_add"] == encode_convs(vae),
+          f"VAE conv bias launches {vae_counts['conv_bias_add']}, want "
+          f"{encode_convs(vae)}")
     return counts
 
 
@@ -2408,7 +2520,9 @@ def sjc_snapshot_phase(dev, system, tmp):
                   + 3 * norms_in(g.vae.encoder)
                   + 4 * norms_in(g.vae.decoder))
     want = launches(rasterize_fwd=1, groupnorm_fwd=norm_count,
-                    attention_fwd=forwards * ATTN_PER_UNET_FORWARD)
+                    attention_fwd=forwards * ATTN_PER_UNET_FORWARD,
+                    conv_bias_add=3 * encode_convs(g.vae)
+                    + 4 * decode_convs(g.vae))
     print(f"  guidance_eval_snapshot: {start.elapsed_time(end):.3f} ms; "
           f"launches {counts}")
     check(counts == want, f"snapshot launches {counts}, want {want}")
@@ -2716,7 +2830,9 @@ def sample_cli_phase(dev, tmp, overrides) -> dict:
     norm_count = (SAMPLE_CLI_STEPS * norms_in(g.unet)
                   + norms_in(g.vae.encoder) + 2 * norms_in(g.vae.decoder))
     want = launches(groupnorm_fwd=norm_count,
-                    attention_fwd=SAMPLE_CLI_STEPS * ATTN_PER_UNET_FORWARD)
+                    attention_fwd=SAMPLE_CLI_STEPS * ATTN_PER_UNET_FORWARD,
+                    conv_bias_add=encode_convs(g.vae)
+                    + 2 * decode_convs(g.vae))
     per_step = seen["ms"] / SAMPLE_CLI_STEPS
     print(f"  sample_joint {seen['ms']:.3f} ms ({per_step:.3f} ms a "
           f"step), the CLI {wall:.1f} s with "
@@ -2769,7 +2885,8 @@ def sd_guidance_phase(dev):
     sites = flash_sites(unet, g.cfg.latent_size)
     forward = 2 * enc_norms + norms_in(unet)  # encode, its recomputation
     want = launches(groupnorm_fwd=forward, groupnorm_bwd_stats=enc_norms,
-                    groupnorm_bwd_dx=enc_norms, attention_fwd=sites)
+                    groupnorm_bwd_dx=enc_norms, attention_fwd=sites,
+                    conv_bias_add=2 * encode_convs(vae))
     for perp_neg in (False, True):
         g.cfg = dataclasses.replace(g.cfg, use_perp_neg=perp_neg)
         x = rgb.clone().requires_grad_(True)
@@ -2888,6 +3005,7 @@ def run(dev, only=()) -> int:
     torch.cuda.empty_cache()
     if want("norm"):
         rows.update(norm_phase(dev))
+        rows.update(conv_bias_phase(dev))
     if want("attention"):
         rows.update(attention_phase(dev))
     avatar_groups = ("guidance", "sample", "controlnet", "dist")
@@ -4112,14 +4230,16 @@ def sd_step_launches(guidance, steps: int = 1) -> dict:
     """The launches of `steps` SD-guidance steps through the differentiated
     encode, from the module trees: one UNet forward and two encoder passes
     (the encode and its recomputation under checkpoint) for K3 + K3a, one
-    encoder backward for K5 / K5a, K4 at every gated UNet site."""
+    encoder backward for K5 / K5a, K4 at every gated UNet site, the conv
+    bias kernel at every convolution of the two encodes."""
     enc = norms_in(guidance.vae.encoder)
     fwd = norms_in(guidance.unet) + 2 * enc
     return launches(
         groupnorm_fwd=steps * fwd,
         groupnorm_bwd_stats=steps * enc, groupnorm_bwd_dx=steps * enc,
         attention_fwd=steps * flash_sites(guidance.unet,
-                                          guidance.cfg.latent_size))
+                                          guidance.cfg.latent_size),
+        conv_bias_add=steps * 2 * encode_convs(guidance.vae))
 
 
 def run_dreamfusion_cli(args) -> tuple:
@@ -4681,7 +4801,8 @@ def controlnet_phase(dev, tmp, system, smplx_path) -> dict:
     check(sum(norms) == CN_NORMS, f"norms {norms}, want 61 + 27 + 22")
     want = launches(rasterize_fwd=1, rasterize_bwd=1, rasterize_bwd_rows=1,
                     groupnorm_fwd=sum(norms),
-                    groupnorm_bwd_stats=norms[2], groupnorm_bwd_dx=norms[2])
+                    groupnorm_bwd_stats=norms[2], groupnorm_bwd_dx=norms[2],
+                    conv_bias_add=encode_convs(vae))
     state = system.init_state(0)
     inputs = system.sample_step_inputs(state)
     cams = inputs.cameras

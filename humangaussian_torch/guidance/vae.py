@@ -34,6 +34,12 @@ puts the weights in `channels_last` too. The computation runs in the dtype
 of the weights (bfloat16 under `half_precision_weights`; the norms'
 parameters stay float32 under `cast_weights`), outputs are float32.
 
+Convolutions: every one is a `BiasConv2d`, an `nn.Conv2d` with the same
+parameters. On a CUDA tensor it runs the convolution without its bias and
+adds the bias with the port's kernel (ops/conv_bias.py), bit for bit the
+library's add at close to the card's bandwidth; on a CPU tensor it is
+`nn.Conv2d.forward`.
+
 With rows split across blocks, K3's and K5's f32 atomics add in no fixed
 order, so the encoder's forward recomputed under `torch.utils.checkpoint`
 (the guidance's `remat_encode`) may differ from the first forward in the
@@ -49,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from humangaussian_torch.ops import conv_bias
 from humangaussian_torch.ops.groupnorm import GroupNormAct
 
 
@@ -71,15 +78,34 @@ def tiny_vae_config() -> VAEConfig:
     )
 
 
+class BiasConv2d(nn.Conv2d):
+    """`nn.Conv2d` whose bias, on a CUDA tensor, is added by the conv bias
+    kernel after the convolution. The kernel adds outside autograd, which
+    leaves the input's and the weight's gradients exact (d(y + b)/dy is the
+    identity, and the convolution saves no output) but gives the bias none,
+    so a bias that requires grad raises while grad is enabled: the guidance
+    freezes its VAE."""
+
+    def forward(self, x):
+        if x.is_cpu:
+            return super().forward(x)
+        if self.bias.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(
+                "BiasConv2d adds its bias outside autograd on the card; "
+                "freeze the VAE (requires_grad_(False)) or disable grad")
+        y = self._conv_forward(x, self.weight, None)
+        return conv_bias.conv_bias_add(y, self.bias)
+
+
 class ResnetBlock(nn.Module):
     def __init__(self, in_ch, out_ch, groups):
         super().__init__()
         self.norm1 = GroupNormAct(groups, in_ch, eps=1e-6, silu=True)
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv1 = BiasConv2d(in_ch, out_ch, 3, padding=1)
         self.norm2 = GroupNormAct(groups, out_ch, eps=1e-6, silu=True)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv2 = BiasConv2d(out_ch, out_ch, 3, padding=1)
         self.conv_shortcut = (
-            nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
+            BiasConv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
         )
 
     def forward(self, x):
@@ -118,7 +144,7 @@ class _Resample(nn.Module):
 
     def __init__(self, ch, stride, padding):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, stride=stride, padding=padding)
+        self.conv = BiasConv2d(ch, ch, 3, stride=stride, padding=padding)
 
 
 class _Down(nn.Module):
@@ -181,7 +207,7 @@ class Encoder(nn.Module):
         super().__init__()
         chs = list(cfg.block_out_channels)
         g = cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+        self.conv_in = BiasConv2d(cfg.in_channels, chs[0], 3, padding=1)
         self.down_blocks = nn.ModuleList(
             [_Down(chs[max(i - 1, 0)], ch, cfg.layers_per_block, g,
                    add_downsample=i < len(chs) - 1)
@@ -189,7 +215,7 @@ class Encoder(nn.Module):
         )
         self.mid_block = _Mid(chs[-1], g)
         self.conv_norm_out = GroupNormAct(g, chs[-1], eps=1e-6, silu=True)
-        self.conv_out = nn.Conv2d(chs[-1], 2 * cfg.latent_channels, 3,
+        self.conv_out = BiasConv2d(chs[-1], 2 * cfg.latent_channels, 3,
                                   padding=1)
 
     def forward(self, x):
@@ -205,7 +231,7 @@ class Decoder(nn.Module):
         super().__init__()
         rev = list(reversed(cfg.block_out_channels))
         g = cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
+        self.conv_in = BiasConv2d(cfg.latent_channels, rev[0], 3, padding=1)
         self.mid_block = _Mid(rev[0], g)
         self.up_blocks = nn.ModuleList(
             [_Up(rev[max(i - 1, 0)], ch, cfg.layers_per_block + 1, g,
@@ -213,7 +239,7 @@ class Decoder(nn.Module):
              for i, ch in enumerate(rev)]
         )
         self.conv_norm_out = GroupNormAct(g, rev[-1], eps=1e-6, silu=True)
-        self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
+        self.conv_out = BiasConv2d(rev[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z):
         h = self.mid_block(self.conv_in(z))
@@ -230,9 +256,9 @@ class AutoencoderKL(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels,
+        self.quant_conv = BiasConv2d(2 * cfg.latent_channels,
                                     2 * cfg.latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(cfg.latent_channels,
+        self.post_quant_conv = BiasConv2d(cfg.latent_channels,
                                          cfg.latent_channels, 1)
         self.to(cfg.dtype)
 

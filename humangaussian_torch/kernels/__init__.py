@@ -162,8 +162,15 @@ ATTENTION_FWD = Kernel(
     [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 )
 
+CONV_BIAS_ADD = Kernel(
+    "conv_bias_add", "conv_bias.cu", "hg_conv_bias_add",
+    # y, bias, numel, channels, inner, is_bf16, device, stream
+    [_P, _P, _LL, _I, _LL, _I, _I, _P],
+)
+
 KERNELS = (RASTERIZE_FWD, RASTERIZE_BWD, RASTERIZE_BWD_ROWS, GROUPNORM_FWD,
-           GROUPNORM_BWD_STATS, GROUPNORM_BWD_DX, ATTENTION_FWD)
+           GROUPNORM_BWD_STATS, GROUPNORM_BWD_DX, ATTENTION_FWD,
+           CONV_BIAS_ADD)
 
 
 def build_all() -> None:

@@ -41,7 +41,7 @@ from humangaussian_torch.ops.rasterize_tiled import (
     feature_row_grads_plain,
     pair_routing,
 )
-from humangaussian_torch.ops import attention, groupnorm
+from humangaussian_torch.ops import attention, conv_bias, groupnorm
 from port_parity_torch import (
     long_row_routing,
     projected_composite_args,
@@ -72,7 +72,7 @@ def test_port_imports_no_jax():
         "assert len(names) >= 48, names\n"
         "for n in ('train.photo', 'train.optim', 'densify', 'losses', "
         "'config', 'ops.knn', 'data.photo', 'apps.launch', 'ops.groupnorm', "
-        "'ops.attention', 'utils.schedules', 'guidance.schedule', "
+        "'ops.attention', 'ops.conv_bias', 'utils.schedules', 'guidance.schedule', "
         "'guidance.vae', 'guidance.unet', 'guidance.prompt', "
         "'guidance.dual_branch', 'guidance.controlnet', 'nerf.gan', "
         "'nerf.explicit', 'registry', 'train.adan', 'train.optimizers', "
@@ -197,6 +197,11 @@ def test_guidance_wrappers_take_plain_on_the_cpu_and_do_not_count():
                                          True))
     assert torch.equal(attention.self_attention(q, k, v),
                        attention.self_attention_plain(q, k, v, 0.25))
+    y = torch.randn(2, 16, 5, 3).contiguous(memory_format=torch.channels_last)
+    bias = torch.randn(16)
+    want = conv_bias.conv_bias_add_plain(y.clone(), bias)
+    assert torch.equal(conv_bias.conv_bias_add(y, bias), want)
+    assert torch.equal(y, want)  # in place
     assert set(kernels.launch_counts().values()) == {0}
     y, fsums = groupnorm.group_norm_fwd(x3, gamma, beta, 8, 1e-5, True)
     want_y, want_sums = groupnorm.group_norm_fwd_plain(x3, gamma, beta, 8,
@@ -206,7 +211,8 @@ def test_guidance_wrappers_take_plain_on_the_cpu_and_do_not_count():
     assert set(kernels.launch_counts()) == {
         "rasterize_fwd", "rasterize_bwd", "rasterize_bwd_rows",
         "groupnorm_fwd",
-        "groupnorm_bwd_stats", "groupnorm_bwd_dx", "attention_fwd"}
+        "groupnorm_bwd_stats", "groupnorm_bwd_dx", "attention_fwd",
+        "conv_bias_add"}
 
 
 def test_group_norm_bwd_dx_takes_plain_on_the_cpu_and_does_not_count():
@@ -274,6 +280,48 @@ def test_guidance_wrappers_never_fall_back_off_the_cpu():
         attention.self_attention(q, k, v)
 
 
+def _conv_output(device, dtype, c=16, layout="channels_last", b=2, h=6, w=5):
+    gen = torch.Generator().manual_seed(c + h)
+    y = torch.randn((b, c, h, w), generator=gen).to(device, dtype)
+    bias = torch.randn((c,), generator=gen).to(device, dtype)
+    if layout == "channels_last":
+        y = y.contiguous(memory_format=torch.channels_last)
+    return y, bias
+
+
+@pytest.mark.parametrize("bad", ["float64", "bias_dtype", "strided",
+                                 "bias_len", "dims", "device"])
+def test_conv_bias_add_rejects_what_the_kernel_does_not_take(bad):
+    """Off the CPU the wrapper launches the kernel or raises, and it checks
+    the arguments before the device: the meta device has no kernel."""
+    y, bias = _conv_output("meta", torch.bfloat16)
+    err, match = ValueError, "conv bias kernel"
+    if bad == "float64":
+        y, bias, err = y.double(), bias.double(), TypeError
+    elif bad == "bias_dtype":
+        bias, err = bias.float(), TypeError
+    elif bad == "strided":
+        y = y[:, :, ::2]
+    elif bad == "bias_len":
+        bias = bias[:-1]
+    elif bad == "dims":
+        y = y[0]
+    else:
+        match = "no conv bias kernel for device meta"
+    with pytest.raises(err, match=match):
+        conv_bias.conv_bias_add(y, bias)
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+def test_conv_bias_add_on_the_cpu_is_the_library_add(layout):
+    y, bias = _conv_output("cpu", torch.float32, layout=layout)
+    want = y + bias.view(1, -1, 1, 1)
+    kernels.reset_launch_counts()
+    assert conv_bias.conv_bias_add(y, bias) is y
+    assert torch.equal(y, want)
+    assert kernels.launch_counts()["conv_bias_add"] == 0
+
+
 @pytest.mark.parametrize("kernel,stem", [
     (kernels.RASTERIZE_FWD, "rasterize_fwd"),
     (kernels.RASTERIZE_BWD, "rasterize_bwd"),
@@ -281,6 +329,7 @@ def test_guidance_wrappers_never_fall_back_off_the_cpu():
     (kernels.GROUPNORM_BWD_STATS, "groupnorm_stats"),
     (kernels.GROUPNORM_BWD_DX, "groupnorm_bwd_dx"),
     (kernels.ATTENTION_FWD, "attention_fwd"),
+    (kernels.CONV_BIAS_ADD, "conv_bias"),
 ])
 def test_kernel_build_naming(kernel, stem):
     lib = kernel.library_path()
@@ -825,3 +874,134 @@ def test_resize_on_the_card_matches_the_cpu(cuda_device, b, n, m):
     assert float((y.cpu() - y_cpu).abs().max()) <= 1e-6
     assert float((dx.cpu() - dx_cpu).abs().max()) <= 1e-6 * float(
         dx_cpu.abs().max())
+
+
+CONV_BIAS_SHAPES = [  # (C, H, W): the encoder's widths at B = 1, and
+    (128, 64, 64), (256, 64, 64), (512, 64, 64),  # quant_conv's 8,
+    (8, 64, 64), (3, 64, 64), (320, 16, 24),  # conv_out's 3, and a C that
+]                                             # does not divide 256 vectors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w", CONV_BIAS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous"])
+def test_conv_bias_kernel_matches_plain_bit_for_bit(cuda_device, c, h, w,
+                                                    dtype, layout):
+    y, bias = _conv_output(cuda_device, dtype, c, layout, b=1, h=h, w=w)
+    want = conv_bias.conv_bias_add_plain(y.clone(), bias)
+    kernels.reset_launch_counts()
+    got = conv_bias.conv_bias_add(y, bias)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["conv_bias_add"] == 1
+    assert got is y and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_bias_kernel_off_16_bytes_matches_plain(cuda_device, dtype):
+    """A y whose pointer is off 16 bytes takes the scalar path."""
+    y0, bias = _conv_output(cuda_device, dtype, 64, b=2, h=9, w=7)
+    flat = torch.empty(y0.numel() + 1, device=cuda_device, dtype=dtype)
+    y = flat[1:].view(2, 9, 7, 64).permute(0, 3, 1, 2)
+    y.copy_(y0)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert y.data_ptr() % 16
+    want = conv_bias.conv_bias_add_plain(y0, bias)
+    conv_bias.conv_bias_add(y, bias)
+    assert torch.equal(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["float16", "float64", "bias_dtype",
+                                 "strided"])
+def test_conv_bias_kernel_rejects_what_it_does_not_take(cuda_device, bad):
+    y, bias = _conv_output(cuda_device, torch.bfloat16)
+    if bad in ("float16", "float64"):
+        y, bias = y.to(getattr(torch, bad)), bias.to(getattr(torch, bad))
+    elif bad == "bias_dtype":
+        bias = bias.float()
+    else:
+        y = y.permute(0, 1, 3, 2)
+    kernels.reset_launch_counts()
+    with pytest.raises((TypeError, ValueError)):
+        conv_bias.conv_bias_add(y, bias)
+    assert kernels.launch_counts()["conv_bias_add"] == 0
+
+
+def _tiny_vae(device, dtype):
+    import dataclasses
+
+    from humangaussian_torch.guidance import vae as port_vae
+
+    torch.manual_seed(3)
+    vae = port_vae.AutoencoderKL(dataclasses.replace(
+        port_vae.tiny_vae_config(), dtype=dtype))
+    with torch.no_grad():  # nonzero biases, so a dropped add would show
+        for m in vae.modules():
+            if isinstance(m, port_vae.BiasConv2d):
+                m.bias.normal_()
+    vae.to(device, memory_format=torch.channels_last)
+    return vae.requires_grad_(False), port_vae
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vae_on_the_card_matches_the_library_bias_add(cuda_device, dtype,
+                                                      monkeypatch):
+    """A tiny VAE's encode, its input gradient and a decode with the bias
+    kernel equal, bit for bit, the same module with every convolution's
+    forward patched to F.conv2d with its bias; the kernel launches once a
+    convolution run (none in the backward)."""
+    import torch.nn.functional as F
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    vae, port_vae = _tiny_vae(cuda_device, dtype)
+    gen = torch.Generator().manual_seed(4)
+    img = (torch.rand((2, 16, 16, 3), generator=gen) * 2 - 1).to(cuda_device)
+    cot = torch.randn((2, 8, 8, 8), generator=gen).to(cuda_device)
+    z = torch.randn((2, 8, 8, 4), generator=gen).to(cuda_device)
+
+    def run():
+        x = img.clone().requires_grad_(True)
+        mean, logvar = vae.encode(x)
+        (torch.cat([mean, logvar], -1) * cot).sum().backward()
+        with torch.no_grad():
+            return mean, logvar, x.grad, vae.decode(z)
+
+    convs = [m for m in vae.modules() if isinstance(m, port_vae.BiasConv2d)]
+    n_encode = sum(isinstance(m, port_vae.BiasConv2d)
+                   for m in vae.encoder.modules()) + 1  # quant_conv
+    kernels.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["conv_bias_add"] == len(convs)
+    assert len(convs) == n_encode + sum(
+        isinstance(m, port_vae.BiasConv2d)
+        for m in vae.decoder.modules()) + 1  # post_quant_conv
+    for m in convs:
+        monkeypatch.setattr(m, "forward", lambda x, m=m: F.conv2d(
+            x, m.weight, m.bias, m.stride, m.padding, m.dilation, m.groups))
+    want = run()
+    for a, b, what in zip(got, want, ("mean", "logvar", "d / d image",
+                                      "decode")):
+        assert torch.isfinite(a).all(), what
+        assert torch.equal(a, b), what
+
+
+@pytest.mark.cuda
+def test_vae_convolution_with_a_bias_that_requires_grad_raises(cuda_device):
+    """The kernel gives the bias no gradient, so a trainable bias raises
+    with grad enabled; frozen or under no_grad it runs."""
+    vae, _ = _tiny_vae(cuda_device, torch.float32)
+    conv = vae.encoder.conv_in
+    x = torch.rand((1, 3, 8, 8), device=cuda_device).contiguous(
+        memory_format=torch.channels_last)
+    conv.bias.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="outside autograd"):
+        conv(x)
+    with torch.no_grad():
+        y = conv(x)
+    conv.bias.requires_grad_(False)
+    assert torch.equal(conv(x), y)

@@ -105,6 +105,51 @@ def test_norms_are_group_norm_act_and_convolutions_see_channels_last():
     assert len(seen) == convs and all(seen)
 
 
+@pytest.mark.parametrize("bias_grad", [False, True])
+def test_convolutions_on_the_cpu_are_nn_conv2d_and_launch_nothing(bias_grad):
+    """Every convolution of the VAE is a BiasConv2d, and on CPU tensors it
+    is nn.Conv2d.forward bit for bit, its bias gradient too where the bias
+    requires one, with no kernel launched."""
+    from humangaussian_torch import kernels
+
+    vae = port_vae.AutoencoderKL(port_vae.tiny_vae_config())
+    vae.to(memory_format=torch.channels_last)
+    convs = [m for m in vae.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert all(type(m) is port_vae.BiasConv2d for m in convs)
+    assert len(convs) == 13 + 17  # encoder + quant_conv, decoder + post
+    vae.requires_grad_(False)
+    gen = torch.Generator().manual_seed(5)
+    kernels.reset_launch_counts()
+    for m in convs:
+        m.bias.requires_grad_(bias_grad)
+        x = torch.randn((2, m.in_channels, 6, 6), generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        got = m(x)
+        want = torch.nn.Conv2d.forward(m, x)
+        assert torch.equal(got, want)
+        if bias_grad:
+            (g1,) = torch.autograd.grad(got.sum(), m.bias)
+            (g2,) = torch.autograd.grad(want.sum(), m.bias)
+            assert torch.equal(g1, g2)
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_convolution_off_the_cpu_never_takes_the_library_add():
+    """Off the CPU a convolution adds its bias with the kernel or raises: a
+    bias that requires grad raises while grad is enabled (the kernel gives
+    it no gradient), and the meta device has no kernel."""
+    conv = port_vae.BiasConv2d(4, 8, 3, padding=1, device="meta")
+    x = torch.empty((1, 4, 6, 6), device="meta")
+    with pytest.raises(RuntimeError, match="outside autograd"):
+        conv(x)
+    with torch.no_grad(), pytest.raises(ValueError,
+                                        match="no conv bias kernel"):
+        conv(x)
+    conv.requires_grad_(False)
+    with pytest.raises(ValueError, match="no conv bias kernel"):
+        conv(x)
+
+
 def test_logvar_is_clipped():
     vae = port_vae.AutoencoderKL(port_vae.tiny_vae_config())
     with torch.no_grad():
