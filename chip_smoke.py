@@ -68,9 +68,13 @@ source, started together), writes the assets, then:
    ([24, 4096, 320], [24, 4096, 960], [24, 64, 2560]) and at the VAE
    encoder's shapes at batch 8 and 512^2 ([8, 262144, 128], [8, 65536,
    128], [8, 65536, 256], [8, 16384, 256], [8, 16384, 512], [8, 4096,
-   512]), bfloat16: every sum within 1e-5 of the f64 sum of magnitudes of
-   its (sample, channel), the forward's sums and y, K5's sums and K5a's dx
-   bit-equal on a second launch; y (fused, and K3a alone) against
+   512]), then at SDXL's (`sdxl_body`): the UNet's [24, 16384, 320],
+   [24, 16384, 960], [24, 1024, 2560] and the sdxl-vae encoder's at 1024^2
+   ([8, 1048576, 128], [8, 262144, 256], [8, 65536, 512]), bfloat16
+   (the float64 sums taken a sample at a time): every sum within 1e-5
+   of the f64 sum of magnitudes of its (sample, channel), the forward's
+   sums and y, K5's sums and K5a's dx bit-equal on a second launch; y
+   (fused, and K3a alone) against
    `group_norm_apply_plain` and K5a against `group_norm_bwd_dx_plain` on
    the same sums, and the op
    `group_norm_act` (forward K3 + K3a, backward K5 + K5a) against the
@@ -83,12 +87,14 @@ source, started together), writes the assets, then:
    `F.silu` and its autograd backward (on the same channels_last tensors,
    and the backward also on contiguous channels-first copies);
    9c holds the conv bias kernel (csrc/conv_bias.cu) bit for bit against
-   aten's `add_` at the VAE encoder's output sizes, on the decoder's
+   aten's `add_` at the VAE encoder's output sizes at 512^2 and at
+   SDXL's 1024^2 (the first, [8, 128, 1024^2], 2 GiB), on the decoder's
    3-channel output and in float32, and times both beside the bound by
    bytes, each call on a tensor out of L2;
 10. holds K4 (csrc/attention_fwd.cu) against its plain version at the
    UNet's self-attention shapes ((120, 4096, 64), (240, 1024, 64),
-   (480, 256, 64) as (batch x heads, tokens, head dim), bfloat16) and at
+   (480, 256, 64) as (batch x heads, tokens, head dim), bfloat16), at
+   SDXL's ((240, 4096, 64), (480, 1024, 64)) and at
    (120, 4096, 64) with q sharpened 8x (the online softmax's running
    maximum moves often): largest |kernel - plain| at most 2^-7 of the
    largest |output| (one bfloat16 ulp at the peak; the kernel rounds p to
@@ -149,6 +155,20 @@ source, started together), writes the assets, then:
    full-width VAE at 64^2 images: the input gradient through K3 + K3a,
    K5 and K5a within 1e-3 of max-|grad| of the gradient through their
    plain versions;
+13b. an SDXL base 1.0 `train_step` through `apps.launch.build_system` on
+   configs/avatar_sdxl.yaml at the published widths (seeded bfloat16
+   `unet/` and `vae/` files in diffusers layout, `dummy_encode_fn(77,
+   2048, pooled_dim=1280)` prompts): 2,567,463,684 UNet parameters; one
+   checked step (finite, Adam moved alive rows only) whose launches are
+   exactly K1 1, K2 1, K2b 1, K3 + K3a once per UNet norm and twice per
+   encoder norm (the 1024^2 encode and its recompute), K5 / K5a once per
+   encoder norm, K4 70, the conv bias twice per encoder convolution, with
+   the VAE attention in 2048-query chunks in both passes; ms per step and
+   peak memory; then a float32 sdxl-vae at batch 2 and 1024^2 (its
+   attention chunked): d latents / d image through K3 + K3a, K5, K5a and
+   the conv bias kernel within 1e-3 of max-|grad| of the gradient through
+   their plain versions, each kernel launched once per encoder norm or
+   convolution;
 14. runs the avatar CLI in-process, `apps.launch.main` with
    configs/avatar.yaml, `--train` and TRAINER_OVERRIDES at full width: 12
    steps, validation renders at 6 and 12, clone + split at steps 4 and 8
@@ -298,11 +318,12 @@ source, started together), writes the assets, then:
 and prints the `kernels` JSON line (all eight kernels, each with the
 launches of one `train_step` of phase 11, the main path, and
 `launches_deep_floyd_step` (phase 16, Perp-Neg off),
-`launches_sample_cli` (phase 17), `launches_controlnet_call` (phase 27)
-and `launches_dp_step` (phase 30); K1's row also
-carries `launches_serving_and_photo` (phases 4 to 6), K2's and K2b's
-`launches_photo` (phase 6); K1's, K2's and K2b's rows also carry
-`ms_guidance_batch` and `bound_ms_guidance_batch` (K1's and K2's also
+`launches_sample_cli` (phase 17), `launches_controlnet_call` (phase 27),
+`launches_dp_step` (phase 30) and `launches_sdxl_step` (phase 13b);
+K1's row also carries `launches_serving_and_photo` (phases 4 to 6),
+K2's and K2b's `launches_photo` (phase 6); K1's, K2's and K2b's rows
+also carry `ms_guidance_batch` and `bound_ms_guidance_batch` (K1's and
+K2's also
 `bound_ms_guidance_batch_visits`), shape c; K2's row the whole
 backward's (K2 + K2b) `ms_with_k2b`, `ms_avatar_view_with_k2b` and
 `ms_guidance_batch_with_k2b`; K2b's row `ms_launch`,
@@ -311,10 +332,11 @@ launched without its wrapper), and `launches_photo_data`
 (phases 20 and 21), K1's `launches_viewer` (phase 24), and every row's
 `launches_dreamfusion_step` (phase 25b's checked step)) and, last, the
 device JSON line. `--only GROUP[,GROUP]` (render, norm, attention,
-guidance (phases 11 and 15), sample, unet-backward, trainer, deep-floyd,
-sample-cli, sd-guidance, photo-data (phases 19 to 22), tools (phases 23
-and 24), nerf (phases 25 and 26), controlnet (27), explicit (28), gan
-(29), dist (30)) runs some phase groups alone and prints no result lines.
+guidance (phases 11 and 15), sample, unet-backward, sdxl (13b), trainer,
+deep-floyd, sample-cli, sd-guidance, photo-data (phases 19 to 22), tools
+(phases 23 and 24), nerf (phases 25 and 26), controlnet (27), explicit
+(28), gan (29), dist (30)) runs some phase groups alone and prints no
+result lines.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Weights and data are random, made from fixed seeds.
@@ -917,12 +939,18 @@ def write_assets(tmp: str, seed: int = 0, n_avatar: int | None = None):
 
 
 PHASE_GROUPS = ("render", "norm", "attention", "guidance", "sample",
-                "unet-backward", "trainer", "deep-floyd", "sample-cli",
+                "unet-backward", "sdxl", "trainer", "deep-floyd", "sample-cli",
                 "sd-guidance", "photo-data", "tools", "nerf", "controlnet",
                 "explicit", "gan", "dist")
 AVATAR_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs", "avatar.yaml")
 PROMPT = "a person in a blue jacket"
+SDXL_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "configs", "avatar_sdxl.yaml")
+SDXL_PROMPT = "a man in a suit"
+SDXL_UNET_PARAMS = 2_567_463_684  # SDXL base 1.0's unet/config.json
+SDXL_ATTN_PER_UNET_FORWARD = 70  # 10 sites at 4096 tokens, 60 at 1024
+SDXL_STEP_REPS = 3  # timed SDXL train_steps of phase 13b, after a warm-up
 STEP_REPS = 10  # timed train_steps of phase 11, after 2 warm-up steps
 # phase 14: the avatar CLI. Density control fires clone + split at steps 4
 # and 8 and prune-only at 10. The SMPL-X stand-in's initial splats are
@@ -972,7 +1000,13 @@ GN_SHAPES = ((2, 37, 48), (24, 4096, 320), (24, 4096, 960), (24, 64, 2560),
              # the VAE encoder's norms at batch 8 and 512^2: 512^2 x 128,
              # 256^2 x 128 and 256, 128^2 x 256 and 512, 64^2 x 512
              (8, 262144, 128), (8, 65536, 128), (8, 65536, 256),
-             (8, 16384, 256), (8, 16384, 512), (8, 4096, 512))
+             (8, 16384, 256), (8, 16384, 512), (8, 4096, 512),
+             # SDXL's (sdxl_body): the UNet's 128^2 rows at 320 and at the
+             # widest concatenated input (960), its 32^2 level's 2560; the
+             # sdxl-vae encoder's at batch 8 and 1024^2: 1024^2 x 128,
+             # 512^2 x 256, 256^2 x 512
+             (24, 16384, 320), (24, 16384, 960), (24, 1024, 2560),
+             (8, 1048576, 128), (8, 262144, 256), (8, 65536, 512))
 GN_MAIN = (24, 4096, 320)
 GN_GROUPS = {48: 8}  # 32 groups everywhere at full width
 GN_STATS_TOL = 1e-5  # of the f64 sum of magnitudes per (sample, channel)
@@ -980,11 +1014,16 @@ GN_BAD_FRACTION = 1e-4  # of the outputs may miss plain by more than a ulp
 GN_F32_TOL = 1e-5  # of max |y|: the fused op vs plain in float32
 # the VAE encoder's convolution outputs at batch 8 and 512^2 images, bf16
 # channels_last: 512^2 x 128, 256^2 x 256, 128^2 x 512, 64^2 x 512 and
-# quant_conv's 64^2 x 8 (phase 9c)
+# quant_conv's 64^2 x 8 (phase 9c); then SDXL's 1024^2 images: 1024^2 x
+# 128 (2 GiB, past 2^31 bytes), 512^2 x 256, 256^2 x 512 and 128^2 x 8
 CONV_BIAS_SHAPES = ((8, 128, 512, 512), (8, 256, 256, 256),
-                    (8, 512, 128, 128), (8, 512, 64, 64), (8, 8, 64, 64))
-# (batch, tokens, heads) of the UNet's self-attention sites at batch 24
-ATTN_SHAPES = ((24, 4096, 5), (24, 1024, 10), (24, 256, 20))
+                    (8, 512, 128, 128), (8, 512, 64, 64), (8, 8, 64, 64),
+                    (8, 128, 1024, 1024), (8, 256, 512, 512),
+                    (8, 512, 256, 256), (8, 8, 128, 128))
+# (batch, tokens, heads) of the UNet's self-attention sites at batch 24:
+# SD2's three levels, then SDXL's two (640 wide at 64^2, 1280 at 32^2)
+ATTN_SHAPES = ((24, 4096, 5), (24, 1024, 10), (24, 256, 20),
+               (24, 4096, 10), (24, 1024, 20))
 ATTN_TOL = 2.0 ** -7  # K4 vs plain, of max |out|: one bf16 ulp of the peak
 # the dual-branch SD2 unet_ema with its two 8-channel conv_in (899,696,008
 # when both are built for 4 input channels)
@@ -1063,6 +1102,39 @@ def sums_error(got, want64, scale64):
     """max over (sample, which, channel) of |got - want| / scale."""
     return float(((got.double() - want64).abs()
                   / scale64.clamp_min(1e-30)).max())
+
+
+def x_sums_f64(x):
+    """The float64 sums a GroupNorm's forward must match for x [N, rows,
+    C], [N, 2, C] (sum, sum of squares over the rows), and the sums of
+    their magnitudes; a sample at a time, so that no float64 copy of the
+    whole input is held (8 GiB for the sdxl-vae's first norm)."""
+    want, scale = [], []
+    for xi in x:
+        xi = xi.double()
+        sq = (xi * xi).sum(0)
+        want.append(torch.stack([xi.sum(0), sq]))
+        scale.append(torch.stack([xi.abs().sum(0), sq]))
+    return torch.stack(want), torch.stack(scale)
+
+
+def dz_sums_f64(x, dz, mu, rstd, gamma, beta, silu):
+    """K5's sums in float64 ([N, 2, C]: sum of dy and of dy * x_hat over
+    the rows, dy the gradient at the norm's output before any SiLU) and
+    the sums of their magnitudes, x normalized by the group statistics
+    `mu`, `rstd` [N, C]; a sample at a time, as `x_sums_f64`."""
+    want, scale = [], []
+    for xi, dzi, mi, ri in zip(x, dz, mu, rstd):
+        xh = (xi.double() - mi.double()) * ri.double()
+        dy = dzi.double()
+        if silu:
+            y = xh * gamma.double() + beta.double()
+            sig = torch.sigmoid(y)
+            dy = dy * sig * (1 + y * (1 - sig))
+            del y, sig
+        want.append(torch.stack([dy.sum(0), (dy * xh).sum(0)]))
+        scale.append(torch.stack([dy.abs().sum(0), (dy * xh).abs().sum(0)]))
+    return torch.stack(want), torch.stack(scale)
 
 
 def device_ms_per_call(fn, sessions: int = 7):
@@ -1204,9 +1276,7 @@ def norm_phase(dev) -> dict:
         again = group_norm_stats(x)
         torch.cuda.synchronize()
         plain = group_norm_stats_plain(x)
-        x64 = x.double()
-        want = torch.stack([x64.sum(1), (x64 * x64).sum(1)], 1)
-        scale = torch.stack([x64.abs().sum(1), (x64 * x64).sum(1)], 1)
+        want, scale = x_sums_f64(x)
         e_k, e_p = sums_error(got, want, scale), sums_error(plain, want, scale)
         same = torch.equal(got, again)
         print(f"  K3 {label}: kernel vs f64 {e_k:.3e}, plain vs f64 "
@@ -1270,16 +1340,8 @@ def norm_phase(dev) -> dict:
             del again5
             plain5 = group_norm_bwd_stats_plain(x, dz, plain, gamma, beta,
                                                 groups, 1e-5, silu)
-            xh = (x64 - mu_c.double()[:, None]) * rstd_c.double()[:, None]
-            dy = dz.double()
-            if silu:
-                y = xh * gamma.double() + beta.double()
-                sig = torch.sigmoid(y)
-                dy = dy * sig * (1 + y * (1 - sig))
-                del y, sig
-            want5 = torch.stack([dy.sum(1), (dy * xh).sum(1)], 1)
-            scale5 = torch.stack([dy.abs().sum(1), (dy * xh).abs().sum(1)], 1)
-            del xh, dy
+            want5, scale5 = dz_sums_f64(x, dz, mu_c, rstd_c, gamma, beta,
+                                        silu)
             e_k = sums_error(got5, want5, scale5)
             e_p = sums_error(plain5, want5, scale5)
             print(f"  K5 {label} silu={silu}: kernel vs f64 {e_k:.3e}, plain "
@@ -1306,7 +1368,7 @@ def norm_phase(dev) -> dict:
                   f"bit-equal")
             check(ok and bool(torch.isfinite(dx_k).all()), f"K5a {label}")
             del dx_k, dx_p
-        del x64, want, scale
+        del want, scale
 
         # K3a alone on K3's sums, and the whole op (K3 + K3a forward, K5 +
         # K5a backward) against the plain op (the plain versions)
@@ -2472,6 +2534,167 @@ def unet_backward_phase(dev, unet) -> dict:
     return counts
 
 
+def write_sdxl_files(dev, tmp) -> list:
+    """Seeded SDXL base 1.0 `unet/` and sdxl-vae `vae/` files in diffusers
+    layout (5.1 GB and 0.17 GB of bfloat16) and a prompt cache of
+    `dummy_encode_fn(77, 2048, pooled_dim=1280)` stand-ins (the card has no
+    text encoder); returns the configs/avatar_sdxl.yaml overrides that
+    point the launcher at them."""
+    from humangaussian_torch.guidance.prompt import (
+        PromptProcessor,
+        PromptProcessorConfig,
+        dummy_encode_fn,
+    )
+    from humangaussian_torch.guidance.unet import SDXL_BASE_CONFIG, SingleUNet
+    from humangaussian_torch.guidance.vae import SDXL_VAE_CONFIG, AutoencoderKL
+
+    model = os.path.join(tmp, "sdxl")
+    for sub, fn in (("unet", lambda: SingleUNet(SDXL_BASE_CONFIG)),
+                    ("vae", lambda: AutoencoderKL(SDXL_VAE_CONFIG))):
+        os.makedirs(os.path.join(model, sub))
+        torch.save(seeded_state_dict(fn, 22, dev),
+                   os.path.join(model, sub, "diffusion_pytorch_model.bin"))
+        torch.cuda.empty_cache()
+    cache = os.path.join(tmp, "text_embeddings")
+    PromptProcessor(
+        PromptProcessorConfig(prompt=SDXL_PROMPT, negative_prompt="blurry",
+                              model_path="sdxl-stand-in", cache_dir=cache,
+                              encoder_type="sdxl"),
+        dummy_encode_fn(77, 2048, pooled_dim=1280), device=dev)()
+    return [f"system.guidance.model_key={model}", "system.guidance.vae_key=",
+            f"system.prompt_processor.prompt={SDXL_PROMPT}",
+            "system.prompt_processor.negative_prompt=blurry",
+            "system.prompt_processor.pretrained_model_name_or_path="
+            "sdxl-stand-in",
+            f"system.prompt_processor.cache_dir={cache}"]
+
+
+@contextlib.contextmanager
+def chunk_calls():
+    """Inside, the row counts of every `guidance/vae.py::chunked_attention`
+    call (the VAE mid block's attention past its logits cap) are appended
+    to the list yielded."""
+    from humangaussian_torch.guidance import vae
+
+    calls, own = [], vae.chunked_attention
+
+    def spy(q, k, v, rows):
+        calls.append(rows)
+        return own(q, k, v, rows)
+
+    vae.chunked_attention = spy
+    try:
+        yield calls
+    finally:
+        vae.chunked_attention = own
+
+
+def sdxl_phase(dev, tmp, smplx_path) -> dict:
+    """Phase 13b: an SDXL `train_step` through the launcher at the
+    published widths, its launches against the module trees; then a
+    float32 sdxl-vae encode at 1024^2, d latents / d image through the
+    kernels against the plain versions. Returns the step's launches."""
+    from humangaussian_torch import kernels
+    from humangaussian_torch.apps import launch
+    from humangaussian_torch.config import load_config
+    from humangaussian_torch.guidance.vae import (
+        SDXL_VAE_CONFIG,
+        AutoencoderKL,
+        sample_latent,
+    )
+
+    print("phase 13b: an SDXL base 1.0 train_step (configs/avatar_sdxl.yaml"
+          ", published widths) and the sdxl-vae at 1024^2 vs plain")
+    t0 = time.perf_counter()
+    overrides = write_sdxl_files(dev, tmp) + [
+        f"system.smplx_path={smplx_path}"]
+    print(f"  files and prompt cache written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    system = launch.build_system(load_config(SDXL_YAML, overrides), dev)
+    torch.cuda.synchronize()
+    xl = system.guidance.xl
+    n_unet = sum(p.numel() for p in xl.unet.parameters())
+    print(f"  build_system: UNet {n_unet} parameters ({xl.unet.dtype}), VAE "
+          f"{sum(p.numel() for p in xl.vae.parameters())}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(n_unet == SDXL_UNET_PARAMS, f"SDXL UNet has {n_unet} parameters")
+    check(system.prompt_embeddings.pooled.text_vd.shape == (4, 1280),
+          "pooled rows' shape")
+    state = system.init_state(seed=0)
+    with chunk_calls() as rows:
+        state, _row, counts, peak, _seen = checked_step(system, state,
+                                                        "SDXL step 1")
+    del _seen
+    enc_norms = norms_in(xl.vae.encoder)
+    passes = 2 if xl.cfg.remat_encode else 1
+    sites = flash_sites(xl.unet, xl.cfg.image_size // 8)
+    want = launches(rasterize_fwd=1, rasterize_bwd=1, rasterize_bwd_rows=1,
+                    groupnorm_fwd=norms_in(xl.unet) + passes * enc_norms,
+                    groupnorm_bwd_stats=enc_norms,
+                    groupnorm_bwd_dx=enc_norms, attention_fwd=sites,
+                    conv_bias_add=passes * encode_convs(xl.vae))
+    print(f"  launches {counts}; expected: {norms_in(xl.unet)} UNet norms + "
+          f"{passes} encoder passes x {enc_norms} norms forward, {enc_norms} "
+          f"backward, K4 at {sites} sites; the VAE attention's chunk rows "
+          f"{rows}")
+    check(sites == SDXL_ATTN_PER_UNET_FORWARD, f"{sites} K4 sites")
+    check(counts == want, f"SDXL launches {counts}, want {want}")
+    check(rows == [2048] * passes, f"VAE attention chunks {rows}")
+    state, _ = system.train_step(state)
+    state, times = step_times(system, state, SDXL_STEP_REPS)
+    print(f"  ms per SDXL train_step over {SDXL_STEP_REPS} steps: median "
+          f"{statistics.median(times):.3f}, min {min(times):.3f}, max "
+          f"{max(times):.3f}; peak memory of the checked step {peak:.2f} "
+          f"GiB")
+    del system, state, xl
+    torch.cuda.empty_cache()
+
+    # the sdxl-vae in float32 at batch 2 and 1024^2: the GroupNorms at
+    # [2, 1048576, 128] and the 16,384-token attention in query chunks
+    torch.manual_seed(3)
+    with torch.device(dev):
+        vae = AutoencoderKL(dataclasses.replace(SDXL_VAE_CONFIG,
+                                                dtype=torch.float32))
+    vae.to(memory_format=torch.channels_last).requires_grad_(False)
+    g = torch.Generator(device="cpu").manual_seed(17)
+    img = (torch.rand((2, 1024, 1024, 3), generator=g) * 2 - 1).to(dev)
+    eps = torch.randn((2, 128, 128, 4), generator=g).to(dev)
+    cot = torch.randn((2, 128, 128, 4), generator=g).to(dev)
+
+    def image_grad():
+        x = img.clone().requires_grad_(True)
+        mean, logvar = vae.encode(x)
+        (sample_latent(mean, logvar, eps=eps) * cot).sum().backward()
+        return x.grad
+
+    kernels.reset_launch_counts()
+    with chunk_calls() as rows:
+        got = image_grad()
+        torch.cuda.synchronize()
+    vae_counts = kernels.launch_counts()
+    with plain_versions():
+        want = image_grad()
+    worst = float((got - want).abs().max() / want.abs().max())
+    enc = norms_in(vae.encoder)
+    print(f"  float32 sdxl-vae, batch 2, 1024^2: d latents / d image through "
+          f"K3 + K3a, K5, K5a and the conv bias kernel vs through the plain "
+          f"versions {worst:.3e} of max |grad| {float(want.abs().max()):.3e} "
+          f"(limit {VAE_GRAD_TOL:g}); launches {vae_counts}; chunk rows "
+          f"{rows}")
+    check(bool(torch.isfinite(got).all()), "non-finite sdxl-vae gradient")
+    check(worst <= VAE_GRAD_TOL, f"sdxl-vae input gradient off by {worst}")
+    check(all(vae_counts[k] == enc for k in (
+        "groupnorm_fwd", "groupnorm_bwd_stats", "groupnorm_bwd_dx")),
+        f"sdxl-vae launches {vae_counts}, want {enc} each")
+    check(vae_counts["conv_bias_add"] == encode_convs(vae),
+          f"sdxl-vae conv bias launches {vae_counts['conv_bias_add']}")
+    check(len(rows) == 1 and rows[0] < 16384, f"VAE attention chunks {rows}")
+    del vae, got, want
+    torch.cuda.empty_cache()
+    return counts
+
+
 def sjc_snapshot_phase(dev, system, tmp):
     """Phase 15: on phase 11's system, one train_step with the guidance in
     mode sjc, then one guidance_eval_snapshot of SNAPSHOT_STEPS DDIM steps
@@ -2588,12 +2811,10 @@ def if_norm_shapes(dev):
         got = group_norm_stats(x)
         torch.cuda.synchronize()
         plain = group_norm_stats_plain(x)
-        x64 = x.double()
-        want = torch.stack([x64.sum(1), (x64 * x64).sum(1)], 1)
-        scale = torch.stack([x64.abs().sum(1), (x64 * x64).sum(1)], 1)
+        want, scale = x_sums_f64(x)
         e_k, e_p = sums_error(got, want, scale), sums_error(plain, want,
                                                              scale)
-        del x64, want, scale
+        del want, scale
         check(e_k <= GN_STATS_TOL and e_p <= GN_STATS_TOL,
               f"K3 [{n}, {rows}, {c}]: {e_k}, plain {e_p}")
         y = group_norm_apply(x, got, gamma, beta, 32, 1e-5, True)
@@ -3059,6 +3280,11 @@ def run(dev, only=()) -> int:
     if want("unet-backward"):
         unet_backward_phase(dev, unet)
     del unet
+    if want("sdxl"):
+        torch.cuda.empty_cache()
+        sdxl_counts = sdxl_phase(dev, tmp, assets[0])
+        for name, row in rows.items():
+            row["launches_sdxl_step"] = sdxl_counts[name]
     if want("trainer"):
         torch.cuda.empty_cache()
         trainer_phase(dev, tmp, overrides)

@@ -13,7 +13,10 @@ builds the SMPL-X skeleton from `system.smplx_path`, the prompt embeddings
 from `system.prompt_processor.pretrained_model_name_or_path`), the prior
 from diffusers-layout weight files (`build_guidance` for the dual-branch
 prior; `build_deep_floyd` for `system.guidance.type: deep-floyd`, the
-IF-I-XL UNet of `model_key/unet/`) and the camera, trainer, optimizer and
+IF-I-XL UNet of `model_key/unet/`; `build_sdxl_guidance` for
+`stable-diffusion-xl`, SDXL base 1.0's `unet/` and `vae/`, with the
+prompt from SDXL's two CLIP encoders, `encoder_type: sdxl`, as
+configs/avatar_sdxl.yaml ships it) and the camera, trainer, optimizer and
 rasterizer configurations; `main` then runs
 `init_state` with the seed, `--resume`, `train/loop.run_training` and
 `finalize` (orbit video, `last.ply`, `ckpts/last`) and prints `artifacts in
@@ -102,13 +105,17 @@ def _build_avatar_system(cfg: dict, device="cuda"):
     pp_raw = dict(sys_cfg.get("prompt_processor", {}))
     pp_raw.setdefault("model_path",
                       pp_raw.pop("pretrained_model_name_or_path", ""))
-    # DeepFloyd conditions on T5 embeddings; an explicit encoder_type wins
-    pp_raw.setdefault("encoder_type",
-                      "t5" if gtype == "deep-floyd" else "clip")
+    # DeepFloyd conditions on T5 embeddings, SDXL on its two CLIP encoders'
+    # rows and pooled row; an explicit encoder_type wins
+    pp_raw.setdefault("encoder_type", {"deep-floyd": "t5",
+                                       "stable-diffusion-xl": "sdxl"}.get(
+                                           gtype, "clip"))
     embeddings = PromptProcessor(_take(PromptProcessorConfig, pp_raw),
                                  device=dev)()
     if gtype == "deep-floyd":
         guidance = build_deep_floyd(cfg, dev, embeddings)
+    elif gtype == "stable-diffusion-xl":
+        guidance = build_sdxl_guidance(cfg, dev)
     else:
         guidance = build_guidance(cfg, dev)
     return GaussianDreamerSystem(
@@ -226,6 +233,63 @@ def build_deep_floyd(cfg: dict, device="cuda", embeddings=None):
         DeepFloydGuidance(unet, if_schedule(device=dev),
                           _take(DeepFloydConfig, g_raw)),
         embeddings=embeddings)
+
+
+def build_sdxl_guidance(cfg: dict, device="cuda"):
+    """The SDXL guidance of `system.guidance` (type stable-diffusion-xl)
+    behind the system's guidance call, on `device`.
+
+    `arch` is `sdxl-base` (SDXL_BASE_CONFIG and SDXL_VAE_CONFIG, the
+    default) or `tiny` (TINY_SDXL_CONFIG and the tiny VAE with the sdxl-vae
+    scale, 64^2 images unless the config says otherwise); `model_key`
+    holds `unet/` and `vae/` in diffusers layout (`vae_key`, when given,
+    holds the VAE instead), loaded without a converter;
+    `half_precision_weights` (the default) rounds every floating weight
+    through bfloat16, as `build_guidance` does."""
+    import torch
+
+    from humangaussian_torch import resolve_device
+    from humangaussian_torch.guidance.schedule import sd_eps_schedule
+    from humangaussian_torch.guidance.stable_diffusion_xl import (
+        TINY_SDXL_CONFIG,
+        SDXLGuidance,
+        SDXLGuidanceConfig,
+        SDXLSystemGuidance,
+    )
+    from humangaussian_torch.guidance.unet import SDXL_BASE_CONFIG, SingleUNet
+    from humangaussian_torch.guidance.vae import (
+        SDXL_VAE_CONFIG,
+        AutoencoderKL,
+        tiny_vae_config,
+        upgrade_vae_state_dict,
+    )
+
+    dev = resolve_device(device)
+    g_raw = dict(cfg.get("system", {}).get("guidance", {}))
+    arch = g_raw.get("arch", "sdxl-base")
+    if arch == "tiny":
+        unet_cfg = TINY_SDXL_CONFIG
+        vae_cfg = dataclasses.replace(
+            tiny_vae_config(), scaling_factor=SDXL_VAE_CONFIG.scaling_factor)
+        g_raw.setdefault("image_size", 64)
+    elif arch == "sdxl-base":
+        unet_cfg, vae_cfg = SDXL_BASE_CONFIG, SDXL_VAE_CONFIG
+    else:
+        raise ValueError(f"unknown stable-diffusion-xl arch {arch!r}; "
+                         "expected 'sdxl-base' or 'tiny'")
+    bf16_weights = bool(g_raw.get("half_precision_weights", True))
+    with torch.device("meta"):
+        unet = SingleUNet(unet_cfg)
+        vae = AutoencoderKL(vae_cfg)
+    _load_into(unet, _find_weights(g_raw["model_key"], "unet"),
+               unet_cfg.dtype, bf16_weights, dev)
+    vae_path = (_find_weights(g_raw["vae_key"], "") if g_raw.get("vae_key")
+                else _find_weights(g_raw["model_key"], "vae"))
+    _load_into(vae, vae_path, vae_cfg.dtype, bf16_weights, dev,
+               upgrade=upgrade_vae_state_dict)
+    return SDXLSystemGuidance(SDXLGuidance(
+        unet, vae, sd_eps_schedule(device=dev),
+        _take(SDXLGuidanceConfig, g_raw)))
 
 
 def build_guidance(cfg: dict, device="cuda"):

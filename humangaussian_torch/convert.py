@@ -396,4 +396,5 @@ def prompt_embeddings_from_numpy(d, device="cuda"):
     dev = resolve_device(device)
     f = _fields(d)
     return PromptEmbeddings(**{
-        k: _f32(f[k], dev) for k in PromptEmbeddings._fields})
+        k: _f32(f[k], dev) for k in PromptEmbeddings._fields
+        if k != "pooled"})

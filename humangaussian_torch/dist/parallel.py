@@ -77,15 +77,19 @@ def _rows(x, rows: slice):
 def shard_inputs(inputs: StepInputs, b: int, rows: slice) -> StepInputs:
     """A rank's rows of the whole batch's step inputs: every per-camera
     field, the pose images, the timesteps, the guidance draws, and each of
-    the three [cond | neg | null] segments of the text."""
+    the three [cond | neg | null] segments of the text (and of the pooled
+    rows)."""
     cams = inputs.cameras
     cams = cams._replace(**{
         k: v[rows] for k, v in cams._asdict().items()
         if isinstance(v, torch.Tensor) and v.dim() > 0 and v.shape[0] == b})
     text = torch.cat([seg[rows] for seg in inputs.text.split(b)])
+    pooled = (None if inputs.pooled is None else
+              torch.cat([seg[rows] for seg in inputs.pooled.split(b)]))
     return StepInputs(cameras=cams, pose=inputs.pose[rows], text=text,
                       t=inputs.t[rows],
-                      guidance_draws=_rows(inputs.guidance_draws, rows))
+                      guidance_draws=_rows(inputs.guidance_draws, rows),
+                      pooled=pooled)
 
 
 def _all_reduce(tensors: list, op, group) -> list:

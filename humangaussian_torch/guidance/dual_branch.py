@@ -97,6 +97,24 @@ def _repeat(x, k: int):
     return x.repeat(k, *([1] * (x.dim() - 1)))
 
 
+def anpg_score(pred, t, guidance_scale: float, boundary_t: int):
+    """The ANPG (NFSD) score of a 3-way [cond | neg | null] prediction
+    [3B, ...]: s (e_text - e_null) + (t < boundary_t ? e_null : e_null -
+    e_neg)."""
+    e_text, e_neg, e_null = pred.chunk(3, dim=0)
+    delta_c = guidance_scale * (e_text - e_null)
+    mask = (t < boundary_t).float().reshape(-1, *([1] * (pred.dim() - 1)))
+    delta_d = mask * e_null + (1.0 - mask) * (e_null - e_neg)
+    return delta_c + delta_d
+
+
+def clip_pixel_norm(grad, threshold: float):
+    """Each pixel's gradient vector (the last axis) scaled to a norm of at
+    most `threshold`."""
+    gnorm = torch.linalg.vector_norm(grad, dim=-1, keepdim=True) + 1e-8
+    return gnorm.clamp_max(threshold) * grad / gnorm
+
+
 class DualBranchGuidance:
     """The frozen prior (UNet, VAE, schedule) and the guidance math.
 
@@ -191,14 +209,9 @@ class DualBranchGuidance:
             depth_noisy = depth_noisy[0]
 
         if c.mode == "anpg":
-            # NFSD decomposition over a 3-way [cond | neg | null] batch
             pred = self._unet_k(3, latents_noisy, depth_noisy, whole_latents,
                                 t, text_embeddings)
-            e_text, e_neg, e_null = pred.chunk(3, dim=0)
-            delta_c = c.guidance_scale * (e_text - e_null)
-            mask = (t < c.anpg_boundary_t).float().reshape(b, 1, 1, 1)
-            delta_d = mask * e_null + (1.0 - mask) * (e_null - e_neg)
-            score = delta_c + delta_d
+            score = anpg_score(pred, t, c.guidance_scale, c.anpg_boundary_t)
         else:
             # 2-way [cond | neg] batch and the CFG with the TEXT prediction
             # as its base term: e_text + s (e_text - e_uncond)
@@ -214,9 +227,7 @@ class DualBranchGuidance:
         w = self.schedule.sds_weight(t, c.weighting_strategy)
         grad = w.reshape(b, 1, 1, 1) * score
         if c.grad_clip_pixel:
-            # per-pixel norm clamp over the channels
-            gnorm = torch.linalg.vector_norm(grad, dim=-1, keepdim=True) + 1e-8
-            grad = gnorm.clamp_max(c.grad_clip_threshold) * grad / gnorm
+            grad = clip_pixel_norm(grad, c.grad_clip_threshold)
         return torch.nan_to_num(grad)
 
     def compute_grad_sjc(self, latents, depth_latents, whole_latents, t,

@@ -18,8 +18,11 @@ Port of humangaussian_tpu/guidance/prompt.py:
 The direction selection is torch code on the cameras' device. Encoding is
 host-side set-up. Without an `encode_fn` the processor encodes with
 `hf_clip_encode_fn(model_path)` (`encoder_type: clip`, the SD2 prior) or
-`hf_t5_encode_fn(model_path)` (`t5`, DeepFloyd IF): a `transformers` text
-model on the host CPU, as the JAX package runs it, built only when a
+`hf_t5_encode_fn(model_path)` (`t5`, DeepFloyd IF) or
+`hf_sdxl_encode_fn(model_path)` (`sdxl`: SDXL's two CLIP encoders, whose
+token rows are concatenated and whose second gives the pooled row that
+`PromptEmbeddings.pooled` carries): a `transformers` text model on the
+host CPU, as the JAX package runs it, built only when a
 prompt misses the cache: a run whose prompts are all cached needs no
 `transformers`. When one is missing and `transformers` is not installed,
 the error names the prompts and the cache directory.
@@ -97,6 +100,9 @@ class PromptEmbeddings(NamedTuple):
     text: torch.Tensor  # [L, D] plain cond
     uncond: torch.Tensor  # [L, D] plain negative
     null: torch.Tensor  # [L, D] empty prompt
+    # SDXL: the pooled text rows, the same five fields [4, P] / [P], whose
+    # `get_text_embeddings` picks [3B, P] rows as the token rows are picked
+    pooled: "PromptEmbeddings | None" = None
 
     def get_text_embeddings(
         self, elevation, azimuth, camera_distances=None,
@@ -198,7 +204,7 @@ class PromptProcessorConfig:
     cache_dir: str = ".humangaussian_cache/text_embeddings"
     prompt_library_path: str = ""  # JSON for "lib:" prompts
     use_cache: bool = True
-    encoder_type: str = "clip"  # "clip" (SD2) | "t5" (DeepFloyd IF)
+    encoder_type: str = "clip"  # "clip" (SD2) | "t5" (DeepFloyd IF) | "sdxl"
 
 
 def _hash_prompt(model: str, prompt: str) -> str:
@@ -338,6 +344,37 @@ def hf_clip_encode_fn(model_path: str) -> Callable[[list[str]], np.ndarray]:
     return encode
 
 
+def hf_sdxl_encode_fn(model_path: str):
+    """SDXL's host text encoders from a local checkpoint (`tokenizer/`,
+    `text_encoder/`: CLIP ViT-L; `tokenizer_2/`, `text_encoder_2/`:
+    OpenCLIP bigG with its projection): prompts -> ([n, 77, 768 + 1280]
+    float32, the penultimate hidden states of both, concatenated; [n,
+    1280], the second encoder's projected pooled output), as the SDXL
+    pipeline builds them. `transformers` is imported when it encodes."""
+
+    def encode(prompts: list[str]):
+        tf = _transformers("the SDXL prompt encoders")
+        rows, pooled = [], None
+        for sub, cls in (("", tf.CLIPTextModel),
+                         ("_2", tf.CLIPTextModelWithProjection)):
+            tokenizer = tf.AutoTokenizer.from_pretrained(
+                os.path.join(model_path, "tokenizer" + sub))
+            encoder = cls.from_pretrained(
+                os.path.join(model_path, "text_encoder" + sub))
+            encoder.eval()
+            with torch.no_grad():
+                tokens = tokenizer(prompts, padding="max_length",
+                                   max_length=tokenizer.model_max_length,
+                                   truncation=True, return_tensors="pt")
+                out = encoder(tokens.input_ids, output_hidden_states=True)
+            rows.append(out.hidden_states[-2].float())
+            if sub:
+                pooled = out[0].float()
+        return (torch.cat(rows, dim=-1).numpy(), pooled.numpy())
+
+    return encode
+
+
 class PromptProcessor:
     """Host-side precompute; calling it gives a `PromptEmbeddings` on
     `device`. Without `encode_fn`, prompts missing from the cache are
@@ -351,9 +388,10 @@ class PromptProcessor:
     ):
         from humangaussian_torch import resolve_device
 
-        if cfg.encoder_type not in ("clip", "t5"):
+        if cfg.encoder_type not in ("clip", "t5", "sdxl"):
             raise ValueError(f"unknown encoder_type {cfg.encoder_type!r}; "
-                             "expected 'clip' or 't5'")
+                             "expected 'clip', 't5' or 'sdxl'")
+        self.with_pooled = cfg.encoder_type == "sdxl"
         self.cfg = cfg
         self.device = resolve_device(device)
         self.encode_fn = encode_fn
@@ -364,14 +402,14 @@ class PromptProcessor:
         self.negative_prompt = cfg.negative_prompt
         self.directions = directions(cfg.view_dependent_prompt_front)
 
-    def _cache_path(self, prompt: str) -> str:
+    def _cache_path(self, prompt: str, suffix: str = "") -> str:
         return os.path.join(
             self.cfg.cache_dir,
-            _hash_prompt(self.cfg.model_path, prompt) + ".npy")
+            _hash_prompt(self.cfg.model_path, prompt) + suffix + ".npy")
 
-    def _encode(self, prompts: list[str]) -> np.ndarray:
+    def _encode(self, prompts: list[str]):
         """Encode prompts the cache lacks, building the text encoder on
-        first need."""
+        first need: ([n, L, D], [n, P] pooled rows or None)."""
         if self.encode_fn is None:
             try:
                 import transformers  # noqa: F401
@@ -382,28 +420,43 @@ class PromptProcessor:
                     "them needs the `transformers` package, which is not "
                     "installed; fill the cache where it is (or pass an "
                     "encode_fn)") from exc
-            build = (hf_t5_encode_fn if self.cfg.encoder_type == "t5"
-                     else hf_clip_encode_fn)
+            build = {"t5": hf_t5_encode_fn, "sdxl": hf_sdxl_encode_fn}.get(
+                self.cfg.encoder_type, hf_clip_encode_fn)
             self.encode_fn = build(self.cfg.model_path)
-        return np.asarray(self.encode_fn(prompts))
+        out = self.encode_fn(prompts)
+        if self.with_pooled != isinstance(out, tuple):
+            raise ValueError(
+                f"encoder_type {self.cfg.encoder_type!r} "
+                + ("needs" if self.with_pooled else "takes no")
+                + " pooled rows from the encode function")
+        if self.with_pooled:
+            return np.asarray(out[0]), np.asarray(out[1])
+        return np.asarray(out), None
 
-    def _encode_cached(self, prompts: list[str]) -> np.ndarray:
+    def _encode_cached(self, prompts: list[str]):
+        """([n, L, D], [n, P] or None) through the cache: the pooled rows
+        of a prompt are a second file beside its token rows."""
         if not self.cfg.use_cache:
             return self._encode(prompts)
         os.makedirs(self.cfg.cache_dir, exist_ok=True)
-        out: dict[int, np.ndarray] = {}
+        suffixes = ("", ".pooled") if self.with_pooled else ("",)
+        out: dict[int, tuple] = {}
         missing = []
         for i, p in enumerate(prompts):
-            if os.path.exists(self._cache_path(p)):
-                out[i] = np.load(self._cache_path(p))
+            paths = [self._cache_path(p, x) for x in suffixes]
+            if all(os.path.exists(f) for f in paths):
+                out[i] = tuple(np.load(f) for f in paths)
             else:
                 missing.append((i, p))
         if missing:
             fresh = self._encode([p for _, p in missing])
-            for (i, p), emb in zip(missing, fresh):
-                np.save(self._cache_path(p), emb)
-                out[i] = emb
-        return np.stack([out[i] for i in range(len(prompts))])
+            for j, (i, p) in enumerate(missing):
+                out[i] = tuple(x[j] for x in fresh if x is not None)
+                for x, arr in zip(suffixes, out[i]):
+                    np.save(self._cache_path(p, x), arr)
+        stacked = [np.stack([out[i][k] for i in range(len(prompts))])
+                   for k in range(len(suffixes))]
+        return stacked[0], stacked[1] if self.with_pooled else None
 
     def __call__(self) -> PromptEmbeddings:
         cfg = self.cfg
@@ -419,7 +472,7 @@ class PromptProcessor:
             vd_prompts = [d.prompt(self.prompt) for d in self.directions]
         vd_neg = [d.negative_prompt(self.negative_prompt)
                   for d in self.directions]
-        emb = self._encode_cached(
+        emb, pooled = self._encode_cached(
             [self.prompt, self.negative_prompt, ""] + vd_prompts + vd_neg)
         n = len(self.directions)
 
@@ -427,28 +480,35 @@ class PromptProcessor:
             return torch.from_numpy(
                 np.ascontiguousarray(x, np.float32)).to(self.device)
 
+        def fields(e):
+            return dict(text=t(e[0]), uncond=t(e[1]), null=t(e[2]),
+                        text_vd=t(e[3: 3 + n]),
+                        uncond_vd=t(e[3 + n: 3 + 2 * n]))
+
         return PromptEmbeddings(
-            text=t(emb[0]),
-            uncond=t(emb[1]),
-            null=t(emb[2]),
-            text_vd=t(emb[3: 3 + n]),
-            uncond_vd=t(emb[3 + n: 3 + 2 * n]),
-        )
+            **fields(emb),
+            pooled=None if pooled is None
+            else PromptEmbeddings(**fields(pooled)))
 
 
 def dummy_encode_fn(
-    seq_len: int = 77, dim: int = 1024
+    seq_len: int = 77, dim: int = 1024, pooled_dim: int = 0
 ) -> Callable[[list[str]], np.ndarray]:
     """Deterministic pseudo-embeddings keyed by the prompt's hash, for
     pipelines and tests that need the PromptEmbeddings plumbing without a
-    text-encoder checkpoint."""
+    text-encoder checkpoint; with `pooled_dim`, also [n, pooled_dim]
+    pooled rows (the `sdxl` encoder type's pair)."""
 
-    def encode(prompts: list[str]) -> np.ndarray:
-        out = []
+    def encode(prompts: list[str]):
+        out, pooled = [], []
         for p in prompts:
             seed = int(_hash_prompt("dummy", p)[:8], 16)
             rs = np.random.RandomState(seed)
             out.append(rs.normal(0, 1, (seq_len, dim)).astype(np.float32))
+            if pooled_dim:
+                pooled.append(rs.normal(0, 1, pooled_dim).astype(np.float32))
+        if pooled_dim:
+            return np.stack(out), np.stack(pooled)
         return np.stack(out)
 
     return encode

@@ -31,6 +31,18 @@ the backbone of guidance/stable_diffusion.py and guidance/deep_floyd.py.
 `use_linear_projection` off gives SD 1.5's transformer projections, 1 x 1
 convolutions (guidance/controlnet.py).
 
+SDXL (`SDXL_BASE_CONFIG`, guidance/stable_diffusion_xl.py) is a
+`SingleUNet` with two more fields: `transformer_layers_per_block`, the
+depth of each level's transformer stacks (1 / 2 / 10; the mid block takes
+the last level's, the up blocks the mirrored ones), and `pooled_text_dim`,
+diffusers' `addition_embed_type: text_time`: the pooled text embedding
+[B, pooled_text_dim] concatenated with the 6 time ids through the
+`addition_time_embed_dim`-wide sinusoid, through `add_embedding` and added
+to the time embedding. Their defaults (1, 0) build every other
+configuration as before, with the same parameter names. Each
+`Transformer2DModel` call is an `hg.guidance.unet.xformer` span while a
+profiler runs (utils/profiling.py).
+
 Kernels: every GroupNorm is `GroupNormAct` (ops/groupnorm.py, the fused
 forward kernel, K5 backward) and self-attention with `flash_attention` on and a token count that is a
 multiple of 128 is `self_attention` (ops/attention.py, kernel K4).
@@ -68,6 +80,7 @@ from torch import nn
 
 from humangaussian_torch.ops.attention import self_attention
 from humangaussian_torch.ops.groupnorm import GroupNormAct
+from humangaussian_torch.utils.profiling import trace_annotation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,13 +103,42 @@ class UNetConfig:
     use_linear_projection: bool = True  # False: SD 1.5's 1 x 1 convolutions
     flash_attention: bool = False  # kernel K4 for self-attention
     dtype: torch.dtype = torch.bfloat16
+    # transformer blocks a stack, one number for every level or one a level
+    transformer_layers_per_block: int | Sequence[int] = 1
+    # SingleUNet: width of the pooled text rows of the text-time embedding
+    # (SDXL's 1280); 0 builds none
+    pooled_text_dim: int = 0
 
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
 
+    @property
+    def depths(self) -> tuple:
+        """Transformer blocks a stack at each level."""
+        d = self.transformer_layers_per_block
+        n = len(self.block_out_channels)
+        return (d,) * n if isinstance(d, int) else tuple(d)
+
 
 SD2_BASE_CONFIG = UNetConfig(flash_attention=True)
+
+# Stable Diffusion XL base 1.0 (stabilityai/stable-diffusion-xl-base-1.0,
+# unet/config.json): 2,567,463,684 parameters
+SDXL_BASE_CONFIG = UNetConfig(
+    in_channels=4,
+    out_channels=4,
+    block_out_channels=(320, 640, 1280),
+    layers_per_block=2,
+    cross_attention_dim=2048,
+    attn_heads=(5, 10, 20),
+    down_block_has_attn=(False, True, True),
+    transformer_layers_per_block=(1, 2, 10),
+    pooled_text_dim=1280,
+    addition_time_embed_dim=256,
+    num_time_ids=6,
+    flash_attention=True,
+)
 
 TINY_TEST_CONFIG = UNetConfig(
     block_out_channels=(32, 64),
@@ -243,14 +285,14 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2DModel(nn.Module):
-    """The norm, the input projection, one transformer block and the output
-    projection, with the residual. The projections are linear layers
+    """The norm, the input projection, `depth` transformer blocks and the
+    output projection, with the residual. The projections are linear layers
     (SD2's `use_linear_projection`, weights [C, C]) or, with
     `use_linear_projection` off, 1 x 1 convolutions (SD 1.5, weights
     [C, C, 1, 1]), as diffusers builds them."""
 
     def __init__(self, dim, context_dim, heads, groups, use_flash=False,
-                 use_linear_projection=True):
+                 use_linear_projection=True, depth: int = 1):
         super().__init__()
         self.use_linear_projection = use_linear_projection
         self.norm = GroupNormAct(groups, dim, eps=1e-6)
@@ -261,10 +303,15 @@ class Transformer2DModel(nn.Module):
             self.proj_in = nn.Conv2d(dim, dim, 1)
             self.proj_out = nn.Conv2d(dim, dim, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(dim, context_dim, heads, use_flash)]
+            [BasicTransformerBlock(dim, context_dim, heads, use_flash)
+             for _ in range(depth)]
         )
 
     def forward(self, x, context):
+        with trace_annotation("hg.guidance.unet.xformer"):
+            return self._forward(x, context)
+
+    def _forward(self, x, context):
         b, c, hh, ww = x.shape
         res = x
         h = self.norm(x)
@@ -273,7 +320,8 @@ class Transformer2DModel(nn.Module):
         h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         if self.use_linear_projection:
             h = self.proj_in(h)
-        h = self.transformer_blocks[0](h, context)
+        for blk in self.transformer_blocks:
+            h = blk(h, context)
         if self.use_linear_projection:
             h = self.proj_out(h)
         h = h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
@@ -296,7 +344,7 @@ class DownBlock(nn.Module):
     """CrossAttnDownBlock2D or DownBlock2D, by `has_attn`."""
 
     def __init__(self, in_ch, out_ch, temb_dim, has_attn, heads,
-                 add_downsample, cfg: UNetConfig):
+                 add_downsample, cfg: UNetConfig, depth: int = 1):
         super().__init__()
         self.resnets = nn.ModuleList(
             [ResnetBlock2D(in_ch if i == 0 else out_ch, out_ch, temb_dim,
@@ -304,7 +352,7 @@ class DownBlock(nn.Module):
              for i in range(cfg.layers_per_block)]
         )
         self.attentions = nn.ModuleList(
-            [_transformer(out_ch, heads, cfg)
+            [_transformer(out_ch, heads, cfg, depth)
              for _ in range(cfg.layers_per_block)]
         ) if has_attn else None
         self.downsamplers = (
@@ -326,7 +374,7 @@ class DownBlock(nn.Module):
 
 class UpBlock(nn.Module):
     def __init__(self, prev_ch, skip_chs, out_ch, temb_dim, has_attn, heads,
-                 add_upsample, cfg: UNetConfig):
+                 add_upsample, cfg: UNetConfig, depth: int = 1):
         super().__init__()
         self.resnets = nn.ModuleList(
             [ResnetBlock2D((prev_ch if i == 0 else out_ch) + skip, out_ch,
@@ -334,7 +382,7 @@ class UpBlock(nn.Module):
              for i, skip in enumerate(skip_chs)]
         )
         self.attentions = nn.ModuleList(
-            [_transformer(out_ch, heads, cfg) for _ in skip_chs]
+            [_transformer(out_ch, heads, cfg, depth) for _ in skip_chs]
         ) if has_attn else None
         self.upsamplers = (
             nn.ModuleList([_Resample(out_ch, 1)]) if add_upsample else None
@@ -358,7 +406,8 @@ class MidBlock(nn.Module):
             [ResnetBlock2D(ch, ch, temb_dim, cfg.norm_num_groups)
              for _ in range(2)]
         )
-        self.attentions = nn.ModuleList([_transformer(ch, heads, cfg)])
+        self.attentions = nn.ModuleList(
+            [_transformer(ch, heads, cfg, cfg.depths[-1])])
 
     def forward(self, x, temb, context):
         x = self.resnets[0](x, temb)
@@ -366,10 +415,10 @@ class MidBlock(nn.Module):
         return self.resnets[1](x, temb)
 
 
-def _transformer(ch, heads, cfg: UNetConfig):
+def _transformer(ch, heads, cfg: UNetConfig, depth: int = 1):
     return Transformer2DModel(ch, cfg.cross_attention_dim, heads,
                               cfg.norm_num_groups, cfg.flash_attention,
-                              cfg.use_linear_projection)
+                              cfg.use_linear_projection, depth)
 
 
 def cast_weights(module: nn.Module, dtype: torch.dtype,
@@ -398,7 +447,7 @@ def _down_blocks(cfg: UNetConfig, count: int) -> nn.ModuleList:
     return nn.ModuleList(
         [DownBlock(chs[max(i - 1, 0)], chs[i], cfg.time_embed_dim,
                    cfg.down_block_has_attn[i], cfg.attn_heads[i], i < n - 1,
-                   cfg)
+                   cfg, cfg.depths[i])
          for i in range(count)]
     )
 
@@ -412,6 +461,7 @@ def _up_blocks(cfg: UNetConfig, first: int) -> nn.ModuleList:
     rev = list(reversed(chs))
     rev_attn = list(reversed(cfg.down_block_has_attn))
     rev_heads = list(reversed(cfg.attn_heads))
+    rev_depths = list(reversed(cfg.depths))
     skips = [chs[0]]  # bottom of the stack first
     for i in range(n):
         skips += [chs[i]] * cfg.layers_per_block
@@ -425,7 +475,7 @@ def _up_blocks(cfg: UNetConfig, first: int) -> nn.ModuleList:
         if i >= first:
             blocks.append(UpBlock(
                 rev[max(i - 1, 0)], skip_chs, rev[i], cfg.time_embed_dim,
-                rev_attn[i], rev_heads[i], i < n - 1, cfg))
+                rev_attn[i], rev_heads[i], i < n - 1, cfg, rev_depths[i]))
     return nn.ModuleList(blocks)
 
 
@@ -436,9 +486,11 @@ def _stem(x, dtype):
 
 
 class SingleUNet(nn.Module):
-    """The plain diffusers UNet2DConditionModel: no depth branch, no size
-    micro-conditioning; `encoder_hid_proj` maps the text embeddings to the
-    cross-attention width when `cfg.encoder_hid_dim` is set."""
+    """The plain diffusers UNet2DConditionModel: no depth branch;
+    `encoder_hid_proj` maps the text embeddings to the cross-attention
+    width when `cfg.encoder_hid_dim` is set; with `cfg.pooled_text_dim`,
+    SDXL's text-time `add_embedding` (pooled text and the time ids), else
+    no micro-conditioning."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -451,6 +503,11 @@ class SingleUNet(nn.Module):
         self.encoder_hid_proj = (
             nn.Linear(cfg.encoder_hid_dim, cfg.cross_attention_dim)
             if cfg.encoder_hid_dim is not None else None)
+        if cfg.pooled_text_dim:
+            self.add_embedding = TimestepEmbedding(
+                cfg.pooled_text_dim
+                + cfg.num_time_ids * cfg.addition_time_embed_dim,
+                cfg.time_embed_dim)
         self.down_blocks = _down_blocks(cfg, n)
         self.mid_block = MidBlock(chs[-1], cfg.time_embed_dim,
                                   cfg.attn_heads[-1], cfg)
@@ -464,17 +521,27 @@ class SingleUNet(nn.Module):
         return self.conv_in.weight.dtype
 
     def forward(self, sample, timesteps, encoder_hidden_states,
-                down_residuals=None, mid_residual=None):
+                down_residuals=None, mid_residual=None, text_embeds=None,
+                time_ids=None):
         """sample [B, h, w, in_channels], timesteps [B],
         encoder_hidden_states [B, L, encoder_hid_dim or
         cross_attention_dim] -> [B, h, w, out_channels] float32.
         `down_residuals` (one [B, h_i, w_i, C_i] per skip, conv_in's
         first) and `mid_residual` are added to the skips and to the mid
-        block's output (ControlNet injection, guidance/controlnet.py)."""
+        block's output (ControlNet injection, guidance/controlnet.py).
+        With `cfg.pooled_text_dim`, `text_embeds` [B, pooled_text_dim] and
+        `time_ids` [B, num_time_ids] are the text-time conditioning."""
         cfg = self.cfg
         dtype = self.dtype
         emb = self.time_embedding(sinusoidal_embedding(
             timesteps, cfg.block_out_channels[0]).to(dtype))
+        if cfg.pooled_text_dim:
+            b = time_ids.shape[0]
+            time_emb = sinusoidal_embedding(
+                time_ids.reshape(-1), cfg.addition_time_embed_dim
+            ).reshape(b, cfg.num_time_ids * cfg.addition_time_embed_dim)
+            emb = emb + self.add_embedding(
+                torch.cat([text_embeds.float(), time_emb], dim=-1).to(dtype))
         context = encoder_hidden_states.to(dtype)
         if self.encoder_hid_proj is not None:
             context = self.encoder_hid_proj(context)

@@ -6,13 +6,20 @@ of the guidance. Encoder: conv_in -> 4 down blocks (2 resnets each and a
 strided-conv downsample with the VAE's asymmetric (0, 1) padding) -> mid
 (resnet, single-head attention, resnet) -> GroupNorm / SiLU -> conv_out ->
 2 x latent moments -> quant_conv. The decoder mirrors it with 3 resnets per
-up block and nearest-neighbour upsampling. The scaling factor 0.18215 is
+up block and nearest-neighbour upsampling. The scaling factor (0.18215) is
 applied by the guidance, not here.
 
 Parameter names are diffusers' (`encoder.down_blocks.0.resnets.0.norm1
 .weight`, ...), so an `AutoencoderKL` state dict loads without a
 converter. Its one attention is a plain matrix product, as in the
-reference.
+reference. Where the float32 logits of the whole batch would take more
+than `ATTN_CAP_BYTES` (SDXL's 1024^2 encodes: 16,384 tokens, 8 GiB at
+batch 8), the queries run in chunks under the cap
+(`chunked_attention`), each chunk recomputed in the backward instead of
+keeping its logits and probabilities; each row's arithmetic is the same.
+At 512^2 (4,096 tokens, 512 MiB at batch 8) the one-pass form runs, as
+before. The latent scale is the configuration's `scaling_factor`
+(0.18215 for sd-vae-ft-mse, 0.13025 for `SDXL_VAE_CONFIG`, sdxl-vae).
 
 Norms: every GroupNorm, and the SiLU after it where there is one, is the
 port's `GroupNormAct` (ops/groupnorm.py: kernels K3 / K3a forward, K5 / K5a
@@ -54,6 +61,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from humangaussian_torch.ops import conv_bias
 from humangaussian_torch.ops.groupnorm import GroupNormAct
@@ -69,6 +77,12 @@ class VAEConfig:
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
     dtype: torch.dtype = torch.bfloat16
+
+
+# stabilityai/sdxl-vae: sd-vae-ft-mse's architecture, its own scale
+SDXL_VAE_CONFIG = VAEConfig(scaling_factor=0.13025)
+
+ATTN_CAP_BYTES = 1 << 30  # float32 logits of the mid block's attention
 
 
 def tiny_vae_config() -> VAEConfig:
@@ -133,10 +147,37 @@ class AttnBlock(nn.Module):
         res = x
         h = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
-        logits = q.float() @ k.float().transpose(-1, -2) / c**0.5
-        attn = torch.softmax(logits, dim=-1).to(h.dtype)
-        h = self.to_out[0](attn @ v)
+        rows = attention_chunk_rows(b, hh * ww)
+        h = self.to_out[0](attend(q, k, v) if rows >= hh * ww
+                           else chunked_attention(q, k, v, rows))
         return res + h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+
+
+def attention_chunk_rows(b: int, n: int) -> int:
+    """Query rows a chunk so that [b, rows, n] float32 logits take at most
+    ATTN_CAP_BYTES; n or more means one pass."""
+    return max(1, ATTN_CAP_BYTES // (b * n * 4))
+
+
+def attend(q, k, v):
+    """softmax(q k^T / sqrt(C)) v: float32 logits and softmax, the
+    probabilities cast to v's dtype; q [B, m, C], k and v [B, n, C]."""
+    logits = q.float() @ k.float().transpose(-1, -2) / q.shape[-1]**0.5
+    return torch.softmax(logits, dim=-1).to(v.dtype) @ v
+
+
+def chunked_attention(q, k, v, rows: int):
+    """`attend` over chunks of `rows` queries; with grad enabled each chunk
+    runs under `torch.utils.checkpoint`, so only q, k and v are kept and
+    the backward recomputes one chunk's logits at a time."""
+    grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    outs = []
+    for s in range(0, q.shape[1], rows):
+        qc = q[:, s:s + rows]
+        outs.append(checkpoint(attend, qc, k, v, use_reentrant=False)
+                    if grad else attend(qc, k, v))
+    return torch.cat(outs, dim=1)
 
 
 class _Resample(nn.Module):

@@ -4,9 +4,9 @@ Port of humangaussian_tpu/train/checkpoint.py. The JAX package writes one
 orbax pytree; here `torch.save` writes one file, `state.pt`, under the
 checkpoint directory: the padded scene, the Adam moments and count, the
 densify statistics, the host step, the generator's state
-(`torch.Generator.get_state`) and the per-tile pair cap that the loop's
-ladder reached, so a run resumes bit for bit. PLY export
-(io/ply.py) stays the interop artifact. There is no compatibility with
+(`torch.Generator.get_state`), the per-tile pair cap that the loop's
+ladder reached and its overflow streak, so a run resumes bit for bit.
+PLY export (io/ply.py) stays the interop artifact. There is no compatibility with
 the JAX package's orbax checkpoints.
 """
 from __future__ import annotations
@@ -41,6 +41,7 @@ def save_checkpoint(path: str, state) -> str:
         "step": int(state.step),
         "generator": state.generator.get_state(),
         "tile_cap": int(state.tile_cap),
+        "ovf_streak": int(state.ovf_streak),
     }, os.path.join(path, STATE_FILE))
     return path
 
@@ -68,4 +69,5 @@ def restore_checkpoint(path: str, template):
                                    template.densify._asdict())),
         step=int(saved["step"]),
         tile_cap=int(saved["tile_cap"]),
+        ovf_streak=int(saved.get("ovf_streak", 0)),
     )

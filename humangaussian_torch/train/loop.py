@@ -21,8 +21,10 @@ deepest ones (`overflow`), so the JAX loop's tile-capacity ladder stays: a
 logged step that drops any pair warns, and more than
 `OVERFLOW_GROW_THRESHOLD` dropped pairs on `OVERFLOW_PATIENCE` logged
 checks in a row grow the cap 1.5x (rounded up to 128) up to
-`TILE_CAP_MAX`. The cap lives in the `TrainState`, so the checkpoint keeps
-it and a resumed run does not climb the ladder again. Not ported, because
+`TILE_CAP_MAX`. The cap and the streak of logged checks over the
+threshold live in the `TrainState`, so the checkpoint keeps them, a
+resumed run does not climb the ladder again, and a caller that runs one
+step a call climbs it as one long call does. Not ported, because
 dynamic binning leaves them nothing to do: `active_rank_bucket` (the
 candidate domain is sized by the live scene) and the `class_fracs` ladder
 (there is no class chain, so `overflow_spill` is 0), with their arguments;
@@ -110,7 +112,6 @@ def run_training(
     history: list[dict] = []
     t_last = time.time()
     steps_since_log = 0
-    ovf_streak = 0
 
     for _ in range(state.step, max_steps):
         with trace_annotation("hg.step"):
@@ -139,16 +140,17 @@ def run_training(
                     log_fn(f"WARNING step {step}: rasterizer dropped {ovf} "
                            f"(tile, gaussian) pairs at tile_capacity "
                            f"{state.tile_cap}")
-                ovf_streak = (ovf_streak + 1 if ovf > OVERFLOW_GROW_THRESHOLD
-                              else 0)
-                if (ovf_streak >= OVERFLOW_PATIENCE
+                streak = (state.ovf_streak + 1
+                          if ovf > OVERFLOW_GROW_THRESHOLD else 0)
+                if (streak >= OVERFLOW_PATIENCE
                         and state.tile_cap < TILE_CAP_MAX):
                     new_cap = grown_tile_cap(state.tile_cap)
-                    log_fn(f"step {step}: overflow persisted {ovf_streak} "
+                    log_fn(f"step {step}: overflow persisted {streak} "
                            f"checks ({ovf} pairs); tile_capacity "
                            f"{state.tile_cap} -> {new_cap}")
-                    state = state._replace(tile_cap=new_cap)
-                    ovf_streak = 0
+                    state = state._replace(tile_cap=new_cap, ovf_streak=0)
+                elif streak != state.ovf_streak:
+                    state = state._replace(ovf_streak=streak)
                 history.append(row)
                 if logger is not None:
                     logger.log_scalars(step, row)

@@ -5,8 +5,10 @@ Port of humangaussian_tpu/train/system.py. One `train_step`:
   sample 8 cameras, draw their pose images, anneal timesteps, pick text
   -> batched tiled render with the means2d tap (K1; K2 in the backward)
   -> the guidance: dual-branch ANPG (VAE encodes, UNet, reparameterized
-     loss), or DeepFloyd IF (`system.guidance.type: deep-floyd`), which is
-     handed the cameras' elevation, azimuth and distance for Perp-Neg
+     loss), DeepFloyd IF (`system.guidance.type: deep-floyd`), which is
+     handed the cameras' elevation, azimuth and distance for Perp-Neg, or
+     SDXL (`stable-diffusion-xl`), which is also handed the pooled text
+     rows of the step's views (`StepInputs.pooled`)
   -> sparsity (and opaque) losses -> gradients of the Gaussian parameters
      and of the means2d tap in one `torch.autograd.grad`
   -> densify statistics -> per-group Adam.
@@ -34,7 +36,8 @@ device, so reading them costs the step no host sync; the syncs a step
 does make are its `hg.read.*` spans (utils/profiling.py).
 `TrainState.tile_cap` is the per-tile pair cap of the training render
 (the JAX step's static `tile_cap`): it starts at `cfg.tile_capacity`, the
-loop's ladder grows it (train/loop.py) and the checkpoint keeps it.
+loop's ladder grows it (train/loop.py) and the checkpoint keeps it, with
+the ladder's overflow streak `TrainState.ovf_streak`.
 `render_eval` renders the orbit in chunks of the training batch size
 (each camera is rendered independently, so the chunks equal one
 whole-batch render). There is no counterpart of `remat_render`, nor of the
@@ -137,6 +140,10 @@ class TrainState(NamedTuple):
     step: int  # host step count
     generator: torch.Generator  # on the device: every draw of the step
     tile_cap: int  # pairs composited per tile at most (grown by the loop)
+    # logged checks in a row over the loop's overflow threshold, carried
+    # across `run_training` calls so that a caller stepping one at a time
+    # climbs the tile-capacity ladder as one long call does
+    ovf_streak: int = 0
 
 
 class StepInputs(NamedTuple):
@@ -149,6 +156,9 @@ class StepInputs(NamedTuple):
     text: torch.Tensor  # [3B, L, D] [cond | neg | null]
     t: torch.Tensor  # [B] int64 timesteps
     guidance_draws: dict | None = None
+    # [3B, P] pooled text rows, [cond | neg | null], for a prior that takes
+    # them (SDXL); None for the others
+    pooled: torch.Tensor | None = None
 
 
 class GaussianDreamerSystem:
@@ -258,11 +268,17 @@ class GaussianDreamerSystem:
                                           self.device)
             u = torch.rand(self.camera_cfg.batch_size, generator=gen,
                            device=gen.device, dtype=torch.float32)
-            text = self.prompt_embeddings.get_text_embeddings(
+            emb = self.prompt_embeddings
+            text = emb.get_text_embeddings(
                 cameras.elevation, cameras.azimuth, cameras.camera_distances)
+            pooled = None if emb.pooled is None else \
+                emb.pooled.get_text_embeddings(
+                    cameras.elevation, cameras.azimuth,
+                    cameras.camera_distances)
             return StepInputs(cameras=cameras,
                               pose=self.pose_images(cameras), text=text,
-                              t=self.timesteps_from_uniform(u, state.step))
+                              t=self.timesteps_from_uniform(u, state.step),
+                              pooled=pooled)
 
     # ---- loss --------------------------------------------------------------
     def batch_loss(self, params: dict, offset, scene_template, inputs,
@@ -297,7 +313,9 @@ class GaussianDreamerSystem:
         depth3 = ((depths - dmin) / (dmax - dmin + 1e-10)).expand(
             -1, -1, -1, 3)
 
-        draws = inputs.guidance_draws or {}
+        draws = dict(inputs.guidance_draws or {})
+        if inputs.pooled is not None:
+            draws["pooled"] = inputs.pooled
         cams = inputs.cameras
         with trace_annotation("hg.guidance"):
             g_out = self.guidance(

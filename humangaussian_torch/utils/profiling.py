@@ -14,7 +14,8 @@ Port of humangaussian_tpu/utils/profiling.py on torch's tools:
     with `hg.render.project`, `hg.render.bin` and `hg.render.composite`
     inside), `hg.guidance` (with `hg.guidance.encode`, the resizes and the
     VAE encodes, and `hg.guidance.unet`, the UNet passes and the ANPG
-    gradient), `hg.backward` (`torch.autograd.grad`, with
+    gradient, with `hg.guidance.unet.xformer` around each of the UNet's
+    transformer stacks), `hg.backward` (`torch.autograd.grad`, with
     `hg.render.composite_bwd`, K2 + K2b, and the encodes' recompute inside
     it in time, on autograd's thread on the card), `hg.optim`
     (`apply_grads`), `hg.densify` (a density-control pass) and

@@ -248,4 +248,7 @@ def test_configs_match():
         assert got.pop("dtype") == {"bfloat16": torch.bfloat16,
                                     "float32": torch.float32}[
             np.dtype(want.pop("dtype")).name]
+        # the port's SDXL fields, at the defaults that build these as before
+        assert got.pop("transformer_layers_per_block") == 1
+        assert got.pop("pooled_text_dim") == 0
         assert got == want, name

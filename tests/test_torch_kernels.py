@@ -1005,3 +1005,82 @@ def test_vae_convolution_with_a_bias_that_requires_grad_raises(cuda_device):
         y = conv(x)
     conv.bias.requires_grad_(False)
     assert torch.equal(conv(x), y)
+
+
+@pytest.mark.cuda
+def test_sdxl_unet_launches_k4_at_every_self_attention_site(cuda_device):
+    """SDXL base 1.0's UNet at its published widths (seeded bfloat16
+    weights), one sample on 128^2 latents: its 70 self-attention sites
+    (10 at 4096 tokens, 60 at 1024) launch K4 70 times and the output is
+    finite."""
+    from humangaussian_torch.guidance.unet import SDXL_BASE_CONFIG, SingleUNet
+
+    with torch.device("meta"):
+        unet = SingleUNet(SDXL_BASE_CONFIG)
+    unet.to_empty(device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    unet.to(memory_format=torch.channels_last).requires_grad_(False)
+    x = torch.randn((1, 128, 128, 4), generator=gen, device=cuda_device)
+    text = torch.randn((1, 77, 2048), generator=gen, device=cuda_device)
+    pooled = torch.randn((1, 1280), generator=gen, device=cuda_device)
+    ids = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]],
+                       device=cuda_device)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = unet(x, torch.tensor([500], device=cuda_device), text,
+                   text_embeds=pooled, time_ids=ids)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["attention_fwd"] == 70
+    assert out.shape == (1, 128, 128, 4) and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_vae_attention_chunks_only_past_the_cap(cuda_device, monkeypatch):
+    """The VAE's mid-block attention at batch 8: 4096 tokens (SD2's 512^2
+    encode) take the one-pass form, 16,384 tokens (SDXL's 1024^2) the
+    chunked one, in 2048-query chunks; on one 16,384-token image the
+    chunked form's output and input gradient match the one-pass form's
+    within bfloat16 rounding."""
+    from humangaussian_torch.guidance import vae as port_vae
+
+    torch.manual_seed(0)
+    blk = port_vae.AttnBlock(512, 32).to(cuda_device, torch.bfloat16)
+    blk.requires_grad_(False)
+    calls = []
+    own = port_vae.chunked_attention
+
+    def spy(q, k, v, rows):
+        calls.append(rows)
+        return own(q, k, v, rows)
+
+    monkeypatch.setattr(port_vae, "chunked_attention", spy)
+
+    def image(b, s):
+        return torch.randn((b, 512, s, s), device=cuda_device,
+                           dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+    with torch.no_grad():
+        blk(image(8, 64))
+        assert calls == []
+        blk(image(8, 128))
+        assert calls == [2048]
+    x0, cot = image(1, 128), image(1, 128)
+
+    def run():
+        x = x0.clone().requires_grad_(True)
+        y = blk(x)
+        (y.float() * cot.float()).sum().backward()
+        return y.detach().float(), x.grad.float()
+
+    one = run()
+    monkeypatch.setattr(port_vae, "ATTN_CAP_BYTES", 1 << 28)
+    chunked = run()
+    assert calls[-1] == 4096
+    for a, b in zip(chunked, one):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2 * float(
+            b.abs().max()))

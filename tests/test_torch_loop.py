@@ -220,6 +220,8 @@ class _FakeSystem:
 
 
 class _State(int):
+    ovf_streak = 0  # TrainState's ladder streak; no overflow is logged here
+
     @property
     def step(self):
         return int(self)
@@ -284,6 +286,7 @@ class _LadderState(NamedTuple):
     step: int
     tile_cap: int
     scene: object = None
+    ovf_streak: int = 0
 
 
 def _ladder_run(script, steps, tile_cap=4096):
