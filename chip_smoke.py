@@ -103,6 +103,13 @@ source, started together), writes the assets, then:
    the kernel's registers and shared memory, times, TFLOP/s, bound (flops
    of the two products over 989 TFLOP/s, bytes over 3.35 TB/s),
    `F.scaled_dot_product_attention` as the library yardstick;
+10b. holds the VAE attention kernels (csrc/vae_attention.cu, one head of
+   512) against their plain versions at (8, 4096, 512) and
+   (8, 16384, 512), bfloat16: out, dq, dk and dv within 2^-7 of each
+   one's largest |x|, the log-sum-exp within 1e-4; times the forward
+   against its 2-product bound, the backward's logits pass against its 2
+   and the whole backward against 5, beside the plain path and
+   `F.scaled_dot_product_attention`;
 11. writes seeded `unet_ema` and VAE state dicts in diffusers layout
    (bfloat16, `torch.save`) and fills the prompt processor's cache with
    `dummy_encode_fn(77, 1024)` (the card has no text encoder), then builds
@@ -162,10 +169,11 @@ source, started together), writes the assets, then:
    checked step (finite, Adam moved alive rows only) whose launches are
    exactly K1 1, K2 1, K2b 1, K3 + K3a once per UNet norm and twice per
    encoder norm (the 1024^2 encode and its recompute), K5 / K5a once per
-   encoder norm, K4 70, the conv bias twice per encoder convolution, with
-   the VAE attention in 2048-query chunks in both passes; ms per step and
-   peak memory; then a float32 sdxl-vae at batch 2 and 1024^2 (its
-   attention chunked): d latents / d image through K3 + K3a, K5, K5a and
+   encoder norm, K4 70, the conv bias twice per encoder convolution, the
+   fused VAE attention's forward in both passes and its backward once per
+   image, and no `chunked_attention` call; ms per step and peak memory;
+   then a float32 sdxl-vae at batch 2 and 1024^2 (its attention chunked,
+   off the fused kernels): d latents / d image through K3 + K3a, K5, K5a and
    the conv bias kernel within 1e-3 of max-|grad| of the gradient through
    their plain versions, each kernel launched once per encoder norm or
    convolution;
@@ -1025,6 +1033,12 @@ CONV_BIAS_SHAPES = ((8, 128, 512, 512), (8, 256, 256, 256),
 ATTN_SHAPES = ((24, 4096, 5), (24, 1024, 10), (24, 256, 20),
                (24, 4096, 10), (24, 1024, 20))
 ATTN_TOL = 2.0 ** -7  # K4 vs plain, of max |out|: one bf16 ulp of the peak
+# (batch, tokens) of the VAE mid block's attention, timed and checked
+# against the plain versions: SD2's 512^2 encode and SDXL's 1024^2, at the
+# cells' batch of 8 (the plain versions take one batch entry at a time, so
+# their float32 logits hold 1 GiB at 16,384 tokens)
+VAE_ATTN_SHAPES = ((8, 4096), (8, 16384))
+VAE_ATTN_TOL = 2.0 ** -7  # kernels vs plain, of max |x|: a bf16 ulp
 # the dual-branch SD2 unet_ema with its two 8-channel conv_in (899,696,008
 # when both are built for 4 input channels)
 UNET_PARAMS = 899_696_008 + 2 * 4 * 320 * 9
@@ -1067,15 +1081,21 @@ def decode_convs(vae) -> int:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Inside, the GroupNorm, attention and conv bias wrappers take their
-    plain versions whatever the device: the reference side of a comparison.
+    """Inside, the GroupNorm, attention, conv bias and VAE attention
+    wrappers take their plain versions whatever the device: the reference side of a comparison.
     Only the comparisons use it; the paths never do."""
-    from humangaussian_torch.ops import attention, conv_bias, groupnorm
+    from humangaussian_torch.ops import (
+        attention,
+        conv_bias,
+        groupnorm,
+        vae_attention,
+    )
 
     saved = (groupnorm.group_norm_fwd, groupnorm.group_norm_stats,
              groupnorm.group_norm_apply, groupnorm.group_norm_bwd_stats,
              groupnorm.group_norm_bwd_dx, attention._attention_forward,
-             conv_bias.conv_bias_add)
+             conv_bias.conv_bias_add, vae_attention._forward,
+             vae_attention._backward)
     groupnorm.group_norm_fwd = groupnorm.group_norm_fwd_plain
     groupnorm.group_norm_stats = groupnorm.group_norm_stats_plain
     groupnorm.group_norm_apply = groupnorm.group_norm_apply_plain
@@ -1083,13 +1103,16 @@ def plain_versions():
     groupnorm.group_norm_bwd_dx = groupnorm.group_norm_bwd_dx_plain
     attention._attention_forward = attention.self_attention_plain
     conv_bias.conv_bias_add = conv_bias.conv_bias_add_plain
+    vae_attention._forward = vae_attention.vae_attention_fwd_plain
+    vae_attention._backward = vae_attention.vae_attention_bwd_plain
     try:
         yield
     finally:
         (groupnorm.group_norm_fwd, groupnorm.group_norm_stats,
          groupnorm.group_norm_apply, groupnorm.group_norm_bwd_stats,
          groupnorm.group_norm_bwd_dx, attention._attention_forward,
-         conv_bias.conv_bias_add) = saved
+         conv_bias.conv_bias_add, vae_attention._forward,
+         vae_attention._backward) = saved
 
 
 def bf16_ulp(x):
@@ -1654,6 +1677,160 @@ def attention_phase(dev) -> dict:
     }}
 
 
+def vae_attention_phase(dev) -> dict:
+    """Phase 10b: the VAE mid block's fused attention (csrc/vae_attention.cu)
+    against its plain versions at SD2's and SDXL's token counts, forward
+    and backward; times against the bf16 bound (2 products forward, 5
+    backward: S, dP, dV, dK, dQ), the plain path's (`attend`, chunked past
+    the logits cap) and scaled_dot_product_attention's as the yardstick."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from humangaussian_torch import kernels
+    from humangaussian_torch.guidance.vae import (
+        attend,
+        attention_chunk_rows,
+        chunked_attention,
+    )
+    from humangaussian_torch.ops import vae_attention as va
+
+    print("phase 10b: the VAE attention kernels (one head of 512) vs plain")
+    info = [ctypes.c_int() for _ in range(4)]
+    lib = ctypes.CDLL(str(kernels.VAE_ATTENTION_FWD.build()))
+    check(lib.hg_vae_attention_info(*(ctypes.byref(x) for x in info)) == 0,
+          "hg_vae_attention_info failed")
+    regs = {"fwd": info[0].value, "bwd": info[2].value}
+    smem = {"fwd": info[1].value, "bwd": info[3].value}
+    print(f"  forward {regs['fwd']} / backward logits pass {regs['bwd']} "
+          f"registers a thread at launch (setmaxnreg: producer 24, consumers "
+          f"240), {smem['fwd']} / {smem['bwd']} bytes of dynamic shared "
+          f"memory a block")
+    g = torch.Generator(device="cpu").manual_seed(23)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    by_shape = {"fwd": {}, "bwd": {}}
+    for b, n in VAE_ATTN_SHAPES:
+        q, k, v, dout = (torch.randn((b, n, 512), generator=g).to(
+            dev, torch.bfloat16) for _ in range(4))
+        label = f"({b}, {n}, 512)"
+        out, lse = va._forward(q, k, v)
+        grads = va._backward(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_out, p_lse = va.vae_attention_fwd_plain(q, k, v)
+        p_grads = va.vae_attention_bwd_plain(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        errs = [float((a.float() - w.float()).abs().max()
+                      / w.float().abs().max())
+                for a, w in zip((out, *grads), (p_out, *p_grads))]
+        lse_err = float((lse - p_lse).abs().max())
+        print(f"  {label}: kernel vs plain, of each one's max |x|: out "
+              f"{errs[0]:.3e}, dq {errs[1]:.3e}, dk {errs[2]:.3e}, dv "
+              f"{errs[3]:.3e} (limit {VAE_ATTN_TOL:.3e}); lse max abs "
+              f"{lse_err:.3e} (limit 1e-4); plain versions "
+              f"{plain_s:.1f} s (host clock)")
+        for name, err in zip(("out", "dq", "dk", "dv"), errs):
+            check(err <= VAE_ATTN_TOL, f"VAE attention {label} {name}: "
+                  f"{err} of max vs plain")
+        check(lse_err <= 1e-4, f"VAE attention {label} lse: {lse_err}")
+        worst["fwd"] = max(worst["fwd"], errs[0])
+        worst["bwd"] = max(worst["bwd"], *errs[1:])
+        del p_out, p_lse, p_grads
+        check(all(bool(torch.isfinite(x).all()) for x in (out, *grads)),
+              f"VAE attention {label}: non-finite")
+        del grads
+        torch.cuda.empty_cache()
+        flops = 4.0 * b * n * n * 512  # two products
+        bound_f = flops / H100_BF16_FLOPS * 1e3
+        bound_b = 2.5 * bound_f  # five
+        spin(lambda: va._forward(q, k, v))
+        fwd_ms = cuda_ms(lambda: va._forward(q, k, v), reps=5, inner=2)
+        bwd_ms = cuda_ms(lambda: va._backward(q, k, v, out, lse, dout),
+                         reps=3)
+        chunk = va.backward_chunk(b, n)
+        p_buf = torch.empty((chunk, n, n), dtype=torch.bfloat16, device=dev)
+        ds_buf = torch.empty_like(p_buf)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def logits_pass():
+            for s0 in range(0, b, chunk):
+                m = min(b, s0 + chunk) - s0
+                kernels.VAE_ATTENTION_BWD.launch(
+                    q[s0].data_ptr(), k[s0].data_ptr(), v[s0].data_ptr(),
+                    out[s0].data_ptr(), dout[s0].data_ptr(),
+                    lse[s0].data_ptr(), p_buf.data_ptr(), ds_buf.data_ptr(),
+                    m, n, 512 ** -0.5, stream)
+
+        pass_ms = cuda_ms(logits_pass, reps=3)
+        del p_buf, ds_buf
+        rows = attention_chunk_rows(b, n)
+
+        def plain_path(grad):
+            xs = [x.detach().requires_grad_(grad) for x in (q, k, v)]
+            y = attend(*xs) if rows >= n else chunked_attention(*xs, rows)
+            if grad:
+                y.backward(dout)
+
+        with torch.no_grad():
+            path_f = cuda_ms(lambda: plain_path(False), reps=1)
+        path_fb = cuda_ms(lambda: plain_path(True), reps=1)
+        qh, kh, vh = (x[:, None] for x in (q, k, v))
+
+        def lib_fb():
+            xs = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
+            F.scaled_dot_product_attention(*xs).backward(dout[:, None])
+
+        try:  # the yardstick only; its math fallback may not fit
+            lib_f = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh), reps=3)
+            lib_fb_ms = cuda_ms(lib_fb, reps=1)
+        except torch.OutOfMemoryError:
+            lib_f = lib_fb_ms = None
+        torch.cuda.empty_cache()
+        lib_text = ("not measured (out of memory)" if lib_f is None else
+                    f"forward {lib_f:.3f} ms, forward + backward "
+                    f"{lib_fb_ms:.3f} ms")
+        print(f"  {label}: forward {fwd_ms:.3f} ms = {flops / fwd_ms / 1e9:.1f}"
+              f" TFLOP/s, {100 * bound_f / fwd_ms:.1f}% of the bound "
+              f"{bound_f:.3f} ms; backward {bwd_ms:.3f} ms, "
+              f"{100 * bound_b / bwd_ms:.1f}% of the bound {bound_b:.3f} ms "
+              f"(its logits pass {pass_ms:.3f} ms, "
+              f"{100 * 0.4 * bound_b / pass_ms:.1f}% of its 2 products; the "
+              f"three bf16 GEMMs the rest); the plain path ("
+              f"{'one pass' if rows >= n else f'chunks of {rows}'}) forward "
+              f"{path_f:.3f} ms, forward + backward {path_fb:.3f} ms; "
+              f"scaled_dot_product_attention {lib_text}")
+        by_shape["fwd"][label] = {
+            "ms": fwd_ms, "bound_ms": bound_f, "bound_by": "operations",
+            "plain_path_ms": path_f, "library_ms": lib_f}
+        by_shape["bwd"][label] = {
+            "ms": pass_ms, "bound_ms": 0.4 * bound_b,
+            "bound_by": "operations", "op_ms": bwd_ms, "op_bound_ms": bound_b,
+            "plain_path_ms": path_fb - path_f,
+            "library_ms": None if lib_f is None else lib_fb_ms - lib_f}
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    main = "({}, {}, 512)".format(*VAE_ATTN_SHAPES[-1])
+    rows_out = {}
+    for kern, key in ((kernels.VAE_ATTENTION_FWD, "fwd"),
+                      (kernels.VAE_ATTENTION_BWD, "bwd")):
+        at = by_shape[key][main]
+        rows_out[kern.name] = {
+            "name": kern.name, "route": "cuda",
+            "source": "humangaussian_torch/csrc/vae_attention.cu",
+            "replaces": "none (humangaussian_tpu/guidance/vae.py:85-87, XLA "
+                        "einsums)",
+            "launches": 0, "max_abs_err": worst[key], "ms": at["ms"],
+            "plain_ms": at["plain_path_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": "operations", "library_ms": at["library_ms"],
+            "library_call": "F.scaled_dot_product_attention",
+            "registers": regs[key], "shared_memory_bytes": smem[key],
+            "shape": main, "by_shape": by_shape[key],
+            **{x: at[x] for x in ("op_ms", "op_bound_ms") if x in at}}
+    return rows_out
+
+
 def conv_bias_phase(dev) -> dict:
     """Phase 9c: the conv bias kernel bit for bit against aten's `add_`
     (its plain version and the path it replaces) at the VAE encoder's
@@ -1868,9 +2045,28 @@ def launches(**counts) -> dict:
     out = dict.fromkeys(("rasterize_fwd", "rasterize_bwd",
                          "rasterize_bwd_rows", "groupnorm_fwd",
                          "groupnorm_bwd_stats", "groupnorm_bwd_dx",
-                         "attention_fwd", "conv_bias_add"), 0)
+                         "attention_fwd", "conv_bias_add",
+                         "vae_attention_fwd", "vae_attention_bwd"), 0)
     out.update(counts)
     return out
+
+
+def vae_attention_launches(vae, tokens: int, forwards: int,
+                           backwards: int = 0, batch: int = 8) -> dict:
+    """The fused VAE attention's launches (ops/vae_attention.py) for
+    `forwards` mid-block passes and `backwards` differentiated ones of
+    `batch` images at `tokens` tokens, when `vae` takes the kernels (bf16,
+    512 wide: every VAE at full width); none for the float32 tiny VAEs.
+    A backward launches its logits pass once a chunk of batch entries."""
+    from humangaussian_torch.ops import vae_attention
+
+    if (vae.dtype != torch.bfloat16
+            or vae.cfg.block_out_channels[-1] != vae_attention.WIDTH
+            or tokens % vae_attention.ROW_MULTIPLE):
+        return {}
+    chunks = -(-batch // vae_attention.backward_chunk(batch, tokens))
+    return {"vae_attention_fwd": forwards,
+            "vae_attention_bwd": backwards * chunks}
 
 
 def dual_branch_step_launches(guidance) -> dict:
@@ -1886,7 +2082,10 @@ def dual_branch_step_launches(guidance) -> dict:
                     groupnorm_bwd_stats=2 * enc_norms,
                     groupnorm_bwd_dx=2 * enc_norms,
                     attention_fwd=ATTN_PER_UNET_FORWARD,
-                    conv_bias_add=passes * encode_convs(guidance.vae))
+                    conv_bias_add=passes * encode_convs(guidance.vae),
+                    **vae_attention_launches(
+                        guidance.vae, (guidance.cfg.image_size // 8) ** 2,
+                        passes, 2))
 
 
 def flash_sites(unet, latent: int) -> int:
@@ -2402,7 +2601,9 @@ def sample_phase(dev, system):
     want = launches(groupnorm_fwd=forward,
                     attention_fwd=4 * ATTN_PER_UNET_FORWARD,
                     conv_bias_add=encode_convs(guidance.vae)
-                    + 2 * decode_convs(guidance.vae))
+                    + 2 * decode_convs(guidance.vae),
+                    **vae_attention_launches(
+                        guidance.vae, guidance.cfg.latent_size ** 2, 3))
     check(counts == want, f"sample_joint launches {counts}, want {want}")
 
 
@@ -2629,18 +2830,23 @@ def sdxl_phase(dev, tmp, smplx_path) -> dict:
     enc_norms = norms_in(xl.vae.encoder)
     passes = 2 if xl.cfg.remat_encode else 1
     sites = flash_sites(xl.unet, xl.cfg.image_size // 8)
+    tokens = (xl.cfg.image_size // 8) ** 2
+    fused = vae_attention_launches(xl.vae, tokens, passes, 1,
+                                   system.camera_cfg.batch_size)
     want = launches(rasterize_fwd=1, rasterize_bwd=1, rasterize_bwd_rows=1,
                     groupnorm_fwd=norms_in(xl.unet) + passes * enc_norms,
                     groupnorm_bwd_stats=enc_norms,
                     groupnorm_bwd_dx=enc_norms, attention_fwd=sites,
-                    conv_bias_add=passes * encode_convs(xl.vae))
+                    conv_bias_add=passes * encode_convs(xl.vae), **fused)
     print(f"  launches {counts}; expected: {norms_in(xl.unet)} UNet norms + "
           f"{passes} encoder passes x {enc_norms} norms forward, {enc_norms} "
-          f"backward, K4 at {sites} sites; the VAE attention's chunk rows "
-          f"{rows}")
+          f"backward, K4 at {sites} sites, the fused VAE attention {fused} "
+          f"at {tokens} tokens; chunked_attention calls {rows}")
     check(sites == SDXL_ATTN_PER_UNET_FORWARD, f"{sites} K4 sites")
+    check(fused.get("vae_attention_fwd") == passes,
+          f"the sdxl-vae does not take the fused attention: {fused}")
     check(counts == want, f"SDXL launches {counts}, want {want}")
-    check(rows == [2048] * passes, f"VAE attention chunks {rows}")
+    check(rows == [], f"chunked_attention ran on the bf16 path: {rows}")
     state, _ = system.train_step(state)
     state, times = step_times(system, state, SDXL_STEP_REPS)
     print(f"  ms per SDXL train_step over {SDXL_STEP_REPS} steps: median "
@@ -2745,7 +2951,9 @@ def sjc_snapshot_phase(dev, system, tmp):
     want = launches(rasterize_fwd=1, groupnorm_fwd=norm_count,
                     attention_fwd=forwards * ATTN_PER_UNET_FORWARD,
                     conv_bias_add=3 * encode_convs(g.vae)
-                    + 4 * decode_convs(g.vae))
+                    + 4 * decode_convs(g.vae),
+                    **vae_attention_launches(g.vae, g.cfg.latent_size ** 2,
+                                             7))
     print(f"  guidance_eval_snapshot: {start.elapsed_time(end):.3f} ms; "
           f"launches {counts}")
     check(counts == want, f"snapshot launches {counts}, want {want}")
@@ -3053,7 +3261,9 @@ def sample_cli_phase(dev, tmp, overrides) -> dict:
     want = launches(groupnorm_fwd=norm_count,
                     attention_fwd=SAMPLE_CLI_STEPS * ATTN_PER_UNET_FORWARD,
                     conv_bias_add=encode_convs(g.vae)
-                    + 2 * decode_convs(g.vae))
+                    + 2 * decode_convs(g.vae),
+                    **vae_attention_launches(g.vae, g.cfg.latent_size ** 2,
+                                             3))
     per_step = seen["ms"] / SAMPLE_CLI_STEPS
     print(f"  sample_joint {seen['ms']:.3f} ms ({per_step:.3f} ms a "
           f"step), the CLI {wall:.1f} s with "
@@ -3107,7 +3317,9 @@ def sd_guidance_phase(dev):
     forward = 2 * enc_norms + norms_in(unet)  # encode, its recomputation
     want = launches(groupnorm_fwd=forward, groupnorm_bwd_stats=enc_norms,
                     groupnorm_bwd_dx=enc_norms, attention_fwd=sites,
-                    conv_bias_add=2 * encode_convs(vae))
+                    conv_bias_add=2 * encode_convs(vae),
+                    **vae_attention_launches(vae, g.cfg.latent_size ** 2, 2,
+                                             1, SD_BATCH))
     for perp_neg in (False, True):
         g.cfg = dataclasses.replace(g.cfg, use_perp_neg=perp_neg)
         x = rgb.clone().requires_grad_(True)
@@ -3229,6 +3441,7 @@ def run(dev, only=()) -> int:
         rows.update(conv_bias_phase(dev))
     if want("attention"):
         rows.update(attention_phase(dev))
+        rows.update(vae_attention_phase(dev))
     avatar_groups = ("guidance", "sample", "controlnet", "dist")
     if any(want(x) for x in avatar_groups + ("trainer", "deep-floyd",
                                              "sample-cli")):
@@ -4465,7 +4678,9 @@ def sd_step_launches(guidance, steps: int = 1) -> dict:
         groupnorm_bwd_stats=steps * enc, groupnorm_bwd_dx=steps * enc,
         attention_fwd=steps * flash_sites(guidance.unet,
                                           guidance.cfg.latent_size),
-        conv_bias_add=steps * 2 * encode_convs(guidance.vae))
+        conv_bias_add=steps * 2 * encode_convs(guidance.vae),
+        **vae_attention_launches(guidance.vae, guidance.cfg.latent_size ** 2,
+                                 2 * steps, steps))
 
 
 def run_dreamfusion_cli(args) -> tuple:
@@ -5028,7 +5243,10 @@ def controlnet_phase(dev, tmp, system, smplx_path) -> dict:
     want = launches(rasterize_fwd=1, rasterize_bwd=1, rasterize_bwd_rows=1,
                     groupnorm_fwd=sum(norms),
                     groupnorm_bwd_stats=norms[2], groupnorm_bwd_dx=norms[2],
-                    conv_bias_add=encode_convs(vae))
+                    conv_bias_add=encode_convs(vae),
+                    **vae_attention_launches(
+                        vae, (g.image_size // 8) ** 2, 1, 1,
+                        system.camera_cfg.batch_size))
     state = system.init_state(0)
     inputs = system.sample_step_inputs(state)
     cams = inputs.cameras

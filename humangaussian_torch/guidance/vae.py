@@ -11,14 +11,18 @@ applied by the guidance, not here.
 
 Parameter names are diffusers' (`encoder.down_blocks.0.resnets.0.norm1
 .weight`, ...), so an `AutoencoderKL` state dict loads without a
-converter. Its one attention is a plain matrix product, as in the
-reference. Where the float32 logits of the whole batch would take more
-than `ATTN_CAP_BYTES` (SDXL's 1024^2 encodes: 16,384 tokens, 8 GiB at
-batch 8), the queries run in chunks under the cap
+converter. Its one attention, single-head over the 512 channels of the
+mid block, runs in ops/vae_attention.py's kernels wherever they apply
+(`vae_attention.kernel_applies`: a CUDA bfloat16 q of width 512 and a
+multiple of 64 tokens, which every bf16 VAE on the card meets at 4,096 and
+16,384 tokens): a fused forward that never writes the logits, and a
+backward whose logits pass writes bf16 P and dS for three bf16 products.
+Elsewhere (CPU tensors, the float32 tiny VAEs) it is the reference's plain
+matrix product (`attend`); where its float32 logits would take more than
+`ATTN_CAP_BYTES` the queries run in chunks under the cap
 (`chunked_attention`), each chunk recomputed in the backward instead of
 keeping its logits and probabilities; each row's arithmetic is the same.
-At 512^2 (4,096 tokens, 512 MiB at batch 8) the one-pass form runs, as
-before. The latent scale is the configuration's `scaling_factor`
+The latent scale is the configuration's `scaling_factor`
 (0.18215 for sd-vae-ft-mse, 0.13025 for `SDXL_VAE_CONFIG`, sdxl-vae).
 
 Norms: every GroupNorm, and the SiLU after it where there is one, is the
@@ -63,7 +67,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from humangaussian_torch.ops import conv_bias
+from humangaussian_torch.ops import conv_bias, vae_attention
 from humangaussian_torch.ops.groupnorm import GroupNormAct
 
 
@@ -132,7 +136,9 @@ class ResnetBlock(nn.Module):
 
 class AttnBlock(nn.Module):
     """Single-head full-channel spatial self-attention (the mid block):
-    f32 logits and softmax, probabilities cast to the working dtype."""
+    f32 logits and softmax, probabilities cast to the working dtype; the
+    fused kernels where `vae_attention.kernel_applies`, `attend` or
+    `chunked_attention` elsewhere."""
 
     def __init__(self, ch, groups):
         super().__init__()
@@ -147,9 +153,13 @@ class AttnBlock(nn.Module):
         res = x
         h = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
-        rows = attention_chunk_rows(b, hh * ww)
-        h = self.to_out[0](attend(q, k, v) if rows >= hh * ww
-                           else chunked_attention(q, k, v, rows))
+        if vae_attention.kernel_applies(q):
+            h = vae_attention.vae_attention(q, k, v)
+        else:
+            rows = attention_chunk_rows(b, hh * ww)
+            h = (attend(q, k, v) if rows >= hh * ww
+                 else chunked_attention(q, k, v, rows))
+        h = self.to_out[0](h)
         return res + h.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
 
 

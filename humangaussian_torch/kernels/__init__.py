@@ -168,9 +168,21 @@ CONV_BIAS_ADD = Kernel(
     [_P, _P, _LL, _I, _LL, _I, _I, _P],
 )
 
+VAE_ATTENTION_FWD = Kernel(
+    "vae_attention_fwd", "vae_attention.cu", "hg_vae_attention_fwd",
+    # q, k, v, out, lse, batch, n, scale, stream
+    [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+)
+
+VAE_ATTENTION_BWD = Kernel(
+    "vae_attention_bwd", "vae_attention.cu", "hg_vae_attention_bwd",
+    # q, k, v, out, dout, lse, p, ds, batch, n, scale, stream
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+)
+
 KERNELS = (RASTERIZE_FWD, RASTERIZE_BWD, RASTERIZE_BWD_ROWS, GROUPNORM_FWD,
            GROUPNORM_BWD_STATS, GROUPNORM_BWD_DX, ATTENTION_FWD,
-           CONV_BIAS_ADD)
+           CONV_BIAS_ADD, VAE_ATTENTION_FWD, VAE_ATTENTION_BWD)
 
 
 def build_all() -> None:

@@ -21,6 +21,7 @@ the peak). The antialiased resize of the step (`ops/resize.py`, gathers,
 no kernel of its own) repeats its backward bit for bit under strict
 deterministic algorithms and matches its CPU result on the card.
 """
+import math
 import os
 import subprocess
 import sys
@@ -72,7 +73,8 @@ def test_port_imports_no_jax():
         "assert len(names) >= 48, names\n"
         "for n in ('train.photo', 'train.optim', 'densify', 'losses', "
         "'config', 'ops.knn', 'data.photo', 'apps.launch', 'ops.groupnorm', "
-        "'ops.attention', 'ops.conv_bias', 'utils.schedules', 'guidance.schedule', "
+        "'ops.attention', 'ops.conv_bias', 'ops.vae_attention', "
+        "'utils.schedules', 'guidance.schedule', "
         "'guidance.vae', 'guidance.unet', 'guidance.prompt', "
         "'guidance.dual_branch', 'guidance.controlnet', 'nerf.gan', "
         "'nerf.explicit', 'registry', 'train.adan', 'train.optimizers', "
@@ -212,7 +214,7 @@ def test_guidance_wrappers_take_plain_on_the_cpu_and_do_not_count():
         "rasterize_fwd", "rasterize_bwd", "rasterize_bwd_rows",
         "groupnorm_fwd",
         "groupnorm_bwd_stats", "groupnorm_bwd_dx", "attention_fwd",
-        "conv_bias_add"}
+        "conv_bias_add", "vae_attention_fwd", "vae_attention_bwd"}
 
 
 def test_group_norm_bwd_dx_takes_plain_on_the_cpu_and_does_not_count():
@@ -330,6 +332,8 @@ def test_conv_bias_add_on_the_cpu_is_the_library_add(layout):
     (kernels.GROUPNORM_BWD_DX, "groupnorm_bwd_dx"),
     (kernels.ATTENTION_FWD, "attention_fwd"),
     (kernels.CONV_BIAS_ADD, "conv_bias"),
+    (kernels.VAE_ATTENTION_FWD, "vae_attention"),
+    (kernels.VAE_ATTENTION_BWD, "vae_attention"),
 ])
 def test_kernel_build_naming(kernel, stem):
     lib = kernel.library_path()
@@ -1038,36 +1042,143 @@ def test_sdxl_unet_launches_k4_at_every_self_attention_site(cuda_device):
 
 
 @pytest.mark.cuda
-def test_vae_attention_chunks_only_past_the_cap(cuda_device, monkeypatch):
-    """The VAE's mid-block attention at batch 8: 4096 tokens (SD2's 512^2
-    encode) take the one-pass form, 16,384 tokens (SDXL's 1024^2) the
-    chunked one, in 2048-query chunks; on one 16,384-token image the
-    chunked form's output and input gradient match the one-pass form's
-    within bfloat16 rounding."""
+@pytest.mark.parametrize("b,n", [(8, 4096), (2, 16384)])
+def test_vae_attention_kernels_match_attend(cuda_device, b, n):
+    """The fused forward (one launch) and the backward (one logits pass a
+    chunk) at SD2's and SDXL's token counts against autograd through the
+    plain `attend`: output and the three gradients within 2^-6 of each
+    one's largest entry (two bf16 ulps at the peak)."""
+    from humangaussian_torch.guidance.vae import attend
+    from humangaussian_torch.ops import vae_attention
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n + b)
+    q, k, v, g = (torch.randn((b, n, 512), generator=gen, device=cuda_device)
+                  .to(torch.bfloat16) for _ in range(4))
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = vae_attention.vae_attention(*xs)
+    out.backward(g)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["vae_attention_fwd"] == 1
+    assert counts["vae_attention_bwd"] == -(-b // vae_attention.backward_chunk(
+        b, n))
+    rs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = attend(*rs)
+    ref.backward(g)
+    for got, want in zip((out.detach(), *(x.grad for x in xs)),
+                         (ref.detach(), *(x.grad for x in rs))):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2.0 ** -6 * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_vae_attention_keeps_the_plain_paths_precision(cuda_device):
+    """Against a float64 oracle on the same bf16 inputs (1 x 4096 x 512),
+    the kernels' relative error (Frobenius) in out, dq, dk and dv is at
+    most 1.1 times that of autograd through the plain `attend`."""
+    from humangaussian_torch.guidance.vae import attend
+    from humangaussian_torch.ops import vae_attention
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, g = (torch.randn((1, 4096, 512), generator=gen,
+                              device=cuda_device).to(torch.bfloat16)
+                  for _ in range(4))
+    xd = [x.double().requires_grad_(True) for x in (q, k, v)]
+    logits = xd[0] @ xd[1].transpose(1, 2) / math.sqrt(512)
+    oracle = torch.softmax(logits, -1) @ xd[2]
+    oracle.backward(g.double())
+    want = (oracle.detach(), *(x.grad for x in xd))
+
+    def errors(fn):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs)
+        out.backward(g)
+        return [float((a.double() - w).norm() / w.norm())
+                for a, w in zip((out, *(x.grad for x in xs)), want)]
+
+    fused, plain = errors(vae_attention.vae_attention), errors(attend)
+    for name, f, p in zip(("out", "dq", "dk", "dv"), fused, plain):
+        assert f <= 1.1 * p, (name, f, p)
+
+
+_DETERMINISTIC_BACKWARD = """
+import sys, torch
+from humangaussian_torch import kernels
+from humangaussian_torch.ops import vae_attention
+torch.use_deterministic_algorithms(True)
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(11)
+q, k, v, g = (torch.randn((2, 16384, 512), generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(4))
+
+def grads():
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = vae_attention.vae_attention(*xs)
+    out.backward(g)
+    return [out.detach()] + [x.grad for x in xs]
+
+a, b = grads(), grads()
+torch.cuda.synchronize()
+assert kernels.launch_counts()["vae_attention_bwd"] == 4
+assert all(torch.equal(x, y) for x, y in zip(a, b)), "backwards differ"
+print("bit-equal")
+"""
+
+
+@pytest.mark.cuda
+def test_vae_attention_backward_repeats_bit_for_bit(cuda_device):
+    """Two forwards and backwards at (2, 16384, 512) bit-equal with torch's
+    deterministic algorithms on, strict (in a process that sets cuBLAS's
+    workspace before it starts, as chip_smoke.py does)."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", _DETERMINISTIC_BACKWARD],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "bit-equal" in proc.stdout
+
+
+@pytest.mark.cuda
+def test_vae_attention_dispatch_takes_the_fused_kernels(cuda_device,
+                                                        monkeypatch):
+    """The bf16 `AttnBlock(512, 32)` on the card at SD2's and SDXL's token
+    counts (batch 8 at 64^2 and 128^2) launches the fused forward once a
+    forward and never calls `chunked_attention` or `attend`; on one
+    16,384-token image its output and input gradient match the plain path's
+    (the gate closed) within bfloat16 rounding."""
     from humangaussian_torch.guidance import vae as port_vae
+    from humangaussian_torch.ops import vae_attention
 
     torch.manual_seed(0)
     blk = port_vae.AttnBlock(512, 32).to(cuda_device, torch.bfloat16)
     blk.requires_grad_(False)
     calls = []
-    own = port_vae.chunked_attention
 
-    def spy(q, k, v, rows):
-        calls.append(rows)
-        return own(q, k, v, rows)
+    def spy(name, own):
+        def fn(*args):
+            calls.append(name)
+            return own(*args)
+        return fn
 
-    monkeypatch.setattr(port_vae, "chunked_attention", spy)
+    monkeypatch.setattr(port_vae, "chunked_attention",
+                        spy("chunked", port_vae.chunked_attention))
+    monkeypatch.setattr(port_vae, "attend", spy("attend", port_vae.attend))
 
     def image(b, s):
         return torch.randn((b, 512, s, s), device=cuda_device,
                            dtype=torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
 
+    kernels.reset_launch_counts()
     with torch.no_grad():
         blk(image(8, 64))
-        assert calls == []
         blk(image(8, 128))
-        assert calls == [2048]
+    assert kernels.launch_counts()["vae_attention_fwd"] == 2
+    assert calls == []
     x0, cot = image(1, 128), image(1, 128)
 
     def run():
@@ -1076,11 +1187,12 @@ def test_vae_attention_chunks_only_past_the_cap(cuda_device, monkeypatch):
         (y.float() * cot.float()).sum().backward()
         return y.detach().float(), x.grad.float()
 
-    one = run()
-    monkeypatch.setattr(port_vae, "ATTN_CAP_BYTES", 1 << 28)
-    chunked = run()
-    assert calls[-1] == 4096
-    for a, b in zip(chunked, one):
+    fused = run()
+    assert calls == [] and kernels.launch_counts()["vae_attention_bwd"] == 1
+    monkeypatch.setattr(vae_attention, "kernel_applies", lambda q: False)
+    plain = run()
+    assert calls == ["chunked"] or calls == ["attend"]
+    for a, b in zip(fused, plain):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2 * float(
             b.abs().max()))
